@@ -1,0 +1,755 @@
+"""Light tensor IR extracted from a ``torch.export`` graph.
+
+The paper's NDA operates on straight-line tensor programs in ANF (SSA).
+An exported aten graph is exactly that.  :func:`extract_program` exports
+the function on ``meta`` tensors (nothing is allocated, nothing runs)
+and lowers every aten node onto the reference package's prim vocabulary
+(``dot_general``, ``broadcast_in_dim``, ``reduce_sum``, ``select_n``,
+...), so the analysis core (``core.nda`` and everything after it) runs
+unchanged on the result:
+
+- ``matmul`` / ``einsum`` become ``dot_general`` (plus a ``transpose``
+  to the einsum's output order).  The default decompositions are never
+  run: they would merge batch and sequence dims into one ``mm`` and NDA
+  could no longer shard them apart.
+- Elementwise ops follow the reference's implicit-broadcast convention:
+  lower-rank operands are rank-promoted with ``broadcast_in_dim``,
+  rank-0 operands and Python scalars stay scalar literals, and operands
+  of another dtype are converted first.
+- The layer ``scan`` (``torch._higher_order_ops.scan``) is instantiated
+  once, with trip counts and carry / ``xs`` / ``ys`` value links, as the
+  reference does for ``lax.scan``.
+- The fused attention op (``repro_torch::flash_attention``) is recorded
+  as one ``kernel:flash_attention`` op; its impl argument is dropped, so
+  the program does not depend on the implementation choice.
+
+An aten op the tracer does not know raises: NDA treats an unknown prim
+as elementwise, so a silently passed-through ``view`` or ``mm`` would
+give wrong colors without any error.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import operator
+import re
+from typing import NamedTuple
+
+import numpy as np
+
+from repro_torch import pytree
+from repro_torch.kernels import registry as kernel_registry
+
+# bytes per element of every dtype a traced program may carry
+ITEMSIZE = {
+    "bool": 1, "uint8": 1, "int8": 1, "int16": 2, "int32": 4, "int64": 8,
+    "float16": 2, "bfloat16": 2, "float32": 4, "float64": 8,
+    "complex64": 8, "complex128": 16,
+}
+
+
+def dtype_name(dtype) -> str:
+    """The IR's name for a torch (or numpy) dtype, e.g. ``"bfloat16"``."""
+    name = str(dtype).removeprefix("torch.")
+    if name not in ITEMSIZE:
+        name = np.dtype(dtype).name
+    if name not in ITEMSIZE:
+        raise TypeError(f"dtype {dtype} has no entry in the IR's "
+                        f"itemsize table")
+    return name
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorType:
+    shape: tuple[int, ...]
+    dtype: str                   # a key of ITEMSIZE
+
+    def __post_init__(self) -> None:
+        # size/nbytes sit on the cost model's per-row hot path (millions
+        # of reads per search); precompute once
+        size = 1
+        for s in self.shape:
+            size *= int(s)
+        object.__setattr__(self, "_size", size)
+        object.__setattr__(self, "_nbytes", size * ITEMSIZE[self.dtype])
+
+    @property
+    def rank(self) -> int:
+        return len(self.shape)
+
+    @property
+    def size(self) -> int:
+        return self._size
+
+    @property
+    def nbytes(self) -> int:
+        return self._nbytes
+
+
+@dataclasses.dataclass
+class Op:
+    prim: str
+    params: dict
+    operands: list[int]          # value ids
+    results: list[int]           # value ids
+    # For scan-instantiated ops, records which structural role each
+    # operand/result plays; used by nda to add loop-carried identities.
+    meta: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class Program:
+    ops: list[Op] = dataclasses.field(default_factory=list)
+    types: dict[int, TensorType] = dataclasses.field(default_factory=dict)
+    inputs: list[int] = dataclasses.field(default_factory=list)
+    outputs: list[int] = dataclasses.field(default_factory=list)
+    input_paths: list[str] = dataclasses.field(default_factory=list)
+    # extra identity links between values: (vid_a, vid_b, offset_a) means
+    # dims[offset_a:] of a are identified dim-wise with dims of b.  Produced
+    # by scan carry connections (offset 0) and scan xs/ys slicing (offset 1).
+    value_links: list[tuple[int, int, int]] = dataclasses.field(default_factory=list)
+    # number of loop iterations each op executes (1 for top level,
+    # `length` for ops inside a scan body) — used by the cost model.
+    trip_counts: dict[int, int] = dataclasses.field(default_factory=dict)
+
+    def new_value(self, shape, dtype) -> int:
+        vid = len(self.types)
+        self.types[vid] = TensorType(tuple(int(s) for s in shape),
+                                     dtype_name(dtype))
+        return vid
+
+    def add_op(self, op: Op, trip: int = 1) -> None:
+        self.trip_counts[len(self.ops)] = trip
+        self.ops.append(op)
+
+
+class GatherDimensionNumbers(NamedTuple):
+    """The gather dimension numbers ``core.nda``'s gather rule reads."""
+
+    offset_dims: tuple[int, ...]
+    collapsed_slice_dims: tuple[int, ...]
+    start_index_map: tuple[int, ...]
+    operand_batching_dims: tuple[int, ...] = ()
+    start_indices_batching_dims: tuple[int, ...] = ()
+
+
+class UnsupportedOpError(NotImplementedError):
+    """An exported node the tracer has no lowering for."""
+
+
+@dataclasses.dataclass(frozen=True)
+class _Ref:
+    """A traced value inside the node environment (vs a Python scalar)."""
+
+    vid: int
+
+
+# aten op -> prim for ops whose NDA rule is the elementwise default
+_ARITH = {
+    "add": "add", "sub": "sub", "mul": "mul", "div": "div",
+    "exp": "exp", "rsqrt": "rsqrt", "cos": "cos", "sin": "sin",
+    "neg": "neg", "tanh": "tanh", "sigmoid": "logistic",
+}
+_COMPARE = {"ge": "ge", "bitwise_and": "and"}
+# nodes that compute nothing the analysis can see
+_IGNORED = {"_assert_tensor_metadata"}
+
+_KERNEL_NAMESPACE = "repro_torch"
+
+
+def _norm_dim(d: int, rank: int) -> int:
+    return d + rank if d < 0 else d
+
+
+def _meta(node) -> tuple[tuple[int, ...], str]:
+    """Static ``(shape, dtype name)`` of an exported node's value."""
+    val = node.meta.get("val")
+    if val is None or not hasattr(val, "shape"):
+        raise UnsupportedOpError(f"node {node.name} carries no tensor value")
+    try:
+        shape = tuple(int(s) for s in val.shape)
+    except TypeError:
+        raise UnsupportedOpError(
+            f"node {node.name} has a symbolic shape {tuple(val.shape)}; "
+            f"trace with static shapes") from None
+    return shape, dtype_name(val.dtype)
+
+
+class _Extractor:
+    def __init__(self) -> None:
+        self.prog = Program()
+        self.trip = 1
+
+    # -- value plumbing ---------------------------------------------------
+
+    def _emit(self, prim: str, params: dict, operands: list[int],
+              shape, dtype) -> int:
+        vid = self.prog.new_value(shape, dtype)
+        self.prog.add_op(Op(prim, params, list(operands), [vid]), self.trip)
+        return vid
+
+    def _literal(self, dtype) -> int:
+        """A scalar constant: a value with no defining op."""
+        return self.prog.new_value((), dtype)
+
+    def _type(self, vid: int) -> TensorType:
+        return self.prog.types[vid]
+
+    def _convert(self, vid: int, dtype: str) -> int:
+        if self._type(vid).dtype == dtype:
+            return vid
+        return self._emit("convert_element_type",
+                          {"new_dtype": dtype, "weak_type": False},
+                          [vid], self._type(vid).shape, dtype)
+
+    def _bcast(self, vid: int, shape: tuple[int, ...],
+               bdims: tuple[int, ...]) -> int:
+        return self._emit("broadcast_in_dim",
+                          {"shape": tuple(shape),
+                           "broadcast_dimensions": tuple(bdims)},
+                          [vid], shape, self._type(vid).dtype)
+
+    def _rank_promote(self, vid: int, rank: int) -> int:
+        t = self._type(vid)
+        if t.rank == 0 or t.rank == rank:
+            return vid
+        k = rank - t.rank
+        return self._bcast(vid, (1,) * k + t.shape,
+                           tuple(range(k, rank)))
+
+    def _bcast_to(self, vid: int, shape: tuple[int, ...]) -> int:
+        t = self._type(vid)
+        if t.shape == shape:
+            return vid
+        k = len(shape) - t.rank
+        return self._bcast(vid, shape, tuple(range(k, len(shape))))
+
+    # -- graph walk -------------------------------------------------------
+
+    def walk(self, gm, arg_ids: list[int]) -> list[int]:
+        """Lower one graph module; returns the vids of its outputs."""
+        env: dict = {}
+        placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
+        if len(placeholders) != len(arg_ids):
+            raise UnsupportedOpError(
+                f"graph takes {len(placeholders)} inputs, "
+                f"{len(arg_ids)} given")
+        for node, vid in zip(placeholders, arg_ids):
+            env[node] = _Ref(vid)
+        for node in gm.graph.nodes:
+            if node.op == "placeholder":
+                continue
+            if node.op == "get_attr":
+                env[node] = getattr(gm, node.target)
+            elif node.op == "call_function":
+                env[node] = self._call(node, env)
+            elif node.op == "output":
+                outs = pytree.tree_leaves(self._args(node.args[0], env))
+                return [o.vid for o in outs]
+            else:
+                raise UnsupportedOpError(f"node kind {node.op!r}")
+        raise UnsupportedOpError("graph has no output node")
+
+    def _args(self, a, env):
+        import torch.fx
+        if isinstance(a, torch.fx.Node):
+            return env[a]
+        if isinstance(a, (list, tuple)):
+            return type(a)(self._args(x, env) for x in a)
+        return a
+
+    def _call(self, node, env):
+        target = node.target
+        args = self._args(node.args, env)
+        kwargs = self._args(dict(node.kwargs), env)
+        if target is operator.getitem:
+            return args[0][args[1]]
+        if getattr(target, "__name__", "") == "scan" and \
+                getattr(target, "namespace", "higher_order") == "higher_order":
+            return self._scan(node, *args, **kwargs)
+        namespace = getattr(target, "namespace", None)
+        packet = getattr(getattr(target, "_overloadpacket", None),
+                         "__name__", None)
+        if namespace == _KERNEL_NAMESPACE:
+            return self._kernel(node, packet, args)
+        if namespace != "aten" or packet is None:
+            raise UnsupportedOpError(f"no IR lowering for {target}")
+        if packet in _IGNORED:
+            return None
+        handler = getattr(self, f"_aten_{packet}", None)
+        if handler is not None:
+            return handler(node, args, kwargs)
+        if packet in _ARITH or packet in _COMPARE:
+            return self._elementwise(node, packet, args, kwargs)
+        raise UnsupportedOpError(
+            f"no IR lowering for aten op {target}; add one to "
+            f"repro_torch.core.ir (unknown ops are not elementwise-safe)")
+
+    # -- elementwise --------------------------------------------------------
+
+    def _elementwise(self, node, packet, args, kwargs):
+        if kwargs.get("alpha", 1) != 1 or kwargs.get("rounding_mode"):
+            raise UnsupportedOpError(f"{node.target} with {kwargs}")
+        shape, dtype = _meta(node)
+        arith = packet in _ARITH
+        prim = _ARITH[packet] if arith else _COMPARE[packet]
+        operands = []
+        for a in args:
+            if isinstance(a, _Ref):
+                vid = a.vid
+                if arith and self._type(vid).rank > 0:
+                    vid = self._convert(vid, dtype)
+                operands.append(self._rank_promote(vid, len(shape)))
+            elif isinstance(a, (bool, int, float)):
+                operands.append(self._literal(dtype))
+            else:
+                raise UnsupportedOpError(f"{node.target} operand {a!r}")
+        return _Ref(self._emit(prim, {}, operands, shape, dtype))
+
+    def _aten_relu(self, node, args, kwargs):
+        shape, dtype = _meta(node)
+        return _Ref(self._emit("max", {}, [args[0].vid, self._literal(dtype)],
+                               shape, dtype))
+
+    def _aten_where(self, node, args, kwargs):
+        # reference: every case broadcast to the result shape, then
+        # select_n(pred, on_false, on_true)
+        shape, dtype = _meta(node)
+        cond, on_true, on_false = args
+
+        def full(a, dt):
+            vid = a.vid if isinstance(a, _Ref) else self._literal(dt)
+            if dt != "bool":
+                vid = self._convert(vid, dt)
+            return self._bcast_to(vid, shape)
+
+        ops = [full(cond, "bool"), full(on_false, dtype),
+               full(on_true, dtype)]
+        return _Ref(self._emit("select_n", {}, ops, shape, dtype))
+
+    def _convert_node(self, node, args):
+        shape, dtype = _meta(node)
+        return _Ref(self._convert(args[0].vid, dtype))
+
+    def _aten_to(self, node, args, kwargs):
+        return self._convert_node(node, args)
+
+    def _aten__to_copy(self, node, args, kwargs):
+        return self._convert_node(node, args)
+
+    # -- shape ops ----------------------------------------------------------
+
+    def _reshape(self, node, args):
+        shape, dtype = _meta(node)
+        vid = args[0].vid
+        if self._type(vid).shape == shape:
+            return _Ref(vid)
+        return _Ref(self._emit("reshape", {"new_sizes": shape,
+                                           "dimensions": None},
+                               [vid], shape, dtype))
+
+    def _aten_view(self, node, args, kwargs):
+        return self._reshape(node, args)
+
+    def _aten_reshape(self, node, args, kwargs):
+        return self._reshape(node, args)
+
+    def _aten__unsafe_view(self, node, args, kwargs):
+        return self._reshape(node, args)
+
+    def _transpose(self, node, vid, perm):
+        shape, dtype = _meta(node)
+        if tuple(perm) == tuple(range(len(perm))):
+            return _Ref(vid)
+        return _Ref(self._emit("transpose", {"permutation": tuple(perm)},
+                               [vid], shape, dtype))
+
+    def _aten_permute(self, node, args, kwargs):
+        rank = self._type(args[0].vid).rank
+        return self._transpose(node, args[0].vid,
+                               [_norm_dim(d, rank) for d in args[1]])
+
+    def _aten_t(self, node, args, kwargs):
+        rank = self._type(args[0].vid).rank
+        return self._transpose(node, args[0].vid, list(range(rank))[::-1])
+
+    def _aten_numpy_T(self, node, args, kwargs):
+        return self._aten_t(node, args, kwargs)
+
+    def _aten_unsqueeze(self, node, args, kwargs):
+        shape, _ = _meta(node)
+        d = _norm_dim(args[1], len(shape))
+        return _Ref(self._bcast(args[0].vid, shape,
+                                tuple(i for i in range(len(shape))
+                                      if i != d)))
+
+    def _aten_expand(self, node, args, kwargs):
+        shape, _ = _meta(node)
+        return _Ref(self._bcast_to(args[0].vid, shape))
+
+    def _slice(self, vid, dim, start, end, step):
+        t = self._type(vid)
+        starts = [0] * t.rank
+        limits = list(t.shape)
+        starts[dim], limits[dim] = start, end
+        out = list(t.shape)
+        out[dim] = len(range(start, end, step))
+        return self._emit("slice", {"start_indices": tuple(starts),
+                                    "limit_indices": tuple(limits),
+                                    "strides": None if step == 1 else
+                                    tuple(step if i == dim else 1
+                                          for i in range(t.rank))},
+                          [vid], out, t.dtype)
+
+    def _aten_slice(self, node, args, kwargs):
+        vid = args[0].vid
+        t = self._type(vid)
+        dim = _norm_dim(args[1] if len(args) > 1 else 0, t.rank)
+        start, end, step = slice(
+            *(list(args[2:5]) + [None] * (5 - len(args)))[:3]
+        ).indices(t.shape[dim])
+        if (start, end, step) == (0, t.shape[dim], 1):
+            return _Ref(vid)
+        return _Ref(self._slice(vid, dim, start, end, step))
+
+    def _aten_select(self, node, args, kwargs):
+        vid = args[0].vid
+        t = self._type(vid)
+        dim = _norm_dim(args[1], t.rank)
+        idx = _norm_dim(args[2], t.shape[dim])
+        sl = self._slice(vid, dim, idx, idx + 1, 1)
+        shape, dtype = _meta(node)
+        return _Ref(self._emit("squeeze", {"dimensions": (dim,)}, [sl],
+                               shape, dtype))
+
+    def _aten_cat(self, node, args, kwargs):
+        shape, dtype = _meta(node)
+        tensors = [a.vid for a in args[0]]
+        dim = _norm_dim(args[1] if len(args) > 1 else kwargs.get("dim", 0),
+                        len(shape))
+        return _Ref(self._emit("concatenate", {"dimension": dim},
+                               [self._convert(v, dtype) for v in tensors],
+                               shape, dtype))
+
+    # -- reductions ---------------------------------------------------------
+
+    def _reduce(self, node, prim, vid, dims, keepdim):
+        shape, dtype = _meta(node)
+        t = self._type(vid)
+        axes = tuple(sorted({_norm_dim(d, t.rank) for d in dims})) \
+            if dims else tuple(range(t.rank))
+        kept = tuple(i for i in range(t.rank) if i not in axes)
+        red_shape = tuple(t.shape[i] for i in kept)
+        out = self._emit(prim, {"axes": axes}, [vid], red_shape, dtype)
+        if keepdim:
+            out = self._bcast(out, shape, kept)
+        return out
+
+    @staticmethod
+    def _reduce_args(args, kwargs):
+        dims = args[1] if len(args) > 1 else kwargs.get("dim")
+        dims = [dims] if isinstance(dims, int) else (dims or [])
+        keep = args[2] if len(args) > 2 else kwargs.get("keepdim", False)
+        return dims, keep
+
+    def _aten_sum(self, node, args, kwargs):
+        dims, keep = self._reduce_args(args, kwargs)
+        vid = self._convert(args[0].vid, _meta(node)[1])
+        return _Ref(self._reduce(node, "reduce_sum", vid, dims, keep))
+
+    def _aten_amax(self, node, args, kwargs):
+        dims, keep = self._reduce_args(args, kwargs)
+        return _Ref(self._reduce(node, "reduce_max", args[0].vid, dims,
+                                 keep))
+
+    # -- contractions -------------------------------------------------------
+
+    def _dot(self, node, lhs, rhs, lc, rc, lb, rb):
+        shape, dtype = _meta(node)
+        return self._emit(
+            "dot_general",
+            {"dimension_numbers": ((tuple(lc), tuple(rc)),
+                                   (tuple(lb), tuple(rb))),
+             "precision": None, "preferred_element_type": dtype},
+            [lhs, rhs], shape, dtype)
+
+    def _aten_matmul(self, node, args, kwargs):
+        a, b = args[0].vid, args[1].vid
+        na, nb = self._type(a).rank, self._type(b).rank
+        if nb == 2 and na >= 1:
+            return _Ref(self._dot(node, a, b, (na - 1,), (0,), (), ()))
+        if na == nb and na >= 3 and \
+                self._type(a).shape[:-2] == self._type(b).shape[:-2]:
+            batch = tuple(range(na - 2))
+            return _Ref(self._dot(node, a, b, (na - 1,), (na - 2,),
+                                  batch, batch))
+        raise UnsupportedOpError(
+            f"matmul of ranks {na} x {nb} (broadcast batch dims)")
+
+    def _aten_einsum(self, node, args, kwargs):
+        eq = args[0].replace(" ", "")
+        operands = [a.vid for a in args[1]]
+        if "..." in eq or "->" not in eq or len(operands) != 2:
+            raise UnsupportedOpError(f"einsum {eq!r} with {len(operands)} "
+                                     f"operands")
+        ins, out = eq.split("->")
+        ls, rs = ins.split(",")
+        if len(set(ls)) != len(ls) or len(set(rs)) != len(rs) or \
+                any(c not in ls and c not in rs for c in out):
+            raise UnsupportedOpError(f"einsum {eq!r}")
+        batch = [c for c in ls if c in rs and c in out]
+        contract = [c for c in ls if c in rs and c not in out]
+        free_l = [c for c in ls if c not in rs]
+        free_r = [c for c in rs if c not in ls]
+        if any(c not in out for c in free_l + free_r):
+            raise UnsupportedOpError(f"einsum {eq!r} sums a free index")
+        dg_letters = batch + free_l + free_r
+        shape, dtype = _meta(node)
+        dg_shape = [shape[out.index(c)] for c in dg_letters]
+        vid = self.prog.new_value(dg_shape, dtype)
+        self.prog.add_op(Op(
+            "dot_general",
+            {"dimension_numbers": (
+                (tuple(ls.index(c) for c in contract),
+                 tuple(rs.index(c) for c in contract)),
+                (tuple(ls.index(c) for c in batch),
+                 tuple(rs.index(c) for c in batch))),
+             "precision": None, "preferred_element_type": dtype},
+            operands, [vid]), self.trip)
+        perm = [dg_letters.index(c) for c in out]
+        return self._transpose(node, vid, perm)
+
+    # -- sources --------------------------------------------------------------
+
+    def _aten_arange(self, node, args, kwargs):
+        shape, dtype = _meta(node)
+        start, step = 0, 1
+        if len(args) >= 2:
+            start = args[0]
+        if len(args) >= 3:
+            step = args[2]
+        vid = self._emit("iota", {"dtype": dtype, "shape": shape,
+                                  "dimension": 0}, [], shape, dtype)
+        if step != 1:
+            vid = self._emit("mul", {}, [vid, self._literal(dtype)], shape,
+                             dtype)
+        if start != 0:
+            vid = self._emit("add", {}, [vid, self._literal(dtype)], shape,
+                             dtype)
+        return _Ref(vid)
+
+    def _aten_embedding(self, node, args, kwargs):
+        # reference lowering of jnp.take(table, idx, axis=0): index
+        # vector dim appended, then a gather of full table rows
+        shape, dtype = _meta(node)
+        table, idx = args[0].vid, args[1].vid
+        it = self._type(idx)
+        idx1 = self._bcast(idx, it.shape + (1,), tuple(range(it.rank)))
+        dn = GatherDimensionNumbers(offset_dims=(it.rank,),
+                                    collapsed_slice_dims=(0,),
+                                    start_index_map=(0,))
+        return _Ref(self._emit(
+            "gather", {"dimension_numbers": dn,
+                       "slice_sizes": (1, self._type(table).shape[1])},
+            [table, idx1], shape, dtype))
+
+    # -- fused kernels and loops ---------------------------------------------
+
+    def _kernel(self, node, name, args):
+        spec = kernel_registry.KERNELS.get(name)
+        n = 0 if spec is None else len(spec.operand_roles)
+        if spec is None or len(args) < n or any(
+                not isinstance(a, _Ref) or self._type(a.vid).rank != len(r)
+                for a, r in zip(args[:n], spec.operand_roles)):
+            raise UnsupportedOpError(
+                f"custom op {node.target} does not match a registry "
+                f"kernel contract")
+        params: dict = {"kernel": spec.name}
+        if spec.name == "flash_attention":
+            params["causal"] = bool(args[3])
+        shape, dtype = _meta(node)
+        return _Ref(self._emit(spec.prim, params,
+                               [a.vid for a in args[:n]], shape, dtype))
+
+    def _scan(self, node, body_gm, init, xs, additional=(), **kwargs):
+        if kwargs:
+            raise UnsupportedOpError(f"scan with {sorted(kwargs)}")
+        carries = [a.vid for a in init]
+        xss = [a.vid for a in xs]
+        consts = [a.vid for a in additional]
+        if not xss:
+            raise UnsupportedOpError("scan without xs")
+        length = self._type(xss[0]).shape[0]
+        # one symbolic iteration: body carries fresh values dim-linked to
+        # the outer carries; body xs = one slice of xss; consts as-is
+        body_carry_ids = []
+        for c in carries:
+            t = self._type(c)
+            b = self.prog.new_value(t.shape, t.dtype)
+            self.prog.value_links.append((c, b, 0))
+            body_carry_ids.append(b)
+        body_xs_ids = []
+        for x in xss:
+            t = self._type(x)
+            b = self.prog.new_value(t.shape[1:], t.dtype)
+            self.prog.value_links.append((x, b, 1))
+            body_xs_ids.append(b)
+        outer_trip = self.trip
+        self.trip = outer_trip * length
+        outs = self.walk(body_gm, body_carry_ids + body_xs_ids + consts)
+        self.trip = outer_trip
+        carry_outs, y_outs = outs[:len(carries)], outs[len(carries):]
+        results = []
+        vals = node.meta["val"]
+        for i, val in enumerate(vals):
+            vid = self.prog.new_value(tuple(int(s) for s in val.shape),
+                                      val.dtype)
+            results.append(_Ref(vid))
+            if i < len(carries):
+                # loop: body carry out ≗ outer result ≗ body carry in
+                self.prog.value_links.append((carry_outs[i], vid, 0))
+                self.prog.value_links.append((body_carry_ids[i], vid, 0))
+            else:
+                self.prog.value_links.append(
+                    (vid, y_outs[i - len(carries)], 1))
+        return tuple(results)
+
+
+# memory addresses in default object reprs ("<function f at 0x7f..>")
+_ADDR_RE = re.compile(r"0x[0-9a-fA-F]{4,}")
+
+
+def _canon(x) -> str:
+    """Deterministic canonical string for an op param value.
+
+    Used by :func:`program_fingerprint`, so the result must be identical
+    across processes and interpreter runs: no ``id()``, no default object
+    ``repr`` (which embeds addresses), no ``hash()`` (salted by
+    PYTHONHASHSEED).  Unknown objects degrade to their type name.
+    """
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return repr(x)
+    if isinstance(x, bytes):
+        return f"bytes:{hashlib.sha256(x).hexdigest()}"
+    if isinstance(x, np.dtype):
+        return f"dtype:{x.name}"
+    if isinstance(x, np.ndarray):
+        return (f"ndarray:{x.shape}:{x.dtype.name}:"
+                f"{hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()}")
+    if isinstance(x, (tuple, list)):
+        return "[" + ",".join(_canon(e) for e in x) + "]"
+    if isinstance(x, (set, frozenset)):
+        return "{" + ",".join(sorted(_canon(e) for e in x)) + "}"
+    if isinstance(x, dict):
+        items = sorted((_canon(k), _canon(v)) for k, v in x.items())
+        return "{" + ",".join(f"{k}:{v}" for k, v in items) + "}"
+    try:
+        if isinstance(x, np.generic):
+            return f"npscalar:{x.dtype.name}:{x!r}"
+        s = str(x)
+    except Exception:                                      # noqa: BLE001
+        s = ""
+    if not s or _ADDR_RE.search(s):
+        return f"<{type(x).__module__}.{type(x).__qualname__}>"
+    return f"{type(x).__qualname__}:{s}"
+
+
+def program_fingerprint(prog: Program) -> str:
+    """Deterministic content hash of a :class:`Program`.
+
+    The fingerprint covers everything the downstream analysis can observe:
+    op primitives and canonicalized params, the operand/result value-id
+    wiring, tensor types, input/output ids, scan value links, and trip
+    counts.  It is a pure function of the traced computation — stable
+    across processes, PYTHONHASHSEED values, and re-traces of the same
+    function.
+
+    Args:
+        prog: the extracted program to hash.
+
+    Returns:
+        A 64-char hex SHA-256 digest.
+    """
+    h = hashlib.sha256()
+
+    def feed(s: str) -> None:
+        h.update(s.encode())
+        h.update(b"\x00")
+
+    for i, op in enumerate(prog.ops):
+        feed(f"op{i}:{op.prim}")
+        feed(_canon(op.params))
+        feed(_canon(op.operands))
+        feed(_canon(op.results))
+        feed(_canon(op.meta))
+        feed(f"trip:{prog.trip_counts.get(i, 1)}")
+    for vid in sorted(prog.types):
+        t = prog.types[vid]
+        feed(f"v{vid}:{t.shape}:{t.dtype}")
+    feed(_canon(prog.inputs))
+    feed(_canon(prog.outputs))
+    feed(_canon(sorted(prog.value_links)))
+    return h.hexdigest()
+
+
+def export_graph(fn, args: tuple, kwargs: dict | None = None):
+    """``torch.export`` ``fn`` on ``meta`` stand-ins of its tensor leaves.
+
+    Args:
+        fn: the function to trace (never executed on data).
+        args: example positional arguments; tensors of any device, or
+            ``meta`` tensors.
+        kwargs: example keyword arguments.
+
+    Returns:
+        ``(exported program, leaves, input key paths)``; the exported
+        function takes the flat leaves in the reference's pytree order.
+    """
+    import torch
+
+    tree = (tuple(args), dict(kwargs or {}))
+    leaves, paths = pytree.flatten_with_paths(tree)
+    for path, leaf in zip(paths, leaves):
+        if not isinstance(leaf, torch.Tensor):
+            raise TypeError(f"input {path} is a {type(leaf).__name__}; "
+                            f"every input leaf must be a tensor")
+    metas = tuple(torch.empty(x.shape, dtype=x.dtype, device="meta")
+                  for x in leaves)
+
+    class _Flat(torch.nn.Module):
+        def forward(self, *flat):
+            a, kw = pytree.unflatten(tree, flat)
+            return fn(*a, **kw)
+
+    ep = torch.export.export(_Flat(), metas, strict=False)
+    return ep, leaves, paths
+
+
+def extract_program(fn, *args, **kwargs) -> Program:
+    """Export ``fn`` on ``meta`` tensors and extract the flat Program.
+
+    Args:
+        fn: the function to trace (never executed on data).
+        *args: example positional arguments (``meta`` tensors suffice).
+        **kwargs: example keyword arguments.
+
+    Returns:
+        The :class:`Program`, with ``input_paths`` in the reference's
+        key-path spelling.
+
+    Raises:
+        UnsupportedOpError: on an exported node the tracer cannot lower.
+    """
+    ep, leaves, paths = export_graph(fn, args, kwargs)
+    sig = ep.graph_signature
+    if len(sig.user_inputs) != len(sig.input_specs):
+        raise UnsupportedOpError(
+            "the traced function holds parameters, buffers or tensor "
+            "constants of its own; pass every tensor as an argument")
+    ex = _Extractor()
+    arg_ids = [ex.prog.new_value(x.shape, x.dtype) for x in leaves]
+    ex.prog.inputs = list(arg_ids)
+    ex.prog.input_paths = list(paths)
+    ex.prog.outputs = ex.walk(ep.graph_module, arg_ids)
+    return ex.prog

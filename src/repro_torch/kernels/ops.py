@@ -1,0 +1,75 @@
+"""Dispatching public entry points for the fused kernels.
+
+Model code (``use_pallas=True`` paths) calls :func:`attention`.  Each
+call
+
+- resolves the implementation (``"cuda"`` vs ``"ref"``) from the ambient
+  kernel-dispatch state (``repro_torch.models.sharding``): the plan's
+  per-site decision, else the registry's default (``"cuda"``);
+- runs the computation inside the custom op
+  ``repro_torch::flash_attention``, which ``torch.export`` keeps as one
+  opaque node — the tracer (``core.ir``) records it as a single fused IR
+  op (``prim="kernel:flash_attention"``) instead of its internals.
+
+The op runs the kernel's plain version on a CPU tensor.  On a CUDA
+tensor, ``"cuda"`` launches the hand-written kernel (raising for a
+shape the kernel does not take) and ``"ref"`` runs the plain version on
+the card.  There is no fallback from one to the other.  No autograd is
+registered yet: the backward comes with the training path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import registry
+
+__all__ = ["attention"]
+
+_IMPLS = frozenset(registry.KERNELS["flash_attention"].impls)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, impl: str) -> torch.Tensor:
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown flash_attention impl {impl!r}")
+    if impl == "ref":
+        return fa.reference(q, k, v, causal=causal)
+    return fa.flash_attention(q, k, v, causal=causal)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal, impl):
+    return q.new_empty(q.shape)
+
+
+def _resolve(kernel: str) -> str:
+    """The impl for the next ``kernel`` site: plan decision or default."""
+    from repro_torch.models.sharding import get_kernel_dispatch
+    disp = get_kernel_dispatch()
+    impl = None
+    if disp is not None:
+        impl = disp.impl_for(disp.next_site(kernel))
+    return impl or registry.KERNELS[kernel].default_impl
+
+
+def attention(q, k, v, *, causal: bool = True):
+    """Fused attention dispatch: q (B,S,H,hd); k, v (B,T,H,hd).
+
+    GQA group expansion happens in the caller (the model layer), so the
+    fused op's head dim is shared across q/k/v and a plan may map it
+    over the mesh.
+
+    Args:
+        q: queries, model layout.
+        k: keys with q's head count.
+        v: values shaped like ``k``.
+        causal: causal mask on absolute positions.
+
+    Returns:
+        The attention output, (B,S,H,hd).
+    """
+    impl = _resolve("flash_attention")
+    return _flash_attention_op(q, k, v, causal, impl)

@@ -1,0 +1,172 @@
+"""Model building blocks in PyTorch: the dense decoder's parts.
+
+Ported so far: RMSNorm, RoPE, GQA attention (full, sliding-window and
+non-causal masking; the einsum path and the fused-kernel path) and the
+SwiGLU MLP.  The other block kinds of the reference (RG-LRU, MoE,
+xLSTM, cross-attention, the GELU MLP, the decode caches) are ROADMAP
+queue 1, items 9-12.
+
+Functions take plain tensors and parameter dicts in the reference's
+pytree layout.  They are written as the same reduce / elementwise steps
+the reference lowers to (the means, the softmax, the GQA repeat), so
+the traced program gives NDA the same structure.  Activations are
+annotated with logical dim names via ``sharding.constrain``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models.sharding import constrain
+
+# ---------------------------------------------------------------------------
+# common
+# ---------------------------------------------------------------------------
+
+
+def dense_fan_in(shape) -> int:
+    """Fan-in of a dense weight (its contracted dim)."""
+    return shape[-2] if len(shape) >= 2 else shape[-1]
+
+
+def rmsnorm(x, scale, eps=1e-6):
+    x32 = x.to(torch.float32)
+    var = (x32 * x32).sum(-1, keepdim=True) / x.shape[-1]
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def rope(x, positions, theta):
+    """x: (..., S, H, hd); positions: (..., S)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) *
+                      (math.log(theta) / half))
+    ang = positions[..., None].to(torch.float32) * freqs   # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def softmax(x):
+    """Softmax over the last dim, as max-shifted exp over its sum."""
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def repeat_heads(x, g: int):
+    """(B, T, KV, hd) -> (B, T, KV*g, hd), each head repeated ``g`` times."""
+    B, T, KV, hd = x.shape
+    return x[:, :, :, None, :].expand(B, T, KV, g, hd).reshape(
+        B, T, KV * g, hd)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def attn_param_shapes(cfg) -> dict:
+    """Shapes and init kinds of one attention block's parameters."""
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim
+    p = {"ln": ((d,), "ones"), "wq": ((d, h * hd), "dense"),
+         "wk": ((d, kv * hd), "dense"), "wv": ((d, kv * hd), "dense"),
+         "wo": ((h * hd, d), "dense")}
+    if cfg.qkv_bias:
+        p["bq"] = ((h * hd,), "zeros")
+        p["bk"] = ((kv * hd,), "zeros")
+        p["bv"] = ((kv * hd,), "zeros")
+    return p
+
+
+def _project_qkv(cfg, p, x, positions):
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = rope(q.reshape(*x.shape[:-1], h, hd), positions, cfg.rope_theta)
+    k = rope(k.reshape(*x.shape[:-1], kv, hd), positions, cfg.rope_theta)
+    return q, k, v.reshape(*x.shape[:-1], kv, hd)
+
+
+def attn_core(cfg, q, k, v, mask):
+    """GQA attention. q: (B,S,H,hd); k,v: (B,T,KV,hd); mask: (S,T) bool
+    or None."""
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    g = h // kv
+    B, S = q.shape[0], q.shape[1]
+    qg = q.reshape(B, S, kv, g, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k).to(torch.float32)
+    scores = scores / math.sqrt(hd)
+    scores = constrain(scores, ("act_batch", "kv_heads", None, "seq", None))
+    if mask is not None:
+        # one broadcast, as the reference's mask[None, None, None]
+        scores = torch.where(mask.expand(1, 1, 1, *mask.shape), scores,
+                             -1e30)
+    probs = softmax(scores).to(v.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    return out.reshape(B, S, h * hd)
+
+
+def causal_mask(S, T, window=0, device=None):
+    """(S, T) mask of keys each query may see (query 0 at key 0)."""
+    qp = torch.arange(S, device=device)[:, None]
+    kp = torch.arange(T, device=device)[None, :]
+    m = qp >= kp
+    if window:
+        m = m & ((qp - kp) < window)
+    return m
+
+
+def attn_apply(cfg, p, x, positions, *, window=0, is_causal=True):
+    """Full-sequence self-attention (train / prefill)."""
+    h = rmsnorm(x, p["ln"])
+    q, k, v = _project_qkv(cfg, p, h, positions)
+    if getattr(cfg, "use_pallas", False) and window == 0:
+        # fused kernel path: expand GQA groups so the fused op's head
+        # dim is shared across q/k/v (mappable by the plan), then
+        # dispatch through kernels.ops — traced as a single
+        # kernel:flash_attention IR op
+        g = cfg.num_heads // cfg.num_kv_heads
+        kf = repeat_heads(k, g) if g > 1 else k
+        vf = repeat_heads(v, g) if g > 1 else v
+        out = kernel_ops.attention(q, kf, vf, causal=is_causal)
+        out = out.reshape(*out.shape[:2], -1)
+        out = constrain(out, ("act_batch", "seq", "heads"))
+        return x + (out @ p["wo"])
+    S = x.shape[1]
+    mask = causal_mask(S, S, window, device=x.device) if is_causal \
+        else None
+    out = attn_core(cfg, q, k, v, mask)
+    out = constrain(out, ("act_batch", "seq", "heads"))
+    return x + (out @ p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_param_shapes(cfg) -> dict:
+    """Shapes and init kinds of one MLP block's parameters."""
+    d, f = cfg.d_model, cfg.d_ff
+    return {"ln": ((d,), "ones"), "wi": ((d, f), "dense"),
+            "wo": ((f, d), "dense"), "wg": ((d, f), "dense")}
+
+
+def mlp_apply(cfg, p, x):
+    """SwiGLU MLP block (pre-norm residual)."""
+    h = rmsnorm(x, p["ln"])
+    u = h @ p["wi"]
+    u = constrain(u, ("act_batch", "seq", "hidden"))
+    gate = h @ p["wg"]
+    u = gate * torch.sigmoid(gate) * u
+    return x + (u @ p["wo"])

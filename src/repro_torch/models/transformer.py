@@ -1,0 +1,287 @@
+"""Model stack in PyTorch: parameters and the full-sequence forward.
+
+A model is ``init_params(cfg, generator)`` + ``forward(cfg, params,
+tokens)`` — plain functions over parameter trees in the reference
+package's layout, so traced programs name the same input paths.
+
+Depth runs as a scan over *super-blocks* exactly as in the reference:
+the layer pattern's period defines one super-block whose parameters are
+stacked ``num_layers // period`` deep in ``params["layers"]``, and
+left-over layers run unscanned as the ``tail``.  :func:`scan_layers` is
+the one helper that runs that depth: under ``torch.export`` it emits one
+``torch._higher_order_ops.scan`` (the tracer instantiates its body once,
+the structural analogue of the paper's §4.4 repeated-layer grouping);
+run eagerly it is a plain loop giving the same result.  ``remat`` has no
+effect in the forward pass.
+
+Ported block kinds: ``attn`` (and ``local``) with the dense MLP.  The
+others raise and name their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import math
+import struct
+
+import numpy as np
+import torch
+
+from repro_torch import pytree
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.sharding import constrain, get_kernel_dispatch
+
+_NOT_PORTED = {
+    "rglru": "RG-LRU blocks are not ported yet (ROADMAP queue 1, item 9)",
+    "mlstm": "xLSTM blocks are not ported yet (ROADMAP queue 1, item 11)",
+    "slstm": "xLSTM blocks are not ported yet (ROADMAP queue 1, item 11)",
+}
+
+
+def block_kinds(cfg) -> tuple[tuple[str, ...], tuple[str, ...]]:
+    """(period kinds, tail kinds)."""
+    pattern = cfg.pattern
+    period = len(cfg.block_pattern) or 1
+    n_scan = cfg.num_layers // period
+    return pattern[:period], pattern[n_scan * period:]
+
+
+def n_scan_blocks(cfg) -> int:
+    period = len(cfg.block_pattern) or 1
+    return cfg.num_layers // period
+
+
+def _check_ported(cfg, kind: str) -> None:
+    if kind in _NOT_PORTED:
+        raise NotImplementedError(_NOT_PORTED[kind])
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "MoE blocks are not ported yet (ROADMAP queue 1, item 10)")
+    if cfg.is_encoder_decoder or cfg.frontend or cfg.mlp != "swiglu":
+        raise NotImplementedError(
+            "encoder-decoder, modality-frontend and GELU-MLP models are "
+            "not ported yet (ROADMAP queue 1, item 11)")
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+
+def _block_shapes(cfg, kind) -> dict:
+    _check_ported(cfg, kind)
+    p = {"mix": L.attn_param_shapes(cfg)}
+    if cfg.d_ff > 0:
+        p["ffn"] = L.mlp_param_shapes(cfg)
+    return p
+
+
+def _param_shapes(cfg) -> dict:
+    """The parameter tree with ``(shape, init kind)`` leaves."""
+    d, v = cfg.d_model, cfg.vocab_size
+    period_kinds, tail_kinds = block_kinds(cfg)
+    n_scan = n_scan_blocks(cfg)
+
+    def stacked(tree):
+        return _map_shapes(lambda shape, kind: ((n_scan,) + shape, kind),
+                           tree)
+
+    return {
+        "embed": ((v, d), "embed"),
+        "layers": tuple(stacked(_block_shapes(cfg, k))
+                        for k in period_kinds),
+        "tail": tuple(_block_shapes(cfg, k) for k in tail_kinds),
+        "final_ln": ((d,), "ones"),
+        "unembed": ((d, v), "dense"),
+    }
+
+
+def _is_shape_leaf(x) -> bool:
+    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[1], str)
+
+
+def _map_shapes(fn, tree):
+    if _is_shape_leaf(tree):
+        return fn(*tree)
+    if isinstance(tree, dict):
+        return {k: _map_shapes(fn, v) for k, v in tree.items()}
+    return tuple(_map_shapes(fn, v) for v in tree)
+
+
+def init_params(cfg, generator: torch.Generator, device=None):
+    """Random parameters, drawn from ``generator``.
+
+    Dense weights are normal with std ``1/sqrt(fan_in)`` (the embedding
+    std 1), norms one, biases zero, as in the reference; the numbers
+    differ from the reference's, which draws from ``jax.random``.
+
+    Args:
+        cfg: the model configuration.
+        generator: the ``torch.Generator`` to draw from; it must live on
+            ``device``.
+        device: where the parameters live (``None``: the CUDA card).
+
+    Returns:
+        The parameter tree.
+    """
+    dev = resolve_device(device)
+
+    def make(shape, kind):
+        if kind == "ones":
+            return torch.ones(shape, dtype=cfg.dtype, device=dev)
+        if kind == "zeros":
+            return torch.zeros(shape, dtype=cfg.dtype, device=dev)
+        scale = 1.0 if kind == "embed" else \
+            1.0 / math.sqrt(L.dense_fan_in(shape))
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=dev)
+        return (w * scale).to(cfg.dtype)
+
+    return _map_shapes(make, _param_shapes(cfg))
+
+
+def param_specs(cfg):
+    """The parameter tree as ``meta`` tensors (nothing is allocated)."""
+    return _map_shapes(
+        lambda shape, kind: torch.empty(shape, dtype=cfg.dtype,
+                                        device="meta"),
+        _param_shapes(cfg))
+
+
+def params_from_numpy(tree, device=None):
+    """Carry a parameter tree of numpy arrays (e.g. the reference
+    package's parameters) into the port.
+
+    Args:
+        tree: the parameter tree with array-like leaves; bfloat16 arrays
+            are carried exactly through float32.
+        device: where the tensors live (``None``: the CUDA card).
+
+    Returns:
+        The same tree with torch tensors of the same dtypes.
+    """
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(
+                dev, torch.bfloat16)
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    return pytree.tree_map(leaf, tree)
+
+
+def param_logical_axes(cfg, params):
+    """Logical dim names for every param leaf (for TOAST's logical
+    projection).  Disambiguates key collisions (attention ``wo`` vs MLP
+    ``wo``) by the parent block key."""
+
+    def names(keys, leaf):
+        key = keys[-1]
+        parent = next((k for k in reversed(keys[:-1])
+                       if k in ("mix", "ffn", "cross")), "")
+        base = None
+        if key == "embed":
+            base = ("vocab", "embed")
+        elif key == "unembed":
+            base = ("embed", "vocab")
+        elif key == "wq":
+            base = ("embed", "heads")
+        elif key in ("wk", "wv"):
+            base = ("embed", "kv_heads")
+        elif key == "wo" and parent == "mix":
+            base = ("heads", "embed")
+        elif key in ("wi", "wg"):
+            base = ("embed", "hidden")
+        elif key == "wo":
+            base = ("hidden", "embed")
+        if base is None:
+            return (None,) * leaf.ndim
+        extra = leaf.ndim - len(base)
+        if extra < 0:
+            return tuple(base[-leaf.ndim:])
+        return (None,) * extra + base
+
+    return pytree.tree_map_with_path(names, params)
+
+
+# ---------------------------------------------------------------------------
+# forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def apply_block(cfg, kind, p, x, positions):
+    _check_ported(cfg, kind)
+    window = cfg.sliding_window if kind == "attn" else cfg.local_window
+    x = L.attn_apply(cfg, p["mix"], x, positions, window=window)
+    if "ffn" in p:
+        x = L.mlp_apply(cfg, p["ffn"], x)
+    return x
+
+
+def scan_layers(body, h, xs):
+    """``h = body(h, xs[i])`` for every ``i`` along xs' leading dim.
+
+    Under ``torch.export`` this is one ``scan`` node whose body is
+    traced once; eagerly it is a loop.  Each iteration runs under the
+    same kernel-dispatch site keys, those of the body's one traced
+    instance, so a plan's per-site decisions apply to every layer.
+    """
+    if torch.compiler.is_exporting():
+        from torch._higher_order_ops.scan import scan
+        h, _ = scan(lambda c, x: (body(c, x), ()), h, xs)
+        return h
+    n = pytree.tree_leaves(xs)[0].shape[0]
+    disp = get_kernel_dispatch()
+    mark = disp.mark() if disp is not None else None
+    for i in range(n):
+        if disp is not None:
+            disp.rewind(mark)
+        h = body(h, pytree.tree_map(lambda a: a[i], xs))
+    return h
+
+
+def _run_layers(cfg, params, h, positions):
+    period_kinds, tail_kinds = block_kinds(cfg)
+
+    def super_block(h, pslices):
+        for kind, p in zip(period_kinds, pslices):
+            h = apply_block(cfg, kind, p, h, positions)
+        return constrain(h, ("act_batch", "seq", "embed"))
+
+    if n_scan_blocks(cfg) > 0 and params["layers"]:
+        h = scan_layers(super_block, h, params["layers"])
+    for kind, p in zip(tail_kinds, params["tail"]):
+        h = apply_block(cfg, kind, p, h, positions)
+    return h
+
+
+def _round_to(dtype, x: float) -> float:
+    """``x`` rounded to nearest-even in ``dtype`` (host arithmetic)."""
+    if dtype == torch.bfloat16:
+        bits = struct.unpack("<I", struct.pack("<f", x))[0]
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+        return struct.unpack("<f", struct.pack("<I", bits))[0]
+    if dtype == torch.float16:
+        return float(np.float16(x))
+    return float(np.float32(x)) if dtype == torch.float32 else x
+
+
+def embed_tokens(cfg, params, tokens):
+    h = torch.nn.functional.embedding(tokens, params["embed"])
+    # the scale rounded to the activations' dtype, as the reference does
+    return h * _round_to(h.dtype, math.sqrt(cfg.d_model))
+
+
+def forward(cfg, params, tokens):
+    """Logits for a full sequence (train / prefill); tokens: (B, S) int."""
+    h = embed_tokens(cfg, params, tokens)
+    h = constrain(h, ("act_batch", "seq", "embed"))
+    S = h.shape[1]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device)[None, :]
+    h = _run_layers(cfg, params, h, positions)
+    h = L.rmsnorm(h, params["final_ln"])
+    logits = h @ params["unembed"]
+    return constrain(logits, ("act_batch", "seq", "vocab"))

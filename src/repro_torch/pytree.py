@@ -1,0 +1,118 @@
+"""Pytrees of tensors in the reference package's flattening order.
+
+The port keeps the reference's parameter layout — nested dicts, tuples
+and lists with tensors at the leaves — so that traced programs name
+their inputs with the same key paths (``"[0][0]['embed']"``) and plans
+map between the two packages.  Dicts flatten in sorted key order,
+sequences by index, and ``None`` holds no leaf, as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Iterator
+
+
+def _children(node) -> list[tuple[str, Any]] | None:
+    """``[(keystr piece, child), ...]`` of a container, else ``None``."""
+    if isinstance(node, dict):
+        return [(f"[{k!r}]", node[k]) for k in sorted(node)]
+    if isinstance(node, (tuple, list)):
+        return [(f"[{i}]", c) for i, c in enumerate(node)]
+    return None
+
+
+def flatten_with_paths(tree) -> tuple[list, list[str]]:
+    """Leaves of ``tree`` and their key paths, in flattening order.
+
+    Args:
+        tree: nested dicts / tuples / lists; ``None`` holds no leaf.
+
+    Returns:
+        ``(leaves, paths)`` with paths in the reference's ``keystr``
+        spelling.
+    """
+    leaves: list = []
+    paths: list[str] = []
+
+    def walk(node, path: str) -> None:
+        if node is None:
+            return
+        kids = _children(node)
+        if kids is None:
+            leaves.append(node)
+            paths.append(path)
+            return
+        for piece, child in kids:
+            walk(child, path + piece)
+
+    walk(tree, "")
+    return leaves, paths
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in flattening order."""
+    return flatten_with_paths(tree)[0]
+
+
+def unflatten(template, leaves) -> Any:
+    """Rebuild ``template``'s structure with ``leaves`` in flatten order.
+
+    Args:
+        template: a tree with the target structure (its leaves are
+            ignored).
+        leaves: replacement leaves, in :func:`flatten_with_paths` order.
+
+    Returns:
+        A tree shaped like ``template``.
+
+    Raises:
+        ValueError: when the number of leaves does not match.
+    """
+    it: Iterator = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (tuple, list)):
+            return type(node)(build(c) for c in node)
+        try:
+            return next(it)
+        except StopIteration:
+            raise ValueError("too few leaves for the template") from None
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("too many leaves for the template")
+    return out
+
+
+def tree_map(fn: Callable, tree) -> Any:
+    """Apply ``fn`` to every leaf, keeping the structure."""
+    return unflatten(tree, [fn(x) for x in tree_leaves(tree)])
+
+
+def tree_map_with_path(fn: Callable, tree) -> Any:
+    """Apply ``fn(keys, leaf)`` to every leaf, keeping the structure.
+
+    Args:
+        fn: called with the tuple of dict keys / sequence indices leading
+            to the leaf, and the leaf.
+        tree: the tree to map over.
+
+    Returns:
+        A tree shaped like ``tree`` holding ``fn``'s results.
+    """
+    def walk(node, keys):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: walk(v, keys + (k,)) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(walk(c, keys + (i,))
+                              for i, c in enumerate(node))
+        return fn(keys, node)
+
+    return walk(tree, ())

@@ -1,0 +1,183 @@
+"""The port's fused-attention modules against the JAX package.
+
+``kernels/ref.py`` (the CUDA kernel's plain version) and ``kernels/ops``
+on CPU tensors are held against the reference's Pallas kernel (run in
+interpret mode, as ``tests/test_kernels.py`` runs it) and its jnp oracle
+over the ``TestFlashAttention`` cases.  Inputs come from numpy seeds and
+are handed to both packages.  Tolerances are those of
+``tests/test_kernels.py``: 2e-5 for float32, 2e-2 for bfloat16.
+
+The CUDA kernel itself runs only on a card: its checks are in
+``tests/test_torch_cuda.py`` (marked ``cuda``, skipped without a card).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels import registry as jregistry
+from repro.kernels.flash_attention import flash_attention as jflash
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref, registry
+from repro_torch.models.layers import repeat_heads
+from repro_torch.models.sharding import KernelDispatch, kernel_dispatch
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def randn(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def both(x, dtype):
+    """The same numpy array as a jnp and a torch array of ``dtype``."""
+    return (jnp.asarray(x).astype(getattr(jnp, dtype)),
+            torch.from_numpy(x).to(getattr(torch, dtype)))
+
+
+def close(got, want, dtype):
+    np.testing.assert_allclose(
+        got.float().numpy() if isinstance(got, torch.Tensor) else
+        np.asarray(got, np.float32),
+        np.asarray(want, np.float32), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+class TestPlainAttention:
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_matches_pallas_interpret_and_oracle(self, causal, dtype):
+        B, H, S, hd = 2, 2, 256, 64
+        (jq, tq), (jk, tk), (jv, tv) = (both(randn(i, (B, H, S, hd)), dtype)
+                                        for i in range(3))
+        got = ref.reference_attention(tq, tk, tv, causal=causal)
+        assert got.dtype == tq.dtype
+        close(got, jflash(jq, jk, jv, causal=causal, block_q=64,
+                          block_k=64, interpret=True), dtype)
+        close(got, jref.reference_attention(jq, jk, jv, causal=causal),
+              dtype)
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_cross_lengths(self, causal):
+        """S != T (prefill against a longer KV)."""
+        B, H, S, T, hd = 1, 2, 64, 256, 32
+        jq, tq = both(randn(10, (B, H, S, hd)), "float32")
+        jk, tk = both(randn(11, (B, H, T, hd)), "float32")
+        jv, tv = both(randn(12, (B, H, T, hd)), "float32")
+        got = ref.reference_attention(tq, tk, tv, causal=causal)
+        close(got, jflash(jq, jk, jv, causal=causal, block_q=32,
+                          block_k=64, interpret=True), "float32")
+        close(got, jref.reference_attention(jq, jk, jv, causal=causal),
+              "float32")
+
+    def test_model_layout_wrapper(self):
+        """``flash_attention.reference`` is the oracle in (B,S,H,hd)."""
+        B, S, H, hd = 2, 64, 4, 32
+        (jq, tq), (jk, tk), (jv, tv) = (both(randn(20 + i, (B, S, H, hd)),
+                                             "float32") for i in range(3))
+        got = fa.reference(tq, tk, tv, causal=True)
+        want = jref.reference_attention(
+            *(x.transpose(0, 2, 1, 3) for x in (jq, jk, jv)),
+            causal=True).transpose(0, 2, 1, 3)
+        close(got, want, "float32")
+
+
+class TestOpsOnCpu:
+    @pytest.mark.parametrize("kv_heads", [1, 2, 4, 8])
+    def test_gqa_group_counts(self, kv_heads):
+        """Every GQA group count (MQA .. MHA), as the layer calls the op."""
+        B, S, H, hd = 1, 128, 8, 32
+        jq, tq = both(randn(30, (B, S, H, hd)), "float32")
+        jk, tk = both(randn(31, (B, S, kv_heads, hd)), "float32")
+        jv, tv = both(randn(32, (B, S, kv_heads, hd)), "float32")
+        g = H // kv_heads
+        got = ops.attention(tq, repeat_heads(tk, g), repeat_heads(tv, g),
+                            causal=True)
+        close(got, jops.gqa_flash_attention(jq, jk, jv, causal=True),
+              "float32")
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("impl", ["cuda", "ref"])
+    def test_cpu_tensors_take_the_plain_version(self, impl, dtype):
+        """On CPU tensors every impl is the plain version; no launch."""
+        (_, tq), (_, tk), (_, tv) = (both(randn(40 + i, (2, 96, 4, 16)),
+                                          dtype) for i in range(3))
+        before = fa.launches
+        with kernel_dispatch(KernelDispatch(impls={"flash_attention:0":
+                                                   impl})) as disp:
+            got = ops.attention(tq, tk, tv, causal=True)
+            assert disp.next_site("flash_attention") == "flash_attention:1"
+        assert fa.launches == before
+        torch.testing.assert_close(got, fa.reference(tq, tk, tv,
+                                                     causal=True),
+                                   rtol=0, atol=0)
+
+    def test_unknown_impl_raises(self):
+        t = torch.zeros((1, 8, 2, 16))
+        with kernel_dispatch(KernelDispatch(default_impl="pallas")):
+            with pytest.raises(ValueError, match="unknown"):
+                ops.attention(t, t, t, causal=True)
+
+    def test_wrapper_rejects_what_the_kernel_does_not_take(self):
+        ok = torch.zeros((1, 8, 2, 16))
+        fa._check(ok, ok, ok)
+        with pytest.raises(ValueError, match="head_dim"):
+            bad = torch.zeros((1, 8, 2, 40))
+            fa._check(bad, bad, bad)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            half = ok.half()
+            fa._check(half, half, half)
+        with pytest.raises(ValueError, match="do not match"):
+            fa._check(ok, torch.zeros((1, 8, 4, 16)), ok)
+        with pytest.raises(ValueError, match="contiguous head dim"):
+            strided = torch.zeros((1, 8, 2, 32))[..., ::2]
+            fa._check(strided, strided, strided)
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            meta = torch.empty((1, 8, 2, 16), device="meta")
+            fa.flash_attention(meta, meta, meta)
+
+
+class TestRegistry:
+    def test_contract_matches_the_reference(self):
+        """Same kernels, roles, mappable and blocked roles; the Pallas
+        impl is the port's "cuda" where a Hopper kernel exists."""
+        assert set(registry.KERNELS) == set(jregistry.KERNELS)
+        for name, spec in registry.KERNELS.items():
+            jspec = jregistry.KERNELS[name]
+            assert spec.operand_roles == jspec.operand_roles
+            assert spec.result_roles == jspec.result_roles
+            assert spec.mappable == jspec.mappable
+            assert spec.blocked == jspec.blocked
+            assert spec.dispatch_site == jspec.dispatch_site
+            assert set(spec.impls) <= {registry.port_impl(i)
+                                       for i in jspec.impls}
+        assert registry.KERNELS["flash_attention"].impls == ("cuda", "ref")
+        assert registry.port_impl("pallas") == "cuda"
+        assert registry.port_impl("ref") == "ref"
+
+    def test_cuda_feasible_for_every_sequence_length(self):
+        dims = {"batch": 1, "heads": 2, "q_seq": 131, "kv_seq": 1000}
+        for hd in (16, 48, 64, 128):
+            assert registry.cuda_feasible("flash_attention",
+                                          {**dims, "head_dim": hd})
+        for hd in (8, 40, 256):
+            assert not registry.cuda_feasible("flash_attention",
+                                              {**dims, "head_dim": hd})
+        assert not registry.cuda_feasible("rg_lru", {"channels": 128})
+
+    def test_flops_and_bytes(self):
+        spec = registry.KERNELS["flash_attention"]
+        d = {"batch": 4, "heads": 14, "q_seq": 2048, "kv_seq": 2048,
+             "head_dim": 64}
+        jspec = jregistry.KERNELS["flash_attention"]
+        assert spec.flops(d, {"causal": True}) == \
+            jspec.flops(d, {"causal": True})
+        # flash streaming: Q/O once, K/V once per 64-row q-block
+        nq = -(-2048 // registry.BLOCK_Q)
+        assert spec.bytes_moved("cuda", d, {}, 2) == \
+            4 * 14 * 64 * 2 * (2 * 2048 + 2 * 2048 * nq)
+        assert spec.bytes_moved("ref", d, {}, 2) == \
+            jspec.bytes_moved("ref", d, {}, 2)
