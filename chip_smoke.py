@@ -1,27 +1,29 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's main path — partition and serve the ``qwen2_05b``
-prefill step with the fused-attention sites on the hand-written CUDA
-flash-attention kernel — through the entry points a user calls:
+Drives the port's two main paths through the entry points a user calls:
+partition and serve the ``qwen2_05b`` prefill step with its fused
+attention sites on the hand-written CUDA flash-attention kernel, and the
+``recurrentgemma_2b`` hybrid prefill step with its RG-LRU scan sites on
+the hand-written CUDA RG-LRU kernel.
 
-1. print the card's name and power limit; build the kernel from the
-   sources in this checkout;
-2. hold the kernel against its plain PyTorch version on the card, at the
-   slice shape and at edge shapes;
-3. trace and analyze the full-width prefill step on ``meta`` tensors
-   (``Session``);
-4. search a plan for an 8-card node (2x4 mesh) on the host and check its
-   JSON round trip;
-5. search the one-card plan, check every kernel site chose ``"cuda"``,
-   and apply it on the card with seeded random weights;
-6. answer 3 requests of 4 prompts x 2048 tokens, count the kernel's
-   launches, and hold the last-token logits against the same requests
-   with every site forced to the plain version; check a small f32 model
-   against the plain path too;
-7. time the kernel at the slice shape beside its bound, its plain
-   version and ``scaled_dot_product_attention`` (a yardstick only: the
-   port never calls it).
+1. print the card's name and power limit; build both kernels from the
+   sources in this checkout, in parallel;
+2. hold each kernel against its plain PyTorch version on the card, at
+   its slice shape and at edge shapes;
+3. for each path: trace and analyze the full-width prefill step on
+   ``meta`` tensors (``Session``); search a plan for an 8-card node (2x4
+   mesh) on the host and check its JSON round trip; search the one-card
+   plan, check every kernel site chose ``"cuda"``, and apply it on the
+   card with seeded random weights;
+4. answer 3 requests per path (qwen2_05b: 4 prompts x 2048 tokens;
+   recurrentgemma_2b: 4 x 4096, twice its local window), count each
+   kernel's launches from zero, and hold the last-token logits against
+   the same requests with every site forced to the plain version; check
+   a small f32 model against the plain path too;
+5. time each kernel at its slice shape beside its bound, its plain
+   version and, for attention, ``scaled_dot_product_attention`` (a
+   yardstick only: the port never calls it).
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Needs one
 CUDA card (sm_90a) and ``nvcc``; exits non-zero, printing no result,
@@ -32,6 +34,7 @@ the kernel measurements as JSON.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import subprocess
@@ -41,25 +44,35 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# the slice: qwen2_05b prefill, 3 requests of 4 prompts x 2048 tokens
-BATCH, SEQ, REQUESTS = 4, 2048, 3
+REQUESTS = 3
+# per path: prompts x tokens of each request
+QWEN_SHAPE = (4, 2048)
+HYBRID_SHAPE = (4, 4096)
 # kernel vs plain version (tests/test_kernels.py's tolerances)
-KERNEL_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
-# last-token logits of the bf16 model, kernel sites vs plain sites: the
-# two round attention at different points (the kernel rounds the
-# unnormalized probabilities to bf16 and normalizes after the PV product,
-# the plain version normalizes first) and the difference compounds over
-# 24 bf16 layers; bound on max|diff| relative to max|plain logits|
+FA_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+LRU_TOL = {"bfloat16": 3e-2, "float32": 2e-5}
+# last-token logits of the bf16 models, kernel sites vs plain sites: the
+# two round at different points (attention: the kernel rounds the
+# unnormalized probabilities to bf16 and normalizes after the PV
+# product; RG-LRU: a sequential f32 recurrence vs an associative scan)
+# and the difference compounds over the bf16 layers; bound on
+# max|diff| relative to max|plain logits|
 LOGITS_REL_TOL = 2e-2
 # small f32 model, kernel sites vs plain sites
 SMALL_TOL = 1e-4
-# H100 SXM data sheet (dense bf16 FLOP/s, HBM bytes/s)
+# H100 SXM data sheet (dense bf16 FLOP/s, f32 FLOP/s outside the tensor
+# cores, HBM bytes/s)
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -77,9 +90,25 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_kernel(fa, torch, gen, B, S, T, H, hd, dtype, causal,
-                 strided=False) -> float:
-    """Kernel vs plain version on one shape; returns max |error|."""
+def build_all(modules) -> None:
+    """Build every kernel library at once (one ``nvcc`` per source)."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
+        futures = [pool.submit(mod.build) for mod in modules.values()]
+    for fut in futures:
+        fut.result()
+    log(f"[build] {', '.join(modules)} built/loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, mod in modules.items():
+        log(f"[build] {name}: {mod.build_dir().name}")
+        for line in mod.build_log().splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+
+def check_fa(fa, torch, gen, B, S, T, H, hd, dtype, causal,
+             strided=False) -> float:
+    """Attention kernel vs plain version on one shape; max |error|."""
     shape_q, shape_kv = (B, S, H, hd), (B, T, H, hd)
     if strided:
         # q, k, v as views of one packed projection: non-trivial strides
@@ -93,15 +122,165 @@ def check_kernel(fa, torch, gen, B, S, T, H, hd, dtype, causal,
     out = fa.flash_attention(q, k, v, causal=causal)
     want = fa.reference(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    tol = KERNEL_TOL[str(dtype).removeprefix("torch.")]
+    tol = FA_TOL[dtype_name(dtype)]
     err = (out.float() - want.float()).abs().max().item()
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
     if not torch.isfinite(out).all():
         raise AssertionError("kernel output is not finite")
-    log(f"[kernel] B={B} S={S} T={T} H={H} hd={hd} "
-        f"{str(dtype).removeprefix('torch.')} causal={causal} "
-        f"strided={strided}: max|err|={err:.3e} (tol {tol}) ok")
+    log(f"[kernel] flash_attention B={B} S={S} T={T} H={H} hd={hd} "
+        f"{dtype_name(dtype)} causal={causal} strided={strided}: "
+        f"max|err|={err:.3e} (tol {tol}) ok")
     return err
+
+
+def check_lru(lru, torch, a, b, label) -> tuple[float, object]:
+    """RG-LRU kernel vs plain version on one input; (max |error|, h)."""
+    out = lru.rg_lru(a, b)
+    want = lru.reference(a, b)
+    torch.cuda.synchronize()
+    tol = LRU_TOL[dtype_name(a.dtype)]
+    err = (out.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    if out.dtype != a.dtype or not torch.isfinite(out).all():
+        raise AssertionError("kernel output is not finite or of a's dtype")
+    log(f"[kernel] rg_lru {label} {tuple(a.shape)} {dtype_name(a.dtype)}: "
+        f"max|err|={err:.3e} (tol {tol}) ok")
+    return err, out
+
+
+def lru_inputs(torch, gen, shape, dtype, lo=None, hi=None):
+    """Gates a (sigmoid of normals, or uniform in [lo, hi)), inputs b."""
+    if lo is None:
+        a = torch.sigmoid(torch.randn(shape, generator=gen, device="cuda"))
+    else:
+        a = lo + (hi - lo) * torch.rand(shape, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(shape, generator=gen, device="cuda")
+    return a.to(dtype), b.to(dtype)
+
+
+def drive_path(torch, cfg, shape, counters, kernel, per_request):
+    """Plan and serve one model's prefill path; returns its launches.
+
+    Args:
+        cfg: the full-width model configuration (``use_pallas`` set).
+        shape: prompts x tokens of each request.
+        counters: kernel name -> its wrapper module (``launches``).
+        kernel: the kernel this path runs.
+        per_request: that kernel's launches in one request.
+    """
+    from repro_torch.api import Request, Session
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost_model import MeshSpec
+    from repro_torch.core.partitioner import ShardingPlan
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_prefill_step
+
+    B, S = shape
+    name = cfg.name
+    step = make_prefill_step(cfg)
+    batch_spec = {"tokens": torch.empty((B, S), dtype=torch.int32,
+                                        device="meta")}
+    sess = Session(step, (T.param_specs(cfg), batch_spec))
+    art = sess.artifacts
+    log(f"[session {name}] B={B} S={S}: {len(art.prog.ops)} ops, "
+        f"{len(art.nda.color_summary())} colors, "
+        f"{len(art.analysis.conflicts)} conflicts, phases "
+        + json.dumps({k: round(v, 4) for k, v in
+                      art.phase_seconds.items()}))
+
+    plan8 = sess.partition(Request(mesh=MeshSpec(("data", "model"), (2, 4))))
+    if ShardingPlan.from_json(plan8.to_json()).as_dict() != plan8.as_dict():
+        raise AssertionError("2x4 plan JSON does not round-trip")
+    log(f"[partition {name} 2x4] cost={plan8.cost:.6f} "
+        f"kernel_sites={len(plan8.kernel_sites)} "
+        f"search={plan8.search_seconds:.3f} s "
+        f"evaluations={plan8.evaluations} json round-trip ok")
+
+    plan1 = sess.partition(Request(mesh=MeshSpec(("data", "model"), (1, 1))))
+    sites = {r["site"]: r["impl"] for r in plan1.kernel_sites}
+    if not sites or set(sites.values()) != {"cuda"} or \
+            any(not s.startswith(kernel + ":") for s in sites):
+        raise AssertionError(f"1x1 plan kernel sites chose {sites}")
+    log(f"[partition {name} 1x1] cost={plan1.cost:.6f} sites="
+        + json.dumps(sites))
+    applied = plan1.apply(step)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tgen = torch.Generator(device="cuda").manual_seed(1)
+    requests = [{"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                         generator=tgen, device="cuda",
+                                         dtype=torch.int32)}
+                for _ in range(REQUESTS)]
+    applied(params, requests[0])            # warm-up, not counted
+    torch.cuda.synchronize()
+
+    def serve(fn, label):
+        outs = []
+        for i, req in enumerate(requests):
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits = fn(params, req)
+            end.record()
+            torch.cuda.synchronize()
+            if logits.shape != (B, cfg.vocab_size) or \
+                    not torch.isfinite(logits).all():
+                raise AssertionError(f"{label} request {i}: logits "
+                                     f"{tuple(logits.shape)} not finite "
+                                     f"or misshapen")
+            ids = logits.float().argmax(-1).tolist()
+            log(f"[serve {name} {label}] request {i}: next tokens {ids} "
+                f"prefill {start.elapsed_time(end):.3f} ms, peak "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            outs.append(logits.float())
+        return outs
+
+    for mod in counters.values():
+        mod.launches = 0
+    kernel_logits = serve(applied, "cuda")
+    launches = {k: mod.launches for k, mod in counters.items()}
+    want = {k: per_request * REQUESTS if k == kernel else 0
+            for k in counters}
+    if launches != want:
+        raise AssertionError(f"{name}: kernel launches {launches}, "
+                             f"expected {want}")
+    log(f"[serve {name}] {kernel} launches {launches[kernel]} = "
+        f"{per_request} x {REQUESTS}")
+    plain_plan = dataclasses.replace(
+        plan1, kernel_sites=[{**r, "impl": "ref"}
+                             for r in plan1.kernel_sites])
+    plain_logits = serve(plain_plan.apply(step), "plain")
+    if {k: mod.launches for k, mod in counters.items()} != launches:
+        raise AssertionError("the plain path launched a kernel")
+    for i, (a, b) in enumerate(zip(kernel_logits, plain_logits)):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        agree = (a.argmax(-1) == b.argmax(-1)).sum().item()
+        log(f"[serve {name}] request {i}: max|kernel-plain|/max|plain| = "
+            f"{rel:.3e} (tol {LOGITS_REL_TOL}), argmax agree {agree}/{B}")
+        if rel > LOGITS_REL_TOL:
+            raise AssertionError("kernel and plain logits disagree")
+
+    small = dataclasses.replace(get_config(name).reduced(), use_pallas=True)
+    small_step = make_prefill_step(small)
+    small_batch = {"tokens": torch.randint(0, small.vocab_size, (2, 64),
+                                           generator=tgen, device="cuda",
+                                           dtype=torch.int32)}
+    small_sess = Session(small_step, (T.param_specs(small), {
+        "tokens": torch.empty((2, 64), dtype=torch.int32, device="meta")}))
+    small_plan = small_sess.partition(
+        Request(mesh=MeshSpec(("data", "model"), (1, 1))))
+    small_params = T.init_params(
+        small, torch.Generator(device="cuda").manual_seed(2))
+    got = small_plan.apply(small_step)(small_params, small_batch)
+    want = dataclasses.replace(
+        small_plan, kernel_sites=[{**r, "impl": "ref"} for r in
+                                  small_plan.kernel_sites]
+    ).apply(small_step)(small_params, small_batch)
+    torch.testing.assert_close(got, want, rtol=SMALL_TOL, atol=SMALL_TOL)
+    log(f"[small] {small.name} ({small.num_layers} layers) f32 logits "
+        f"kernel vs plain: max|diff| {(got - want).abs().max().item():.3e} "
+        f"(tol {SMALL_TOL}) ok")
+    return launches[kernel]
 
 
 def main() -> int:
@@ -118,13 +297,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.api import Request, Session
     from repro_torch.configs import get_config
-    from repro_torch.core.cost_model import MeshSpec
-    from repro_torch.core.partitioner import ShardingPlan
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import transformer as T
-    from repro_torch.train.steps import make_prefill_step
+    from repro_torch.kernels import rg_lru as lru
+
+    counters = {"flash_attention": fa, "rg_lru": lru}
 
     # -- 1: the card and the build ------------------------------------------
     card = subprocess.run(
@@ -136,21 +313,17 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {kind} x{torch.cuda.device_count()}")
-    t0 = time.perf_counter()
-    fa.build()
-    log(f"[build] flash_attention built/loaded in "
-        f"{time.perf_counter() - t0:.1f} s ({fa.build_dir().name})")
-    for line in fa.build_log().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"[build] {line.strip()}")
+    build_all(counters)
 
-    # -- 2: the kernel against its plain version -------------------------
-    cfg = dataclasses.replace(get_config("qwen2_05b"), use_pallas=True)
-    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    # -- 2: each kernel against its plain version -------------------------
+    qwen = dataclasses.replace(get_config("qwen2_05b"), use_pallas=True)
+    hybrid = dataclasses.replace(get_config("recurrentgemma_2b"),
+                                 use_pallas=True)
+    H, hd = qwen.num_heads, qwen.resolved_head_dim
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
-    slice_err = check_kernel(fa, torch, gen, BATCH, SEQ, SEQ, H, hd, bf16,
-                             True)
+    B, S = QWEN_SHAPE
+    fa_err = check_fa(fa, torch, gen, B, S, S, H, hd, bf16, True)
     for args in [(2, 200, 333, 4, 64, f32, True),
                  (2, 200, 333, 4, 64, f32, False),
                  (2, 333, 200, 4, 64, bf16, True),
@@ -164,148 +337,100 @@ def main() -> int:
                  (1, 257, 300, 3, 48, bf16, True),
                  (2, 100, 100, 2, 96, bf16, False),
                  (2, 128, 128, 4, 64, bf16, True)]:
-        check_kernel(fa, torch, gen, *args)
+        check_fa(fa, torch, gen, *args)
     for dtype in (f32, bf16):
-        check_kernel(fa, torch, gen, 2, 190, 190, 4, 64, dtype, True,
-                     strided=True)
+        check_fa(fa, torch, gen, 2, 190, 190, 4, 64, dtype, True,
+                 strided=True)
 
-    # -- 3: trace and analyze at full width on meta tensors --------------
-    step = make_prefill_step(cfg)
-    batch_spec = {"tokens": torch.empty((BATCH, SEQ), dtype=torch.int32,
-                                        device="meta")}
-    sess = Session(step, (T.param_specs(cfg), batch_spec))
-    art = sess.artifacts
-    log(f"[session] {cfg.name} B={BATCH} S={SEQ}: {len(art.prog.ops)} ops, "
-        f"{len(art.nda.color_summary())} colors, "
-        f"{len(art.analysis.conflicts)} conflicts, phases "
-        + json.dumps({k: round(v, 4) for k, v in
-                      art.phase_seconds.items()}))
+    # the slice shape: the gates of the hybrid's RG-LRU block, f32
+    R = hybrid.d_model * 3 // 2
+    lru_shape = (*HYBRID_SHAPE, R)
+    lru_err, _ = check_lru(lru, torch, *lru_inputs(torch, gen, lru_shape,
+                                                    f32), "slice")
+    check_lru(lru, torch, *lru_inputs(torch, gen, lru_shape, bf16), "slice")
+    for shape in [(1, 64, 131), (2, 1000, 300)]:
+        for dtype in (f32, bf16):
+            check_lru(lru, torch, *lru_inputs(torch, gen, shape, dtype),
+                      "edge")
+    # the model's own gates decay fast (a ~ e^-20): hold the carry with
+    # slow gates too
+    check_lru(lru, torch, *lru_inputs(torch, gen, lru_shape, f32, 0.9,
+                                      0.999), "slow gates")
+    Sd = 2048
+    a = torch.full((1, Sd, 128), 0.999, device="cuda")
+    b = torch.full((1, Sd, 128), 0.01, device="cuda")
+    _, h = check_lru(lru, torch, a, b, "decay")
+    closed = 0.01 * (1 - 0.999 ** Sd) / 0.001
+    torch.testing.assert_close(h[0, -1], torch.full_like(h[0, -1], closed),
+                               rtol=1e-3, atol=0)
+    log(f"[kernel] rg_lru decay: h[S-1] = {h[0, -1, 0].item():.6f}, closed "
+        f"form {closed:.6f} (rtol 1e-3) ok")
+    # strided views: a and b as the halves of one packed tensor
+    packed = torch.rand((2, 300, 2, 256), generator=gen, device="cuda")
+    check_lru(lru, torch, packed[:, :, 0], packed[:, :, 1], "strided")
 
-    # -- 4: the plan for an 8-card node (host only) ----------------------
-    plan8 = sess.partition(Request(mesh=MeshSpec(("data", "model"), (2, 4))))
-    if ShardingPlan.from_json(plan8.to_json()).as_dict() != plan8.as_dict():
-        raise AssertionError("2x4 plan JSON does not round-trip")
-    log(f"[partition 2x4] cost={plan8.cost:.6f} "
-        f"kernel_sites={len(plan8.kernel_sites)} "
-        f"search={plan8.search_seconds:.3f} s "
-        f"evaluations={plan8.evaluations} json round-trip ok")
+    # -- 3, 4: plan and serve each path ----------------------------------
+    fa_launches = drive_path(torch, qwen, QWEN_SHAPE, counters,
+                             "flash_attention", qwen.num_layers)
+    torch.cuda.empty_cache()
+    n_lru = sum(k == "rglru" for k in hybrid.pattern)
+    lru_launches = drive_path(torch, hybrid, HYBRID_SHAPE, counters,
+                              "rg_lru", n_lru)
+    torch.cuda.empty_cache()
 
-    # -- 5: the one-card plan, applied on the card ------------------------
-    plan1 = sess.partition(Request(mesh=MeshSpec(("data", "model"), (1, 1))))
-    impls = [r["impl"] for r in plan1.kernel_sites]
-    if not impls or any(i != "cuda" for i in impls):
-        raise AssertionError(f"1x1 plan kernel sites chose {impls}")
-    log(f"[partition 1x1] cost={plan1.cost:.6f} sites="
-        + json.dumps({r["site"]: r["impl"] for r in plan1.kernel_sites}))
-    applied = plan1.apply(step)
-    wgen = torch.Generator(device="cuda").manual_seed(0)
-    params = T.init_params(cfg, wgen)
-    tgen = torch.Generator(device="cuda").manual_seed(1)
-    requests = [{"tokens": torch.randint(0, cfg.vocab_size, (BATCH, SEQ),
-                                         generator=tgen, device="cuda",
-                                         dtype=torch.int32)}
-                for _ in range(REQUESTS)]
-    applied(params, requests[0])            # warm-up, not counted
-    torch.cuda.synchronize()
-
-    # -- 6: serve the requests --------------------------------------------
-    def serve(fn, label):
-        outs = []
-        for i, req in enumerate(requests):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            logits = fn(params, req)
-            end.record()
-            torch.cuda.synchronize()
-            if logits.shape != (BATCH, cfg.vocab_size) or \
-                    not torch.isfinite(logits).all():
-                raise AssertionError(f"{label} request {i}: logits "
-                                     f"{tuple(logits.shape)} not finite "
-                                     f"or misshapen")
-            ids = logits.float().argmax(-1).tolist()
-            log(f"[serve {label}] request {i}: next tokens {ids} "
-                f"prefill {start.elapsed_time(end):.3f} ms")
-            outs.append(logits.float())
-        return outs
-
-    fa.launches = 0
-    kernel_logits = serve(applied, "cuda")
-    launches = fa.launches
-    if launches != cfg.num_layers * REQUESTS:
-        raise AssertionError(f"kernel launched {launches} times, expected "
-                             f"{cfg.num_layers} x {REQUESTS}")
-    log(f"[serve] kernel launches {launches} = {cfg.num_layers} layers x "
-        f"{REQUESTS} requests")
-    plain_plan = dataclasses.replace(
-        plan1, kernel_sites=[{**r, "impl": "ref"}
-                             for r in plan1.kernel_sites])
-    plain_logits = serve(plain_plan.apply(step), "plain")
-    if fa.launches != launches:
-        raise AssertionError("the plain path launched the kernel")
-    for i, (a, b) in enumerate(zip(kernel_logits, plain_logits)):
-        rel = ((a - b).abs().max() / b.abs().max()).item()
-        agree = (a.argmax(-1) == b.argmax(-1)).sum().item()
-        log(f"[serve] request {i}: max|kernel-plain|/max|plain| = "
-            f"{rel:.3e} (tol {LOGITS_REL_TOL}), argmax agree {agree}/"
-            f"{BATCH}")
-        if rel > LOGITS_REL_TOL:
-            raise AssertionError("kernel and plain logits disagree")
-
-    small = dataclasses.replace(get_config("qwen2_05b").reduced(),
-                                use_pallas=True)
-    small_step = make_prefill_step(small)
-    small_batch = {"tokens": torch.randint(0, small.vocab_size, (2, 64),
-                                           generator=tgen, device="cuda",
-                                           dtype=torch.int32)}
-    small_sess = Session(small_step, (T.param_specs(small), {
-        "tokens": torch.empty((2, 64), dtype=torch.int32, device="meta")}))
-    small_plan = small_sess.partition(
-        Request(mesh=MeshSpec(("data", "model"), (1, 1))))
-    small_params = T.init_params(small, wgen)
-    got = small_plan.apply(small_step)(small_params, small_batch)
-    want = dataclasses.replace(
-        small_plan, kernel_sites=[{**r, "impl": "ref"} for r in
-                                  small_plan.kernel_sites]
-    ).apply(small_step)(small_params, small_batch)
-    torch.testing.assert_close(got, want, rtol=SMALL_TOL, atol=SMALL_TOL)
-    log(f"[small] {small.name} f32 logits kernel vs plain: max|diff| "
-        f"{(got - want).abs().max().item():.3e} (tol {SMALL_TOL}) ok")
-
-    # -- 7: the kernel's time at the slice shape --------------------------
-    q = torch.randn((BATCH, SEQ, H, hd), generator=gen, device="cuda",
-                    dtype=bf16)
-    k = torch.randn((BATCH, SEQ, H, hd), generator=gen, device="cuda",
-                    dtype=bf16)
-    v = torch.randn((BATCH, SEQ, H, hd), generator=gen, device="cuda",
-                    dtype=bf16)
-    n = fa.launches
+    # -- 5: each kernel's time at its slice shape ----------------------------
+    q, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda",
+                           dtype=bf16) for _ in range(3))
     kernel_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20)
     plain_ms = cuda_ms(lambda: fa.reference(q, k, v, causal=True), 10)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = cuda_ms(lambda: torch.nn.functional.
                          scaled_dot_product_attention(qt, kt, vt,
                                                       is_causal=True), 20)
-    fa.launches = n
     # the work this run needs: the causal (k <= q) pairs, two products
-    flops = 4.0 * BATCH * H * hd * SEQ * (SEQ + 1) / 2
-    nbytes = 4.0 * BATCH * SEQ * H * hd * q.element_size()
+    flops = 4.0 * B * H * hd * S * (S + 1) / 2
+    nbytes = 4.0 * B * S * H * hd * q.element_size()
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    log(f"[time] {card}: flash_attention {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({flops / 1e9:.2f} GFLOP, "
-        f"{nbytes / 1e6:.2f} MB) -> {bound_ms / kernel_ms:.3%} of bound")
-
-    log(json.dumps({"kernels": [{
+    fa_row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:30",
-        "launches": launches, "max_abs_err": slice_err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "launches": fa_launches, "max_abs_err": fa_err,
+        "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms}]}))
+        "library_ms": library_ms}
+    log(f"[time] {card}: flash_attention {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+        f"{fa_row['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB) -> {fa_row['bound_ms'] / kernel_ms:.3%} "
+        f"of bound")
+    del q, k, v, qt, kt, vt
+
+    a, b = lru_inputs(torch, gen, lru_shape, f32)
+    kernel_ms = cuda_ms(lambda: lru.rg_lru(a, b), 20)
+    plain_ms = cuda_ms(lambda: lru.reference(a, b), 5)
+    # each input read once, h written once; one multiply-add per element
+    nbytes = 3.0 * a.numel() * a.element_size()
+    flops = 2.0 * a.numel()
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    lru_row = {
+        "name": "rg_lru", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rg_lru.cu",
+        "replaces": "src/repro/kernels/rg_lru.py:30",
+        "launches": lru_launches, "max_abs_err": lru_err,
+        "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None}
+    log(f"[time] {card}: rg_lru {kernel_ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bound {lru_row['bound_ms']:.4f} ms ({flops / 1e6:.1f} "
+        f"MFLOP, {nbytes / 1e6:.2f} MB) -> "
+        f"{lru_row['bound_ms'] / kernel_ms:.3%} of bound")
+
+    log(json.dumps({"kernels": [fa_row, lru_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

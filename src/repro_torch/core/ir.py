@@ -19,9 +19,14 @@ unchanged on the result:
 - The layer ``scan`` (``torch._higher_order_ops.scan``) is instantiated
   once, with trip counts and carry / ``xs`` / ``ys`` value links, as the
   reference does for ``lax.scan``.
-- The fused attention op (``repro_torch::flash_attention``) is recorded
-  as one ``kernel:flash_attention`` op; its impl argument is dropped, so
-  the program does not depend on the implementation choice.
+- Constant fills (``zeros``, ``new_zeros``, ``zeros_like``, ``full``)
+  are broadcast literals, emitted where they are first used; a
+  ``slice_scatter`` into one is the reference's ``pad`` (the associative
+  scan's interleave), so the fill itself is never emitted there.
+- The fused kernel ops (``repro_torch::flash_attention``,
+  ``repro_torch::rg_lru``) are each recorded as one ``kernel:<name>``
+  op; their impl argument is dropped, so the program does not depend on
+  the implementation choice.
 
 An aten op the tracer does not know raises: NDA treats an unknown prim
 as elementwise, so a silently passed-through ``view`` or ``mm`` would
@@ -145,13 +150,28 @@ class _Ref:
     vid: int
 
 
+@dataclasses.dataclass(eq=False)
+class _Fill:
+    """A constant-filled tensor, not emitted until it is used: a
+    ``slice_scatter`` into it becomes a ``pad``, any other use emits it
+    once as a broadcast literal (``vid``)."""
+
+    shape: tuple[int, ...]
+    dtype: str
+    vid: int | None = None
+
+
 # aten op -> prim for ops whose NDA rule is the elementwise default
 _ARITH = {
     "add": "add", "sub": "sub", "mul": "mul", "div": "div",
     "exp": "exp", "rsqrt": "rsqrt", "cos": "cos", "sin": "sin",
-    "neg": "neg", "tanh": "tanh", "sigmoid": "logistic",
+    "neg": "neg", "tanh": "tanh", "sigmoid": "logistic", "sqrt": "sqrt",
+    "abs": "abs", "log1p": "log1p", "maximum": "max", "clamp_min": "max",
 }
-_COMPARE = {"ge": "ge", "bitwise_and": "and"}
+_COMPARE = {"ge": "ge", "lt": "lt", "ne": "ne", "bitwise_and": "and",
+            "__and__": "and"}
+# constant fills (a literal's value is not part of the IR)
+_FILLS = frozenset({"zeros", "new_zeros", "zeros_like", "full"})
 # nodes that compute nothing the analysis can see
 _IGNORED = {"_assert_tensor_metadata"}
 
@@ -210,6 +230,18 @@ class _Extractor:
                            "broadcast_dimensions": tuple(bdims)},
                           [vid], shape, self._type(vid).dtype)
 
+    def _ready(self, x):
+        """``x`` with every :class:`_Fill` in it emitted as a ``_Ref``."""
+        if isinstance(x, _Fill):
+            if x.vid is None:
+                x.vid = self._bcast(self._literal(x.dtype), x.shape, ())
+            return _Ref(x.vid)
+        if isinstance(x, (list, tuple)):
+            return type(x)(self._ready(e) for e in x)
+        if isinstance(x, dict):
+            return {k: self._ready(v) for k, v in x.items()}
+        return x
+
     def _rank_promote(self, vid: int, rank: int) -> int:
         t = self._type(vid)
         if t.rank == 0 or t.rank == rank:
@@ -245,7 +277,8 @@ class _Extractor:
             elif node.op == "call_function":
                 env[node] = self._call(node, env)
             elif node.op == "output":
-                outs = pytree.tree_leaves(self._args(node.args[0], env))
+                outs = pytree.tree_leaves(
+                    self._ready(self._args(node.args[0], env)))
                 return [o.vid for o in outs]
             else:
                 raise UnsupportedOpError(f"node kind {node.op!r}")
@@ -261,22 +294,26 @@ class _Extractor:
 
     def _call(self, node, env):
         target = node.target
+        packet = getattr(getattr(target, "_overloadpacket", None),
+                         "__name__", None)
         args = self._args(node.args, env)
         kwargs = self._args(dict(node.kwargs), env)
+        if packet != "slice_scatter":
+            args, kwargs = self._ready(args), self._ready(kwargs)
         if target is operator.getitem:
             return args[0][args[1]]
         if getattr(target, "__name__", "") == "scan" and \
                 getattr(target, "namespace", "higher_order") == "higher_order":
             return self._scan(node, *args, **kwargs)
         namespace = getattr(target, "namespace", None)
-        packet = getattr(getattr(target, "_overloadpacket", None),
-                         "__name__", None)
         if namespace == _KERNEL_NAMESPACE:
             return self._kernel(node, packet, args)
         if namespace != "aten" or packet is None:
             raise UnsupportedOpError(f"no IR lowering for {target}")
         if packet in _IGNORED:
             return None
+        if packet in _FILLS:
+            return _Fill(*_meta(node))
         handler = getattr(self, f"_aten_{packet}", None)
         if handler is not None:
             return handler(node, args, kwargs)
@@ -294,6 +331,10 @@ class _Extractor:
         shape, dtype = _meta(node)
         arith = packet in _ARITH
         prim = _ARITH[packet] if arith else _COMPARE[packet]
+        # a comparison's scalar is of its tensor operand's type
+        lit_dtype = dtype if arith else next(
+            (self._type(a.vid).dtype for a in args if isinstance(a, _Ref)),
+            dtype)
         operands = []
         for a in args:
             if isinstance(a, _Ref):
@@ -302,10 +343,24 @@ class _Extractor:
                     vid = self._convert(vid, dtype)
                 operands.append(self._rank_promote(vid, len(shape)))
             elif isinstance(a, (bool, int, float)):
-                operands.append(self._literal(dtype))
+                operands.append(self._literal(lit_dtype))
             else:
                 raise UnsupportedOpError(f"{node.target} operand {a!r}")
         return _Ref(self._emit(prim, {}, operands, shape, dtype))
+
+    def _aten_rsub(self, node, args, kwargs):
+        return self._elementwise(node, "sub", [args[1], args[0]], kwargs)
+
+    def _aten_pow(self, node, args, kwargs):
+        base, exponent = args
+        if not isinstance(base, _Ref) or isinstance(exponent, bool) or \
+                not isinstance(exponent, int):
+            raise UnsupportedOpError(f"{node.target} with a non-integer "
+                                     f"or tensor exponent")
+        shape, dtype = _meta(node)
+        vid = self._convert(base.vid, dtype)
+        return _Ref(self._emit("integer_pow", {"y": exponent}, [vid], shape,
+                               dtype))
 
     def _aten_relu(self, node, args, kwargs):
         shape, dtype = _meta(node)
@@ -431,6 +486,32 @@ class _Extractor:
         return _Ref(self._emit("concatenate", {"dimension": dim},
                                [self._convert(v, dtype) for v in tensors],
                                shape, dtype))
+
+    def _aten_slice_scatter(self, node, args, kwargs):
+        # reference: lax.pad(src, 0, (lo, hi, interior)) along ``dim``
+        base, src = args[0], self._ready(args[1])
+        rest = list(args[2:]) + [None] * (5 - len(args))
+        dim = rest[0] if rest[0] is not None else kwargs.get("dim", 0)
+        start = rest[1] if rest[1] is not None else kwargs.get("start")
+        end = rest[2] if rest[2] is not None else kwargs.get("end")
+        step = rest[3] if rest[3] is not None else kwargs.get("step", 1)
+        if not isinstance(base, _Fill) or not isinstance(src, _Ref):
+            raise UnsupportedOpError(
+                f"{node.target} into a base that is not a constant fill")
+        shape, dtype = _meta(node)
+        dim = _norm_dim(dim, len(shape))
+        lo, stop, step = slice(start, end, step).indices(shape[dim])
+        n = len(range(lo, stop, step))
+        if n == 0 or self._type(src.vid).shape[dim] != n:
+            raise UnsupportedOpError(f"{node.target} of an empty or "
+                                     f"misshapen source")
+        hi = shape[dim] - (lo + (n - 1) * step + 1)
+        config = tuple((lo, hi, step - 1) if i == dim else (0, 0, 0)
+                       for i in range(len(shape)))
+        return _Ref(self._emit(
+            "pad", {"padding_config": config},
+            [self._convert(src.vid, dtype), self._literal(dtype)], shape,
+            dtype))
 
     # -- reductions ---------------------------------------------------------
 

@@ -4,9 +4,7 @@ The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``_flash_kernel`` of the reference package; its source note gives its
 bound and design.  It is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``, at
-first use, into ``_build/<hash of the source and flags>/`` beside this
-module — so a fresh checkout builds it in seconds and an edited source
-rebuilds.
+first use (``kernels.nvcc``).
 
 :func:`flash_attention` takes model-layout tensors.  On a CPU tensor it
 computes the kernel's plain version (``kernels.ref``); on a CUDA tensor
@@ -17,90 +15,31 @@ counts the kernel launches of this process.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
 from repro_torch.kernels import ref, registry
+from repro_torch.kernels.nvcc import KernelLibrary
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-_BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches made by this process (plain integer, read by the chip
 # smoke run to show the main path went through the kernel)
 launches = 0
 
-_lib: ctypes.CDLL | None = None
 
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    cand = Path(CUDA_HOME) / "bin" / "nvcc" if CUDA_HOME else None
-    if cand is not None and cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA flash-attention "
-                           "kernel is built from source at first use")
-    return found
-
-
-def build_dir() -> Path:
-    """The build directory for the current source and flags."""
-    key = hashlib.sha256(_SRC.read_bytes() +
-                         " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_ROOT / key
-
-
-def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library.
-
-    Returns:
-        The loaded library with its C entry point's signature declared.
-
-    Raises:
-        RuntimeError: when ``nvcc`` is missing or fails.
-    """
-    global _lib
-    if _lib is not None:
-        return _lib
-    out = build_dir()
-    so = out / "libtoast_flash_attention.so"
-    if not so.exists():
-        out.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out)
-        os.close(fd)
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SRC)],
-                              capture_output=True, text=True)
-        (out / "build.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed on {_SRC.name}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.toast_flash_attention_fwd
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 +
                    [ctypes.c_longlong] * 12 +
                    [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
 
 
-def build_log() -> str:
-    """``nvcc``'s output (registers, shared memory, spills) of the build."""
-    path = build_dir() / "build.log"
-    return path.read_text() if path.exists() else ""
+_LIB = KernelLibrary("flash_attention.cu", "libtoast_flash_attention.so",
+                     _declare)
+build, build_dir, build_log = _LIB.build, _LIB.build_dir, _LIB.build_log
 
 
 def reference(q, k, v, *, causal: bool = True,

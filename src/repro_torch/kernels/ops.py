@@ -1,15 +1,15 @@
 """Dispatching public entry points for the fused kernels.
 
-Model code (``use_pallas=True`` paths) calls :func:`attention`.  Each
-call
+Model code (``use_pallas=True`` paths) calls :func:`attention` and
+:func:`rg_lru`.  Each call
 
 - resolves the implementation (``"cuda"`` vs ``"ref"``) from the ambient
   kernel-dispatch state (``repro_torch.models.sharding``): the plan's
   per-site decision, else the registry's default (``"cuda"``);
-- runs the computation inside the custom op
-  ``repro_torch::flash_attention``, which ``torch.export`` keeps as one
-  opaque node — the tracer (``core.ir``) records it as a single fused IR
-  op (``prim="kernel:flash_attention"``) instead of its internals.
+- runs the computation inside a custom op (``repro_torch::flash_attention``,
+  ``repro_torch::rg_lru``), which ``torch.export`` keeps as one opaque
+  node — the tracer (``core.ir``) records it as a single fused IR op
+  (``prim="kernel:<name>"``) instead of its internals.
 
 The op runs the kernel's plain version on a CPU tensor.  On a CUDA
 tensor, ``"cuda"`` launches the hand-written kernel (raising for a
@@ -24,17 +24,20 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import registry
+from repro_torch.kernels import rg_lru as lru
 
-__all__ = ["attention"]
+__all__ = ["attention", "rg_lru"]
 
-_IMPLS = frozenset(registry.KERNELS["flash_attention"].impls)
+
+def _check_impl(kernel: str, impl: str) -> None:
+    if impl not in registry.KERNELS[kernel].impls:
+        raise ValueError(f"unknown {kernel} impl {impl!r}")
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool, impl: str) -> torch.Tensor:
-    if impl not in _IMPLS:
-        raise ValueError(f"unknown flash_attention impl {impl!r}")
+    _check_impl("flash_attention", impl)
     if impl == "ref":
         return fa.reference(q, k, v, causal=causal)
     return fa.flash_attention(q, k, v, causal=causal)
@@ -73,3 +76,30 @@ def attention(q, k, v, *, causal: bool = True):
     """
     impl = _resolve("flash_attention")
     return _flash_attention_op(q, k, v, causal, impl)
+
+
+@torch.library.custom_op("repro_torch::rg_lru", mutates_args=())
+def _rg_lru_op(a: torch.Tensor, b: torch.Tensor, impl: str) -> torch.Tensor:
+    _check_impl("rg_lru", impl)
+    if impl == "ref":
+        return lru.reference(a, b)
+    return lru.rg_lru(a, b)
+
+
+@_rg_lru_op.register_fake
+def _(a, b, impl):
+    return a.new_empty(a.shape)
+
+
+def rg_lru(a, b):
+    """Fused gated linear recurrence dispatch: a, b (B,S,R) -> h (B,S,R).
+
+    Args:
+        a: decay gates.
+        b: inputs, a's shape and dtype.
+
+    Returns:
+        ``h_t = a_t h_{t-1} + b_t`` from h = 0, in a's dtype.
+    """
+    impl = _resolve("rg_lru")
+    return _rg_lru_op(a, b, impl)

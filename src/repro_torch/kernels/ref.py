@@ -26,3 +26,54 @@ def reference_attention(q, k, v, *, causal: bool = True,
         s = torch.where(pos_q >= pos_k, s, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", p.to(v.dtype), v)
+
+
+def _lru_combine(a1, b1, a2, b2):
+    # (a1, b1) then (a2, b2): h -> a2 (a1 h + b1) + b2
+    return a1 * a2, a2 * b1 + b2
+
+
+def _interleave(x, y):
+    """x at the even and y at the odd positions of dim 1, as
+    ``lax.pad`` with interior padding 1 builds them (one ``slice_scatter``
+    into zeros each, which the tracer lowers to that ``pad``)."""
+    shape = (x.shape[0], x.shape[1] + y.shape[1], *x.shape[2:])
+    return torch.slice_scatter(x.new_zeros(shape), x, 1, 0, None, 2) + \
+        torch.slice_scatter(y.new_zeros(shape), y, 1, 1, None, 2)
+
+
+def lru_associative_scan(a, b):
+    """Inclusive scan of ``(a, b)`` pairs along dim 1 under the linear
+    recurrence's combine, by the odd/even recursion of
+    ``jax.lax.associative_scan``, step for step: the same slices,
+    products, concatenations and pads, so the traced program has the
+    reference's structure.
+
+    Returns:
+        ``(prod a, h)`` with ``h_t = a_t h_{t-1} + b_t`` from h = 0.
+    """
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    ra, rb = _lru_combine(a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2],
+                          b[:, 1::2])
+    oa, ob = lru_associative_scan(ra, rb)
+    if n % 2 == 0:
+        ea, eb = _lru_combine(oa[:, 0:-1], ob[:, 0:-1], a[:, 2::2],
+                              b[:, 2::2])
+    else:
+        ea, eb = _lru_combine(oa, ob, a[:, 2::2], b[:, 2::2])
+    ea = torch.cat([a[:, 0:1], ea], 1)
+    eb = torch.cat([b[:, 0:1], eb], 1)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+def reference_rg_lru(a, b):
+    """The linear recurrence, plainly: a, b (B,S,R) -> h (B,S,R).
+
+    ``h_t = a_t h_{t-1} + b_t`` from h = 0, computed in float32 by the
+    associative scan and returned in a's dtype.  This is the plain
+    version of the CUDA RG-LRU kernel (``kernels/rg_lru.py``).
+    """
+    _, h = lru_associative_scan(a.to(torch.float32), b.to(torch.float32))
+    return h.to(a.dtype)

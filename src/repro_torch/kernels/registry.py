@@ -175,9 +175,12 @@ def _lru_flops(d, params):
 
 
 def _lru_bytes(impl, d, params, db):
+    elems = d["batch"] * d["seq"] * d["channels"]
+    if impl == "cuda":
+        # single pass: read a, b; write h
+        return 3.0 * elems * db
     # associative scan: log2(S) combine passes, each reading and
     # writing both carry arrays
-    elems = d["batch"] * d["seq"] * d["channels"]
     passes = max(1.0, math.ceil(math.log2(max(d["seq"], 2))))
     return 4.0 * elems * db * passes
 
@@ -238,17 +241,15 @@ KERNELS: dict[str, KernelSpec] = {
         impls=("ref",),
         dispatch_site=False,
     ),
-    # the RG-LRU scan has no Hopper kernel yet (ROADMAP queue 2): its
-    # contract is kept so traced hybrid programs analyze, with the
-    # reference impl only
     "rg_lru": KernelSpec(
         name="rg_lru",
-        # h_t = a_t * h_{t-1} + b_t over (B, S, R)
+        # h_t = a_t * h_{t-1} + b_t over (B, S, R); the CUDA kernel
+        # masks ragged channel and sequence edges, so no shape limits it
         operand_roles=(_LRU, _LRU),
         result_roles=(_LRU,),
         mappable=frozenset({"batch", "channels"}),
         blocked=frozenset({"seq"}),
-        impls=("ref",),
+        impls=("cuda", "ref"),
     ),
     "rg_lru_bwd": KernelSpec(
         name="rg_lru_bwd",

@@ -1,25 +1,31 @@
-"""Model building blocks in PyTorch: the dense decoder's parts.
+"""Model building blocks in PyTorch: the dense decoder's and the hybrid's
+parts.
 
 Ported so far: RMSNorm, RoPE, GQA attention (full, sliding-window and
-non-causal masking; the einsum path and the fused-kernel path) and the
-SwiGLU MLP.  The other block kinds of the reference (RG-LRU, MoE,
-xLSTM, cross-attention, the GELU MLP, the decode caches) are ROADMAP
-queue 1, items 9-12.
+non-causal masking; the einsum path and the fused-kernel path), the
+SwiGLU MLP and the Griffin RG-LRU block (full sequence; the
+associative-scan path and the fused-kernel path).  The other block
+kinds of the reference (MoE, xLSTM, cross-attention, the GELU MLP, the
+decode caches) are ROADMAP queue 1, items 10-12.
 
 Functions take plain tensors and parameter dicts in the reference's
 pytree layout.  They are written as the same reduce / elementwise steps
-the reference lowers to (the means, the softmax, the GQA repeat), so
-the traced program gives NDA the same structure.  Activations are
+the reference lowers to (the means, the softmax, the GQA repeat, GELU's
+and softplus's formulas, the associative scan), so the traced program
+gives NDA the same structure.  Activations are
 annotated with logical dim names via ``sharding.constrain``.
 """
 
 from __future__ import annotations
 
 import math
+import struct
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.ref import lru_associative_scan
 from repro_torch.models.sharding import constrain
 
 # ---------------------------------------------------------------------------
@@ -30,6 +36,17 @@ from repro_torch.models.sharding import constrain
 def dense_fan_in(shape) -> int:
     """Fan-in of a dense weight (its contracted dim)."""
     return shape[-2] if len(shape) >= 2 else shape[-1]
+
+
+def round_to(dtype, x: float) -> float:
+    """``x`` rounded to nearest-even in ``dtype`` (host arithmetic)."""
+    if dtype == torch.bfloat16:
+        bits = struct.unpack("<I", struct.pack("<f", x))[0]
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+        return struct.unpack("<f", struct.pack("<I", bits))[0]
+    if dtype == torch.float16:
+        return float(np.float16(x))
+    return float(np.float32(x)) if dtype == torch.float32 else x
 
 
 def rmsnorm(x, scale, eps=1e-6):
@@ -170,3 +187,87 @@ def mlp_apply(cfg, p, x):
     gate = h @ p["wg"]
     u = gate * torch.sigmoid(gate) * u
     return x + (u @ p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin)
+# ---------------------------------------------------------------------------
+
+_RG_C = 8.0
+_CONV_K = 4
+
+
+def rnn_width(cfg) -> int:
+    """Width of the RG-LRU block's recurrence (3/2 of d_model)."""
+    return (cfg.d_model * 3) // 2
+
+
+def rglru_param_shapes(cfg) -> dict:
+    """Shapes and init kinds of one RG-LRU block's parameters."""
+    d, r = cfg.d_model, rnn_width(cfg)
+    return {"ln": ((d,), "ones"), "wx": ((d, r), "dense"),
+            "wy": ((d, r), "dense"), "wo": ((r, d), "dense"),
+            "conv_w": ((_CONV_K, r), "conv"), "conv_b": ((r,), "zeros"),
+            # diagonal gate parametrisation (per-channel weight + bias)
+            "ga_w": ((r,), "gate"), "ga_b": ((r,), "zeros"),
+            "gi_w": ((r,), "gate"), "gi_b": ((r,), "zeros"),
+            # Λ in [4, 6), so a = σ(Λ)^c starts near 0.9..0.999
+            "lam": ((r,), "lam")}
+
+
+def gelu(x):
+    """``jax.nn.gelu`` in its default tanh form, step for step, with its
+    constants rounded to x's dtype as the reference rounds them."""
+    c = round_to(x.dtype, 0.044715)
+    k = round_to(x.dtype, math.sqrt(2 / math.pi))
+    cdf = 0.5 * (1.0 + torch.tanh(k * (x + c * x ** 3)))
+    return x * cdf
+
+
+def softplus(x):
+    """``jax.nn.softplus``, written out as its ``logaddexp(x, 0)``."""
+    amax = torch.clamp_min(x, 0.0)
+    delta = x - 0.0
+    return torch.where(delta != delta, x + 0.0,
+                       amax + torch.log1p(torch.exp(-delta.abs())))
+
+
+def _causal_conv4(u, w, b):
+    """Depthwise causal conv, kernel 4, from a zero state (prefill).
+
+    u: (B,S,r); w: (4,r); b: (r,).  Returns the output and the last 3
+    inputs (the decode state), as the reference does.
+    """
+    pad = torch.zeros_like(u[:, :_CONV_K - 1])
+    ext = torch.cat([pad, u], 1)                           # (B, S+3, r)
+    S = u.shape[1]
+    out = sum(ext[:, i:i + S] * w[_CONV_K - 1 - i] for i in range(_CONV_K))
+    new_state = ext[:, -(_CONV_K - 1):]
+    return out + b, new_state
+
+
+def _rglru_gates(p, u):
+    """Decay ``a`` and input term of the recurrence, both float32."""
+    rt = torch.sigmoid(u * p["ga_w"] + p["ga_b"]).to(torch.float32)
+    it = torch.sigmoid(u * p["gi_w"] + p["gi_b"]).to(torch.float32)
+    log_a = -_RG_C * rt * softplus(p["lam"].to(torch.float32))
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6))
+    bterm = beta * (it * u.to(torch.float32))
+    return a, bterm
+
+
+def rglru_apply(cfg, p, x):
+    """Griffin RG-LRU block (pre-norm residual), full sequence."""
+    h = rmsnorm(x, p["ln"])
+    u = h @ p["wx"]
+    u, _ = _causal_conv4(u, p["conv_w"], p["conv_b"])
+    u = constrain(u, ("act_batch", "seq", "rnn"))
+    a, bterm = _rglru_gates(p, u)
+    if getattr(cfg, "use_pallas", False):
+        # fused kernel path — traced as a single kernel:rg_lru IR op
+        hseq = kernel_ops.rg_lru(a, bterm)
+    else:
+        _, hseq = lru_associative_scan(a, bterm)
+    y = gelu(h @ p["wy"]) * hseq.to(x.dtype)
+    return x + (y @ p["wo"])

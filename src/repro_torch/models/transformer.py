@@ -14,14 +14,13 @@ the structural analogue of the paper's §4.4 repeated-layer grouping);
 run eagerly it is a plain loop giving the same result.  ``remat`` has no
 effect in the forward pass.
 
-Ported block kinds: ``attn`` (and ``local``) with the dense MLP.  The
-others raise and name their ROADMAP item.
+Ported block kinds: ``attn``, ``local`` and ``rglru``, with the dense
+MLP.  The others raise and name their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import math
-import struct
 
 import numpy as np
 import torch
@@ -32,7 +31,6 @@ from repro_torch.models import layers as L
 from repro_torch.models.sharding import constrain, get_kernel_dispatch
 
 _NOT_PORTED = {
-    "rglru": "RG-LRU blocks are not ported yet (ROADMAP queue 1, item 9)",
     "mlstm": "xLSTM blocks are not ported yet (ROADMAP queue 1, item 11)",
     "slstm": "xLSTM blocks are not ported yet (ROADMAP queue 1, item 11)",
 }
@@ -70,7 +68,8 @@ def _check_ported(cfg, kind: str) -> None:
 
 def _block_shapes(cfg, kind) -> dict:
     _check_ported(cfg, kind)
-    p = {"mix": L.attn_param_shapes(cfg)}
+    p = {"mix": L.rglru_param_shapes(cfg) if kind == "rglru" else
+         L.attn_param_shapes(cfg)}
     if cfg.d_ff > 0:
         p["ffn"] = L.mlp_param_shapes(cfg)
     return p
@@ -108,12 +107,18 @@ def _map_shapes(fn, tree):
     return tuple(_map_shapes(fn, v) for v in tree)
 
 
+# std of the normal init kinds that do not scale with fan-in
+_INIT_STD = {"embed": 1.0, "gate": 1.0, "conv": 0.5}
+
+
 def init_params(cfg, generator: torch.Generator, device=None):
     """Random parameters, drawn from ``generator``.
 
     Dense weights are normal with std ``1/sqrt(fan_in)`` (the embedding
-    std 1), norms one, biases zero, as in the reference; the numbers
-    differ from the reference's, which draws from ``jax.random``.
+    and the RG-LRU gate weights std 1, its conv weights std 0.5), the
+    RG-LRU ``lam`` uniform in [4, 6), norms one, biases zero, as in the
+    reference; the numbers differ from the reference's, which draws from
+    ``jax.random``.
 
     Args:
         cfg: the model configuration.
@@ -131,8 +136,11 @@ def init_params(cfg, generator: torch.Generator, device=None):
             return torch.ones(shape, dtype=cfg.dtype, device=dev)
         if kind == "zeros":
             return torch.zeros(shape, dtype=cfg.dtype, device=dev)
-        scale = 1.0 if kind == "embed" else \
-            1.0 / math.sqrt(L.dense_fan_in(shape))
+        if kind == "lam":
+            u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                           device=dev)
+            return (u * 2 + 4).to(cfg.dtype)
+        scale = _INIT_STD.get(kind) or 1.0 / math.sqrt(L.dense_fan_in(shape))
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=dev)
         return (w * scale).to(cfg.dtype)
@@ -175,7 +183,8 @@ def params_from_numpy(tree, device=None):
 def param_logical_axes(cfg, params):
     """Logical dim names for every param leaf (for TOAST's logical
     projection).  Disambiguates key collisions (attention ``wo`` vs MLP
-    ``wo``) by the parent block key."""
+    ``wo``) by the parent block key, and a mix ``wo`` whose rows are the
+    RNN width (RG-LRU) from an attention one."""
 
     def names(keys, leaf):
         key = keys[-1]
@@ -190,8 +199,15 @@ def param_logical_axes(cfg, params):
             base = ("embed", "heads")
         elif key in ("wk", "wv"):
             base = ("embed", "kv_heads")
+        elif key in ("wx", "wy"):
+            base = ("embed", "rnn")
+        elif key in ("ga_w", "ga_b", "gi_w", "gi_b", "lam", "conv_b"):
+            base = ("rnn",)
+        elif key == "conv_w":
+            base = (None, "rnn")
         elif key == "wo" and parent == "mix":
-            base = ("heads", "embed")
+            base = ("rnn", "embed") if leaf.shape[-2] == L.rnn_width(cfg) \
+                else ("heads", "embed")
         elif key in ("wi", "wg"):
             base = ("embed", "hidden")
         elif key == "wo":
@@ -213,8 +229,11 @@ def param_logical_axes(cfg, params):
 
 def apply_block(cfg, kind, p, x, positions):
     _check_ported(cfg, kind)
-    window = cfg.sliding_window if kind == "attn" else cfg.local_window
-    x = L.attn_apply(cfg, p["mix"], x, positions, window=window)
+    if kind == "rglru":
+        x = L.rglru_apply(cfg, p["mix"], x)
+    else:
+        window = cfg.sliding_window if kind == "attn" else cfg.local_window
+        x = L.attn_apply(cfg, p["mix"], x, positions, window=window)
     if "ffn" in p:
         x = L.mlp_apply(cfg, p["ffn"], x)
     return x
@@ -257,21 +276,10 @@ def _run_layers(cfg, params, h, positions):
     return h
 
 
-def _round_to(dtype, x: float) -> float:
-    """``x`` rounded to nearest-even in ``dtype`` (host arithmetic)."""
-    if dtype == torch.bfloat16:
-        bits = struct.unpack("<I", struct.pack("<f", x))[0]
-        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
-        return struct.unpack("<f", struct.pack("<I", bits))[0]
-    if dtype == torch.float16:
-        return float(np.float16(x))
-    return float(np.float32(x)) if dtype == torch.float32 else x
-
-
 def embed_tokens(cfg, params, tokens):
     h = torch.nn.functional.embedding(tokens, params["embed"])
     # the scale rounded to the activations' dtype, as the reference does
-    return h * _round_to(h.dtype, math.sqrt(cfg.d_model))
+    return h * L.round_to(h.dtype, math.sqrt(cfg.d_model))
 
 
 def forward(cfg, params, tokens):

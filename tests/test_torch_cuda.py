@@ -1,4 +1,4 @@
-"""The CUDA flash-attention kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: each test skips without a CUDA card (the kernel has no
 CPU mode).  This file imports neither JAX nor the JAX package, so it
@@ -6,8 +6,8 @@ runs on a machine with the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerances are those of ``tests/test_kernels.py``: 2e-5 for float32,
-2e-2 for bfloat16.
+Tolerances are those of ``tests/test_kernels.py``: 2e-5 for float32;
+2e-2 (attention) and 3e-2 (RG-LRU) for bfloat16.
 """
 
 import pytest
@@ -15,11 +15,13 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import rg_lru as lru
 from repro_torch.models.sharding import KernelDispatch, kernel_dispatch
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+LRU_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
 
 @pytest.fixture
@@ -76,3 +78,63 @@ def test_raises_for_inputs_the_kernel_does_not_take(gen):
                          dtype=torch.bfloat16)[..., 1:]
     with pytest.raises(ValueError, match="even"):
         fa.flash_attention(packed, packed, packed)
+
+
+def lru_inputs(gen, shape, dtype, lo=None, hi=None):
+    if lo is None:
+        a = torch.sigmoid(torch.randn(shape, generator=gen, device="cuda"))
+    else:
+        a = lo + (hi - lo) * torch.rand(shape, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(shape, generator=gen, device="cuda")
+    return a.to(dtype), b.to(dtype)
+
+
+def assert_lru_close(a, b):
+    got = lru.rg_lru(a, b)
+    want = lru.reference(a, b)
+    torch.cuda.synchronize()
+    assert got.dtype == a.dtype
+    tol = LRU_TOL[a.dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 4096, 3840), (1, 64, 131),
+                                   (1, 1000, 300)])
+def test_rg_lru_matches_plain(gen, dtype, shape):
+    assert_lru_close(*lru_inputs(gen, shape, dtype))
+
+
+def test_rg_lru_carries_slow_gates(gen):
+    assert_lru_close(*lru_inputs(gen, (4, 4096, 3840), torch.float32, 0.9,
+                                 0.999))
+
+
+def test_rg_lru_decay_matches_the_closed_form(gen):
+    S = 2048
+    a = torch.full((1, S, 128), 0.999, device="cuda")
+    b = torch.full((1, S, 128), 0.01, device="cuda")
+    h = assert_lru_close(a, b)
+    want = 0.01 * (1 - 0.999 ** S) / 0.001
+    torch.testing.assert_close(h[0, -1], torch.full_like(h[0, -1], want),
+                               rtol=1e-3, atol=0)
+
+
+def test_rg_lru_takes_strided_views(gen):
+    packed = torch.rand((2, 300, 2, 256), generator=gen, device="cuda")
+    assert_lru_close(packed[:, :, 0], packed[:, :, 1])
+
+
+def test_rg_lru_raises_for_inputs_the_kernel_does_not_take(gen):
+    before = lru.launches
+    half = torch.zeros((1, 8, 16), device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        lru.rg_lru(half, half)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.rg_lru(half, half)
+    strided = torch.zeros((1, 8, 32), device="cuda")[..., ::2]
+    with pytest.raises(ValueError, match="contiguous channel"):
+        lru.rg_lru(strided, strided)
+    assert lru.launches == before

@@ -166,7 +166,11 @@ class TestRegistry:
         for hd in (8, 40, 256):
             assert not registry.cuda_feasible("flash_attention",
                                               {**dims, "head_dim": hd})
-        assert not registry.cuda_feasible("rg_lru", {"channels": 128})
+        # the RG-LRU kernel masks ragged channels and sequences itself
+        for r in (128, 131, 3840):
+            assert registry.cuda_feasible("rg_lru", {"batch": 1,
+                                                     "seq": 1000,
+                                                     "channels": r})
 
     def test_flops_and_bytes(self):
         spec = registry.KERNELS["flash_attention"]

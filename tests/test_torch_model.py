@@ -22,6 +22,7 @@ from repro.models import transformer as JT
 from repro.train.steps import make_prefill_step as jax_prefill
 from repro_torch import pytree
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.sharding import KernelDispatch, kernel_dispatch
 from repro_torch.train.steps import make_prefill_step
@@ -99,7 +100,7 @@ class TestParams:
                                       np.asarray(x, np.float32))
 
     def test_unported_block_kinds_raise(self):
-        for arch in ("recurrentgemma_2b", "mixtral_8x22b", "xlstm_350m"):
+        for arch in ("mixtral_8x22b", "xlstm_350m"):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 T.param_specs(get_config(arch).reduced())
 
@@ -192,4 +193,4 @@ class TestScanLayers:
             for td, jd in ((torch.bfloat16, jnp.bfloat16),
                            (torch.float16, jnp.float16),
                            (torch.float32, jnp.float32)):
-                assert T._round_to(td, x) == float(jnp.asarray(x, jd))
+                assert L.round_to(td, x) == float(jnp.asarray(x, jd))
