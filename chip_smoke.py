@@ -10,7 +10,8 @@ the hand-written CUDA RG-LRU kernel.
 1. print the card's name and power limit; build both kernels from the
    sources in this checkout, in parallel;
 2. hold each kernel against its plain PyTorch version on the card, at
-   its slice shape and at edge shapes;
+   its slice shape and at edge shapes (attention: every head dim it is
+   built for, in both dtypes);
 3. for each path: trace and analyze the full-width prefill step on
    ``meta`` tensors (``Session``); search a plan for an 8-card node (2x4
    mesh) on the host and check its JSON round trip; search the one-card
@@ -23,7 +24,9 @@ the hand-written CUDA RG-LRU kernel.
    a small f32 model against the plain path too;
 5. time each kernel at its slice shape beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` (a
-   yardstick only: the port never calls it).
+   yardstick only: the port never calls it); time the attention kernel
+   and SDPA at head dims 96 and 128 too, at the slice's B, S and H, and
+   at hd 64 without the causal mask and at four times the length.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Needs one
 CUDA card (sm_90a) and ``nvcc``; exits non-zero, printing no result,
@@ -102,7 +105,8 @@ def build_all(modules) -> None:
     for name, mod in modules.items():
         log(f"[build] {name}: {mod.build_dir().name}")
         for line in mod.build_log().splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill", "error")):
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -131,6 +135,45 @@ def check_fa(fa, torch, gen, B, S, T, H, hd, dtype, causal,
         f"{dtype_name(dtype)} causal={causal} strided={strided}: "
         f"max|err|={err:.3e} (tol {tol}) ok")
     return err
+
+
+def time_fa(fa, torch, gen, card, B, S, H, hd, plain,
+            causal=True) -> dict:
+    """Times the bf16 kernel, SDPA and optionally the plain version at
+    (B, S, H, hd); logs a ``[time]`` line, returns its row."""
+    q, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    kernel_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                        20)
+    plain_ms = (cuda_ms(lambda: fa.reference(q, k, v, causal=causal), 10)
+                if plain else None)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = cuda_ms(lambda: torch.nn.functional.
+                         scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=causal), 20)
+    # the work this run needs: the (causal: k <= q) pairs, two products
+    pairs = S * (S + 1) / 2 if causal else S * S
+    flops = 4.0 * B * H * hd * pairs
+    nbytes = 4.0 * B * S * H * hd * q.element_size()
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    plain_txt = f"plain {plain_ms:.4f} ms, " if plain else ""
+    log(f"[time] {card}: flash_attention B={B} S={S} H={H} hd={hd} bf16 "
+        f"{'causal' if causal else 'full'} {kernel_ms:.4f} ms "
+        f"({flops / kernel_ms / 1e9:.1f} "
+        f"TFLOP/s), {plain_txt}sdpa {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} "
+        f"MB) -> kernel {bound_ms / kernel_ms:.3%}, sdpa "
+        f"{bound_ms / library_ms:.3%} of bound")
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:30",
+        "launches": None, "max_abs_err": None,
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms}
 
 
 def check_lru(lru, torch, a, b, label) -> tuple[float, object]:
@@ -299,6 +342,7 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import registry
     from repro_torch.kernels import rg_lru as lru
 
     counters = {"flash_attention": fa, "rg_lru": lru}
@@ -338,6 +382,15 @@ def main() -> int:
                  (2, 100, 100, 2, 96, bf16, False),
                  (2, 128, 128, 4, 64, bf16, True)]:
         check_fa(fa, torch, gen, *args)
+    # S = 1 and T = 1, both ways
+    for args in [(1, 1, 1, 2, 64, bf16, True),
+                 (1, 1, 300, 2, 64, bf16, False),
+                 (2, 300, 1, 2, 128, bf16, True)]:
+        check_fa(fa, torch, gen, *args)
+    # every head dim the kernel is built for, both dtypes
+    for hd_i in sorted(registry.CUDA_HEAD_DIMS):
+        for dtype in (f32, bf16):
+            check_fa(fa, torch, gen, 1, 130, 130, 2, hd_i, dtype, True)
     for dtype in (f32, bf16):
         check_fa(fa, torch, gen, 2, 190, 190, 4, 64, dtype, True,
                  strided=True)
@@ -379,34 +432,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5: each kernel's time at its slice shape ----------------------------
-    q, k, v = (torch.randn((B, S, H, hd), generator=gen, device="cuda",
-                           dtype=bf16) for _ in range(3))
-    kernel_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20)
-    plain_ms = cuda_ms(lambda: fa.reference(q, k, v, causal=True), 10)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = cuda_ms(lambda: torch.nn.functional.
-                         scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True), 20)
-    # the work this run needs: the causal (k <= q) pairs, two products
-    flops = 4.0 * B * H * hd * S * (S + 1) / 2
-    nbytes = 4.0 * B * S * H * hd * q.element_size()
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    fa_row = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:30",
-        "launches": fa_launches, "max_abs_err": fa_err,
-        "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms}
-    log(f"[time] {card}: flash_attention {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-        f"{fa_row['bound_ms']:.4f} ms ({flops / 1e9:.2f} GFLOP, "
-        f"{nbytes / 1e6:.2f} MB) -> {fa_row['bound_ms'] / kernel_ms:.3%} "
-        f"of bound")
-    del q, k, v, qt, kt, vt
+    fa_row = time_fa(fa, torch, gen, card, B, S, H, hd, plain=True)
+    fa_row.update(launches=fa_launches, max_abs_err=fa_err)
+    # the head dims of the repo's other configs, at the slice's B, S, H
+    for hd_i in (96, 128):
+        time_fa(fa, torch, gen, card, B, S, H, hd_i, plain=False)
+    # the inner loop without the causal tail: no mask, and a longer S
+    time_fa(fa, torch, gen, card, B, S, H, hd, plain=False, causal=False)
+    time_fa(fa, torch, gen, card, 1, 4 * S, H, hd, plain=False)
 
     a, b = lru_inputs(torch, gen, lru_shape, f32)
     kernel_ms = cuda_ms(lambda: lru.rg_lru(a, b), 20)

@@ -51,6 +51,16 @@ def reference(q, k, v, *, causal: bool = True,
     return out.transpose(1, 2)
 
 
+def _strides(t) -> list[int]:
+    """Element strides of dims (B, S, H) as the kernel takes them.
+
+    A dim of size 1 is never stepped over, so it is given the stride it
+    would have in a packed tensor, whatever view made it.
+    """
+    return [st if n > 1 else math.prod(t.shape[i + 1:])
+            for i, (n, st) in enumerate(zip(t.shape[:3], t.stride()[:3]))]
+
+
 def _check(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes (B,S,H,hd) q and "
@@ -71,10 +81,11 @@ def _check(q, k, v) -> None:
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs a contiguous head dim")
     if q.dtype == torch.bfloat16 and (
-            any(st % 2 for t in (q, k, v) for st in t.stride()[:3]) or
-            any(t.data_ptr() % 4 for t in (q, k, v))):
-        raise ValueError("flash_attention reads bf16 in pairs: strides "
-                         "must be even and tensors 4-byte aligned")
+            any(st % 8 for t in (q, k, v) for st in _strides(t)) or
+            any(t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError("flash_attention loads bf16 tiles with TMA: "
+                         "tensors must be 16-byte aligned and their batch, "
+                         "sequence and head strides multiples of 16 bytes")
     if not registry.cuda_feasible("flash_attention", {"head_dim": hd}):
         raise ValueError(f"the CUDA flash-attention kernel takes head_dim "
                          f"in {sorted(registry.CUDA_HEAD_DIMS)}, got {hd}")
@@ -116,7 +127,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     err = lib.toast_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         B, S, T, H, hd, _DTYPES[q.dtype],
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        *_strides(q), *_strides(k), *_strides(v), *_strides(o),
         int(causal), scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with "

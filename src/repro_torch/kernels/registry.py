@@ -30,9 +30,10 @@ __all__ = [
 # IR prims for fused kernel sites are f"{KERNEL_PRIM_PREFIX}{name}"
 KERNEL_PRIM_PREFIX = "kernel:"
 
-# query rows one thread block of the CUDA flash-attention kernel owns
-# (``csrc/flash_attention.cu``); K/V are streamed once per such block
-BLOCK_Q = 64
+# query rows one thread block of the CUDA flash-attention kernel's bf16
+# path owns (``kBlockQ`` in ``csrc/flash_attention.cu``); K/V are
+# streamed once per such block.  The f32 path, off the main path, owns 64.
+BLOCK_Q = 128
 
 # head dims the CUDA flash-attention kernel is instantiated for.  It masks
 # ragged sequence edges itself, so head_dim is its only shape limit.

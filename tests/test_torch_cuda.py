@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, registry
 from repro_torch.kernels import rg_lru as lru
 from repro_torch.models.sharding import KernelDispatch, kernel_dispatch
 
@@ -36,28 +36,47 @@ def qkv(gen, B, S, T, H, hd, dtype):
             for n in (S, T, T))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S,T,causal", [(256, 256, True), (256, 256, False),
-                                        (200, 333, True), (333, 200, True),
-                                        (1000, 1000, True)])
-def test_kernel_matches_plain(gen, dtype, S, T, causal):
-    q, k, v = qkv(gen, 2, S, T, 4, 64, dtype)
+def assert_fa_close(q, k, v, causal):
     got = fa.flash_attention(q, k, v, causal=causal)
     want = fa.reference(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
-                               atol=TOL[dtype])
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[q.dtype],
+                               atol=TOL[q.dtype])
 
 
-@pytest.mark.parametrize("hd", [16, 48, 128])
-def test_every_head_dim_family(gen, hd):
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = qkv(gen, 1, 130, 130, 3, hd, dtype)
-        got = fa.flash_attention(q, k, v, causal=True)
-        want = fa.reference(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got.float(), want.float(),
-                                   rtol=TOL[dtype], atol=TOL[dtype])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,T,causal", [(256, 256, True), (256, 256, False),
+                                        (200, 333, True), (333, 200, True),
+                                        (1000, 1000, True),
+                                        (257, 300, True), (257, 300, False),
+                                        (300, 257, True), (1, 1, True),
+                                        (1, 300, False), (1, 300, True),
+                                        (300, 1, True)])
+def test_kernel_matches_plain(gen, dtype, S, T, causal):
+    assert_fa_close(*qkv(gen, 2, S, T, 4, 64, dtype), causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", sorted(range(16, 129, 16)))
+def test_every_head_dim_family(gen, hd, dtype, causal):
+    assert hd in registry.CUDA_HEAD_DIMS
+    assert_fa_close(*qkv(gen, 1, 130, 257, 3, hd, dtype), causal)
+
+
+def test_slice_shape(gen):
+    """qwen2_05b prefill: (4, 2048, 14, 64) bf16 causal."""
+    assert_fa_close(*qkv(gen, 4, 2048, 2048, 14, 64, torch.bfloat16), True)
+
+
+@pytest.mark.parametrize("hd", [64, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_strided_views(gen, dtype, hd):
+    """q, k, v as views of one packed (B, S, 3, H, hd) projection."""
+    packed = torch.randn((2, 190, 3, 4, hd), generator=gen,
+                         device="cuda").to(dtype)
+    assert_fa_close(packed[:, :, 0], packed[:, :, 1], packed[:, :, 2], True)
 
 
 def test_dispatch_launches_only_for_cuda_sites(gen):
@@ -74,10 +93,14 @@ def test_raises_for_inputs_the_kernel_does_not_take(gen):
     q, k, v = qkv(gen, 1, 64, 64, 2, 40, torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, k, v)
-    packed = torch.zeros((1, 64, 2, 65), device="cuda",
-                         dtype=torch.bfloat16)[..., 1:]
-    with pytest.raises(ValueError, match="even"):
-        fa.flash_attention(packed, packed, packed)
+    before = fa.launches
+    # bf16 tiles are TMA copies: 16-byte aligned, strides in 16 bytes
+    for cut in (1, 4):
+        packed = torch.zeros((1, 64, 2, 64 + cut), device="cuda",
+                             dtype=torch.bfloat16)[..., cut:]
+        with pytest.raises(ValueError, match="16 bytes"):
+            fa.flash_attention(packed, packed, packed)
+    assert fa.launches == before
 
 
 def lru_inputs(gen, shape, dtype, lo=None, hi=None):

@@ -11,6 +11,9 @@ The CUDA kernel itself runs only on a card: its checks are in
 ``tests/test_torch_cuda.py`` (marked ``cuda``, skipped without a card).
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -135,6 +138,32 @@ class TestOpsOnCpu:
         with pytest.raises(ValueError, match="contiguous head dim"):
             strided = torch.zeros((1, 8, 2, 32))[..., ::2]
             fa._check(strided, strided, strided)
+
+    @pytest.mark.parametrize("cut", [1, 2, 4])
+    def test_bf16_tma_rule(self, cut):
+        """bf16 tiles are TMA copies: 16-byte aligned, strides in 16 bytes."""
+        packed = torch.zeros((2, 8, 2, 64 + cut), dtype=torch.bfloat16)
+        view = packed[..., cut:]
+        with pytest.raises(ValueError, match="16 bytes"):
+            fa._check(view, view, view)
+        # the f32 path reads scalars and takes the same view
+        fa._check(view.float()[..., :16], view.float()[..., :16],
+                  view.float()[..., :16])
+
+    def test_bf16_tma_rule_passes_packed_views(self):
+        """The slice's strided views (one packed projection) and size-1
+        dims of any stride are taken."""
+        packed = torch.zeros((2, 190, 3, 4, 64), dtype=torch.bfloat16)
+        q, k, v = packed[:, :, 0], packed[:, :, 1], packed[:, :, 2]
+        fa._check(q, k, v)
+        one = torch.zeros((1, 1, 4, 68), dtype=torch.bfloat16)[..., :64]
+        assert fa._strides(one) == [4 * 64, 4 * 64, 68]
+        with pytest.raises(ValueError, match="16 bytes"):
+            fa._check(one, one, one)
+        one = torch.zeros((1, 1, 1, 64), dtype=torch.bfloat16)
+        single = one.as_strided(one.shape, (3, 5, 7, 1))
+        assert fa._strides(single) == [64, 64, 64]
+        fa._check(single, single, single)
         with pytest.raises(ValueError, match="CUDA or CPU"):
             meta = torch.empty((1, 8, 2, 16), device="meta")
             fa.flash_attention(meta, meta, meta)
@@ -179,9 +208,20 @@ class TestRegistry:
         jspec = jregistry.KERNELS["flash_attention"]
         assert spec.flops(d, {"causal": True}) == \
             jspec.flops(d, {"causal": True})
-        # flash streaming: Q/O once, K/V once per 64-row q-block
+        # flash streaming: Q/O once, K/V once per 128-row q-block, as the
+        # reference prices its Pallas kernel's 128-row blocks at S = 2048
         nq = -(-2048 // registry.BLOCK_Q)
+        assert nq == 16
         assert spec.bytes_moved("cuda", d, {}, 2) == \
             4 * 14 * 64 * 2 * (2 * 2048 + 2 * 2048 * nq)
+        assert spec.bytes_moved("cuda", d, {}, 2) == \
+            jspec.bytes_moved("pallas", d, {}, 2)
         assert spec.bytes_moved("ref", d, {}, 2) == \
             jspec.bytes_moved("ref", d, {}, 2)
+
+    def test_block_q_is_the_kernels_query_tile(self):
+        """The cost model's K/V re-reads follow the kernel's query tile."""
+        src = (Path(fa.__file__).parent / "csrc" /
+               "flash_attention.cu").read_text()
+        tiles = re.findall(r"constexpr int kBlockQ = (\d+);", src)
+        assert tiles == [str(registry.BLOCK_Q)]
