@@ -5,13 +5,15 @@ Drives the port's two main paths through the entry points a user calls:
 partition and serve the ``qwen2_05b`` prefill step with its fused
 attention sites on the hand-written CUDA flash-attention kernel, and the
 ``recurrentgemma_2b`` hybrid prefill step with its RG-LRU scan sites on
-the hand-written CUDA RG-LRU kernel.
+the hand-written CUDA RG-LRU kernel (its TMA-ring route; the generic
+route takes strides TMA cannot describe).
 
 1. print the card's name and power limit; build both kernels from the
    sources in this checkout, in parallel;
 2. hold each kernel against its plain PyTorch version on the card, at
    its slice shape and at edge shapes (attention: every head dim it is
-   built for, in both dtypes);
+   built for, in both dtypes; RG-LRU: each case checks which route it
+   took);
 3. for each path: trace and analyze the full-width prefill step on
    ``meta`` tensors (``Session``); search a plan for an 8-card node (2x4
    mesh) on the host and check its JSON round trip; search the one-card
@@ -19,14 +21,17 @@ the hand-written CUDA RG-LRU kernel.
    card with seeded random weights;
 4. answer 3 requests per path (qwen2_05b: 4 prompts x 2048 tokens;
    recurrentgemma_2b: 4 x 4096, twice its local window), count each
-   kernel's launches from zero, and hold the last-token logits against
-   the same requests with every site forced to the plain version; check
-   a small f32 model against the plain path too;
+   kernel's launches from zero (RG-LRU: by route, all on the TMA ring),
+   and hold the last-token logits against the same requests with every
+   site forced to the plain version; check a small f32 model against the
+   plain path too;
 5. time each kernel at its slice shape beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` (a
    yardstick only: the port never calls it); time the attention kernel
    and SDPA at head dims 96 and 128 too, at the slice's B, S and H, and
-   at hd 64 without the causal mask and at four times the length.
+   at hd 64 without the causal mask and at four times the length; time
+   the RG-LRU ring in bf16 and at one batch row too, and its generic
+   route at the slice shape.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  Needs one
 CUDA card (sm_90a) and ``nvcc``; exits non-zero, printing no result,
@@ -176,9 +181,15 @@ def time_fa(fa, torch, gen, card, B, S, H, hd, plain,
         "library_ms": library_ms}
 
 
-def check_lru(lru, torch, a, b, label) -> tuple[float, object]:
-    """RG-LRU kernel vs plain version on one input; (max |error|, h)."""
+def check_lru(lru, torch, a, b, label, route) -> tuple[float, object]:
+    """RG-LRU kernel vs plain version on one input, launched once on
+    ``route``; (max |error|, h)."""
+    before = dict(lru.route_launches)
     out = lru.rg_lru(a, b)
+    took = {r: n - before[r] for r, n in lru.route_launches.items()}
+    if took != {r: int(r == route) for r in lru.ROUTES}:
+        raise AssertionError(f"rg_lru {label}: launches by route {took}, "
+                             f"expected one on {route}")
     want = lru.reference(a, b)
     torch.cuda.synchronize()
     tol = LRU_TOL[dtype_name(a.dtype)]
@@ -186,8 +197,8 @@ def check_lru(lru, torch, a, b, label) -> tuple[float, object]:
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
     if out.dtype != a.dtype or not torch.isfinite(out).all():
         raise AssertionError("kernel output is not finite or of a's dtype")
-    log(f"[kernel] rg_lru {label} {tuple(a.shape)} {dtype_name(a.dtype)}: "
-        f"max|err|={err:.3e} (tol {tol}) ok")
+    log(f"[kernel] rg_lru {label} {tuple(a.shape)} {dtype_name(a.dtype)} "
+        f"{route} route: max|err|={err:.3e} (tol {tol}) ok")
     return err, out
 
 
@@ -280,8 +291,11 @@ def drive_path(torch, cfg, shape, counters, kernel, per_request):
 
     for mod in counters.values():
         mod.launches = 0
+    lru = counters["rg_lru"]
+    lru.route_launches = dict.fromkeys(lru.ROUTES, 0)
     kernel_logits = serve(applied, "cuda")
     launches = {k: mod.launches for k, mod in counters.items()}
+    routes = dict(lru.route_launches)
     want = {k: per_request * REQUESTS if k == kernel else 0
             for k in counters}
     if launches != want:
@@ -289,6 +303,9 @@ def drive_path(torch, cfg, shape, counters, kernel, per_request):
                              f"expected {want}")
     log(f"[serve {name}] {kernel} launches {launches[kernel]} = "
         f"{per_request} x {REQUESTS}")
+    if routes != {"tma": launches["rg_lru"], "generic": 0}:
+        raise AssertionError(f"{name}: rg_lru launches by route {routes}, "
+                             f"expected all on the TMA ring")
     plain_plan = dataclasses.replace(
         plan1, kernel_sites=[{**r, "impl": "ref"}
                              for r in plan1.kernel_sites])
@@ -323,7 +340,28 @@ def drive_path(torch, cfg, shape, counters, kernel, per_request):
     log(f"[small] {small.name} ({small.num_layers} layers) f32 logits "
         f"kernel vs plain: max|diff| {(got - want).abs().max().item():.3e} "
         f"(tol {SMALL_TOL}) ok")
-    return launches[kernel]
+    return launches[kernel], routes
+
+
+def time_lru(lru, torch, gen, card, shape, dtype, route) -> dict:
+    """Times one RG-LRU route at ``shape`` beside its bound; logs a
+    ``[time]`` line and returns ms, bound and the plain inputs."""
+    a, b = lru_inputs(torch, gen, shape, dtype)
+    lib = lru.build()
+    kernel_ms = cuda_ms(lambda: lru.launch(lib, a, b, route), 20)
+    # each input read once, h written once; one multiply-add per element
+    nbytes = 3.0 * a.numel() * a.element_size()
+    flops = 2.0 * a.numel()
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    log(f"[time] {card}: rg_lru {route} route {shape} {dtype_name(dtype)} "
+        f"{kernel_ms:.4f} ms, bound {bound_ms:.4f} ms ({flops / 1e6:.1f} "
+        f"MFLOP, {nbytes / 1e6:.2f} MB) -> {bound_ms / kernel_ms:.3%} of "
+        f"bound")
+    return {"ms": kernel_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "a": a, "b": b}
 
 
 def main() -> int:
@@ -398,21 +436,30 @@ def main() -> int:
     # the slice shape: the gates of the hybrid's RG-LRU block, f32
     R = hybrid.d_model * 3 // 2
     lru_shape = (*HYBRID_SHAPE, R)
-    lru_err, _ = check_lru(lru, torch, *lru_inputs(torch, gen, lru_shape,
-                                                    f32), "slice")
-    check_lru(lru, torch, *lru_inputs(torch, gen, lru_shape, bf16), "slice")
-    for shape in [(1, 64, 131), (2, 1000, 300)]:
-        for dtype in (f32, bf16):
-            check_lru(lru, torch, *lru_inputs(torch, gen, shape, dtype),
-                      "edge")
+    a, b = lru_inputs(torch, gen, lru_shape, f32)
+    lru_err, h = check_lru(lru, torch, a, b, "slice", "tma")
+    # both routes run the same f32 chain in the same order
+    if not torch.equal(h, lru.launch(lru.build(), a, b, "generic")):
+        raise AssertionError("rg_lru routes disagree at the slice shape")
+    log("[kernel] rg_lru slice: TMA and generic routes agree bit for bit")
+    check_lru(lru, torch, *lru_inputs(torch, gen, lru_shape, bf16), "slice",
+              "tma")
+    # rows of 131 channels, and of 300 bf16 channels (600 bytes), are off
+    # TMA's 16-byte stride grid: the generic route takes them
+    for shape, dtype, route in [((1, 64, 131), f32, "generic"),
+                                ((1, 64, 131), bf16, "generic"),
+                                ((2, 1000, 300), f32, "tma"),
+                                ((2, 1000, 300), bf16, "generic")]:
+        check_lru(lru, torch, *lru_inputs(torch, gen, shape, dtype), "edge",
+                  route)
     # the model's own gates decay fast (a ~ e^-20): hold the carry with
     # slow gates too
     check_lru(lru, torch, *lru_inputs(torch, gen, lru_shape, f32, 0.9,
-                                      0.999), "slow gates")
+                                      0.999), "slow gates", "tma")
     Sd = 2048
     a = torch.full((1, Sd, 128), 0.999, device="cuda")
     b = torch.full((1, Sd, 128), 0.01, device="cuda")
-    _, h = check_lru(lru, torch, a, b, "decay")
+    _, h = check_lru(lru, torch, a, b, "decay", "tma")
     closed = 0.01 * (1 - 0.999 ** Sd) / 0.001
     torch.testing.assert_close(h[0, -1], torch.full_like(h[0, -1], closed),
                                rtol=1e-3, atol=0)
@@ -420,15 +467,16 @@ def main() -> int:
         f"form {closed:.6f} (rtol 1e-3) ok")
     # strided views: a and b as the halves of one packed tensor
     packed = torch.rand((2, 300, 2, 256), generator=gen, device="cuda")
-    check_lru(lru, torch, packed[:, :, 0], packed[:, :, 1], "strided")
+    check_lru(lru, torch, packed[:, :, 0], packed[:, :, 1], "strided",
+              "tma")
 
     # -- 3, 4: plan and serve each path ----------------------------------
-    fa_launches = drive_path(torch, qwen, QWEN_SHAPE, counters,
-                             "flash_attention", qwen.num_layers)
+    fa_launches, _ = drive_path(torch, qwen, QWEN_SHAPE, counters,
+                                "flash_attention", qwen.num_layers)
     torch.cuda.empty_cache()
     n_lru = sum(k == "rglru" for k in hybrid.pattern)
-    lru_launches = drive_path(torch, hybrid, HYBRID_SHAPE, counters,
-                              "rg_lru", n_lru)
+    lru_launches, lru_routes = drive_path(torch, hybrid, HYBRID_SHAPE,
+                                          counters, "rg_lru", n_lru)
     torch.cuda.empty_cache()
 
     # -- 5: each kernel's time at its slice shape ----------------------------
@@ -441,28 +489,32 @@ def main() -> int:
     time_fa(fa, torch, gen, card, B, S, H, hd, plain=False, causal=False)
     time_fa(fa, torch, gen, card, 1, 4 * S, H, hd, plain=False)
 
-    a, b = lru_inputs(torch, gen, lru_shape, f32)
-    kernel_ms = cuda_ms(lambda: lru.rg_lru(a, b), 20)
+    # the RG-LRU ring at the slice shape (the main path's route), in bf16
+    # and at one batch row; the generic route at the slice shape
+    ring = time_lru(lru, torch, gen, card, lru_shape, f32, "tma")
+    a, b = ring["a"], ring["b"]
+    if lru.route(a, b) != "tma":
+        raise AssertionError("the slice shape does not take the TMA ring")
     plain_ms = cuda_ms(lambda: lru.reference(a, b), 5)
-    # each input read once, h written once; one multiply-add per element
-    nbytes = 3.0 * a.numel() * a.element_size()
-    flops = 2.0 * a.numel()
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    log(f"[time] {card}: rg_lru plain {lru_shape} float32 {plain_ms:.4f} ms")
+    time_lru(lru, torch, gen, card, lru_shape, bf16, "tma")
+    time_lru(lru, torch, gen, card, (1, *lru_shape[1:]), f32, "tma")
+    generic = time_lru(lru, torch, gen, card, lru_shape, f32, "generic")
+    log(f"[time] {card}: rg_lru ring ({lru.TILE_BYTES} channel bytes x "
+        f"{lru.BOX_S} steps per box, {lru.STAGES} stages, {lru.OUT_BOXES} "
+        f"h boxes) / generic route at the slice shape {ring['ms']:.4f} / "
+        f"{generic['ms']:.4f} ms = {generic['ms'] / ring['ms']:.2f}x faster")
     lru_row = {
         "name": "rg_lru", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rg_lru.cu",
         "replaces": "src/repro/kernels/rg_lru.py:30",
         "launches": lru_launches, "max_abs_err": lru_err,
-        "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "ms": ring["ms"], "plain_ms": plain_ms,
+        "bound_ms": ring["bound_ms"], "bound_by": ring["bound_by"],
         "library_ms": None}
-    log(f"[time] {card}: rg_lru {kernel_ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, bound {lru_row['bound_ms']:.4f} ms ({flops / 1e6:.1f} "
-        f"MFLOP, {nbytes / 1e6:.2f} MB) -> "
-        f"{lru_row['bound_ms'] / kernel_ms:.3%} of bound")
 
+    log(f"[routes] rg_lru launches by route on the {hybrid.name} path: "
+        + json.dumps(lru_routes))
     log(json.dumps({"kernels": [fa_row, lru_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

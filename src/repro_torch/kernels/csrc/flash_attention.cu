@@ -57,11 +57,10 @@
 // with a double-buffered Q tile.  None gained more than a few percent at
 // the slice shape, and the persistent grid lost at longer sequences.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"  // mbarriers, tensor-map encoder
 
 namespace {
 
@@ -90,7 +89,6 @@ constexpr int kConsumers = 2;                      // warpgroups, 64 rows each
 constexpr int kThreads = 32 * (4 * kConsumers + 1);  // + one producer warp
 constexpr int kPanel = 64;        // head-dim columns per 128-byte panel
 constexpr int kRowBytes = 128;    // one swizzled panel row
-constexpr unsigned long long kHangNs = 2000000000ull;
 
 // Tiles of the instantiation for head dims up to 64 * NP.
 template <int NP>
@@ -105,52 +103,6 @@ struct Tile {
   // + 1024 bytes of slack to align the base to the swizzle atom
   static constexpr int kSmem = kBarriers + 8 * (2 * kStages + 1) + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Waits until the barrier's phase of this parity has completed.  A wait
-// of seconds can only be a wrong phase or byte count: it traps, so the
-// launch fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const unsigned long long t0 = global_ns();
-  while (!mbar_try_wait(bar, parity)) {
-    if (global_ns() - t0 > kHangNs) __trap();
-  }
-}
 
 // box at coordinates (c0 = head-dim column, c1 = position, c2 = head,
 // c3 = batch) of the map's tensor -> shared memory, completing on `bar`
@@ -781,32 +733,6 @@ flash_fwd_f32_kernel(Args a) {
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// query so the library links no libcuda
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // map of a (B, n, H, hd) bf16 tensor with element strides s_n, s_h, s_b,
 // as dims (hd, n, H, B), in boxes of kPanel columns x `rows`, 128-byte

@@ -2,9 +2,10 @@
 
 Each kernel source under ``csrc/`` has a plain C interface.  It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library and loaded
-with ``ctypes`` into ``_build/<hash of the source and flags>/`` beside
-this module, so a fresh checkout builds it in seconds and an edited
-source rebuilds.  Nothing is built when a module is imported.
+with ``ctypes`` into ``_build/<hash of the source, the shared headers
+and the flags>/`` beside this module, so a fresh checkout builds it in
+seconds and an edited source or header rebuilds.  Nothing is built when
+a module is imported.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from pathlib import Path
 from typing import Callable
 
 _HERE = Path(__file__).resolve().parent
+_CSRC = _HERE / "csrc"
 _BUILD_ROOT = _HERE / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,7 +42,8 @@ class KernelLibrary:
     """One ``csrc/`` source built into one shared library.
 
     Args:
-        source: file name under ``csrc/``.
+        source: file name under ``csrc/`` (or an absolute path; it may
+            include the ``csrc/*.cuh`` headers).
         lib_name: file name of the shared library.
         declare: sets the C entry points' ``argtypes`` / ``restype`` on
             the loaded library.
@@ -48,16 +51,18 @@ class KernelLibrary:
 
     def __init__(self, source: str, lib_name: str,
                  declare: Callable[[ctypes.CDLL], None]) -> None:
-        self.source = _HERE / "csrc" / source
+        self.source = _CSRC / source
         self.lib_name = lib_name
         self._declare = declare
         self._lib: ctypes.CDLL | None = None
 
     def build_dir(self) -> Path:
-        """The build directory for the current source and flags."""
-        key = hashlib.sha256(self.source.read_bytes() +
-                             " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return _BUILD_ROOT / key
+        """The build directory for the current source, headers and flags."""
+        digest = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(_CSRC.glob("*.cuh")):
+            digest.update(header.name.encode() + header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        return _BUILD_ROOT / digest.hexdigest()[:16]
 
     def build(self) -> ctypes.CDLL:
         """Compile (once per source hash) and load the library.
@@ -77,7 +82,8 @@ class KernelLibrary:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=out)
             os.close(fd)
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.source)],
+                [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", tmp,
+                 str(self.source)],
                 capture_output=True, text=True)
             (out / "build.log").write_text(proc.stdout + proc.stderr)
             if proc.returncode != 0:

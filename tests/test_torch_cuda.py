@@ -161,3 +161,54 @@ def test_rg_lru_raises_for_inputs_the_kernel_does_not_take(gen):
     with pytest.raises(ValueError, match="contiguous channel"):
         lru.rg_lru(strided, strided)
     assert lru.launches == before
+
+
+def assert_lru_route(a, b, want):
+    """The wrapper picks route ``want``, launches it once, and is right."""
+    before = dict(lru.route_launches)
+    assert lru.route(a, b) == want
+    assert_lru_close(a, b)
+    assert {r: n - before[r] for r, n in lru.route_launches.items()} == \
+        {r: int(r == want) for r in lru.ROUTES}
+
+
+@pytest.mark.parametrize("shape,dtype", [((4, 4096, 3840), torch.float32),
+                                         ((4, 4096, 3840), torch.bfloat16),
+                                         ((1, 4096, 3840), torch.float32)])
+def test_rg_lru_tma_route_matches_plain(gen, shape, dtype):
+    assert_lru_route(*lru_inputs(gen, shape, dtype), "tma")
+
+
+@pytest.mark.parametrize("shape,dtype", [((1, 64, 131), torch.float32),
+                                         ((1, 64, 131), torch.bfloat16),
+                                         ((2, 1000, 300), torch.bfloat16)])
+def test_rg_lru_generic_route_matches_plain(gen, shape, dtype):
+    assert_lru_route(*lru_inputs(gen, shape, dtype), "generic")
+
+
+def test_rg_lru_views_off_the_16_byte_grid_take_the_generic_route(gen):
+    flat = torch.rand((2 * 300 * 256 + 1,), generator=gen, device="cuda")
+    off = flat[1:].view(2, 300, 256)
+    assert_lru_route(off, off, "generic")
+    packed = torch.rand((2, 300, 2, 256), generator=gen, device="cuda")
+    assert_lru_route(packed[:, :, 0], packed[:, :, 1], "tma")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rg_lru_generic_route_at_the_slice_shape(gen, dtype):
+    """The generic route is right where the ring runs, and the two agree
+    bit for bit: both run the same f32 chain in the same order."""
+    a, b = lru_inputs(gen, (4, 4096, 3840), dtype)
+    got = lru.launch(lru.build(), a, b, "generic")
+    tol = LRU_TOL[dtype]
+    torch.testing.assert_close(got.float(), lru.reference(a, b).float(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(got, lru.launch(lru.build(), a, b, "tma"))
+
+
+def test_rg_lru_tma_route_refuses_what_tma_cannot_take(gen):
+    a, b = lru_inputs(gen, (1, 64, 131), torch.float32)
+    before = dict(lru.route_launches)
+    with pytest.raises(RuntimeError, match="tma route"):
+        lru.launch(lru.build(), a, b, "tma")
+    assert lru.route_launches == before

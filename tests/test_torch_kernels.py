@@ -7,10 +7,13 @@ over the ``TestFlashAttention`` cases.  Inputs come from numpy seeds and
 are handed to both packages.  Tolerances are those of
 ``tests/test_kernels.py``: 2e-5 for float32, 2e-2 for bfloat16.
 
-The CUDA kernel itself runs only on a card: its checks are in
+The CUDA kernels themselves run only on a card: their checks are in
 ``tests/test_torch_cuda.py`` (marked ``cuda``, skipped without a card).
+What surrounds them is tested here: the RG-LRU wrapper's route rule,
+the tiles the wrappers and the sources share, and the build's hash.
 """
 
+import math
 import re
 from pathlib import Path
 
@@ -24,7 +27,9 @@ from repro.kernels import ref as jref
 from repro.kernels import registry as jregistry
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops, ref, registry
+from repro_torch.kernels import nvcc, ops, ref, registry
+from repro_torch.kernels import rg_lru as lru
+from repro_torch.kernels import tune_rg_lru
 from repro_torch.models.layers import repeat_heads
 from repro_torch.models.sharding import KernelDispatch, kernel_dispatch
 
@@ -225,3 +230,93 @@ class TestRegistry:
                "flash_attention.cu").read_text()
         tiles = re.findall(r"constexpr int kBlockQ = (\d+);", src)
         assert tiles == [str(registry.BLOCK_Q)]
+
+
+def _offset(shape, dtype, by=1):
+    """A packed (B,S,R) view that starts ``by`` elements into its buffer."""
+    flat = torch.zeros(math.prod(shape) + by, dtype=dtype)
+    return flat[by:].view(shape)
+
+
+def _strided(shape, strides):
+    return torch.zeros(4096).as_strided(shape, strides)
+
+
+_PACKED = torch.zeros((2, 300, 2, 256))
+_WIDE = torch.zeros((2, 8, 136))
+# name -> (a, b, the route the wrapper must pick)
+_ROUTE_CASES = {
+    "f32 R=3840": (torch.zeros((2, 8, 3840)),) * 2 + ("tma",),
+    "bf16 R=3840": (torch.zeros((2, 8, 3840), dtype=torch.bfloat16),) * 2
+    + ("tma",),
+    "f32 R=131": (torch.zeros((1, 64, 131)),) * 2 + ("generic",),
+    "bf16 R=300": (torch.zeros((2, 10, 300), dtype=torch.bfloat16),) * 2
+    + ("generic",),
+    "f32 R=300": (torch.zeros((2, 10, 300)),) * 2 + ("tma",),
+    "packed halves": (_PACKED[:, :, 0], _PACKED[:, :, 1], "tma"),
+    "offset by one element": (_offset((2, 8, 64), torch.float32),
+                              torch.zeros((2, 8, 64)), "generic"),
+    "b offset by one element": (torch.zeros((2, 8, 64)),
+                                _offset((2, 8, 64), torch.float32),
+                                "generic"),
+    "offset by 16 bytes": (_offset((2, 8, 64), torch.float32, by=4),) * 2
+    + ("tma",),
+    "batch stride 2052 bytes": (_strided((2, 8, 64), (513, 64, 1)),) * 2
+    + ("generic",),
+    "sequence stride 260 bytes": (_strided((2, 8, 64), (520, 65, 1)),) * 2
+    + ("generic",),
+    "size-1 dims of any stride": (_strided((1, 1, 64), (3, 5, 1)),) * 2
+    + ("tma",),
+    # a and b lie on the grid, but h is allocated packed with 131 channels
+    "h rows of 524 bytes": (_WIDE[..., :131], _WIDE[..., :131], "generic"),
+}
+
+
+class TestRgLruRoutes:
+    @pytest.mark.parametrize("case", list(_ROUTE_CASES))
+    def test_route_rule(self, case):
+        """The wrapper's pure rule: TMA takes 16-byte aligned tensors with
+        batch and sequence strides in 16-byte multiples (a, b and the
+        packed h); every other input takes the generic route."""
+        a, b, want = _ROUTE_CASES[case]
+        lru._check(a, b)
+        assert lru.route(a, b) == want
+
+    def test_size_one_dims_get_packed_strides(self):
+        one = _strided((1, 1, 64), (3, 5, 1))
+        assert lru._strides(one) == [64, 64]
+        assert lru._strides(_PACKED[:, :, 1]) == [300 * 512, 512]
+
+    def test_cpu_tensors_take_the_plain_version(self):
+        a = torch.rand((2, 16, 8))
+        before = (lru.launches, dict(lru.route_launches))
+        torch.testing.assert_close(lru.rg_lru(a, a), lru.reference(a, a),
+                                   rtol=0, atol=0)
+        assert (lru.launches, lru.route_launches) == before
+
+    def test_ring_tile_is_the_kernels(self):
+        """The wrapper's and the tuner's ring constants are the source's."""
+        src = (Path(lru.__file__).parent / "csrc" / "rg_lru.cu").read_text()
+        consts = {name: re.findall(rf"constexpr int {name} = (\d+);", src)
+                  for name in ("kTileBytes", "kBoxS", "kStages",
+                               "kOutBoxes")}
+        shipped = (lru.TILE_BYTES, lru.BOX_S, lru.STAGES, lru.OUT_BOXES)
+        assert list(consts.values()) == [[str(v)] for v in shipped]
+        assert tune_rg_lru.VARIANTS[0] == shipped
+        assert tune_rg_lru.variant_source(shipped) == src
+        other = tune_rg_lru.variant_source((128, 16, 5, 3))
+        assert re.findall(r"constexpr int k(?:TileBytes|BoxS|Stages|"
+                          r"OutBoxes) = (\d+);", other) == \
+            ["128", "16", "5", "3"]
+
+
+def test_build_dir_follows_the_shared_headers(tmp_path, monkeypatch):
+    """An edited header rebuilds every kernel that may include it."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(nvcc, "_CSRC", tmp_path)
+    lib = nvcc.KernelLibrary("k.cu", "libk.so", lambda _: None)
+    first = lib.build_dir()
+    assert lib.build_dir() == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert lib.build_dir() != first
