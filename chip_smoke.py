@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's two main paths through the entry points a user calls:
+Drives the port's main paths through the entry points a user calls:
 partition and serve the ``qwen2_05b`` prefill step with its fused
 attention sites on the hand-written CUDA flash-attention kernel, and the
 ``recurrentgemma_2b`` hybrid prefill step with its RG-LRU scan sites on
 the hand-written CUDA RG-LRU kernel (its TMA-ring route; the generic
-route takes strides TMA cannot describe).
+route takes strides TMA cannot describe); and for both models the decode
+step with its KV and recurrent caches, planned with the serving launcher's
+request (the KV cache pinned replicated) and served token by token.
 
 1. print the card's name and power limit; build both kernels from the
    sources in this checkout, in parallel;
@@ -25,7 +27,20 @@ route takes strides TMA cannot describe).
    and hold the last-token logits against the same requests with every
    site forced to the plain version; check a small f32 model against the
    plain path too;
-5. time each kernel at its slice shape beside its bound, its plain
+5. for each model's decode path (``launch/serve.py``, the same weights):
+   trace and analyze the decode step at B = 4 and cache 256; search the
+   2x4 plan with the serving launcher's request (it must satisfy its
+   ``Replicate`` constraints and round-trip through JSON) and the 1x1
+   plan (no kernel sites), and apply the latter on the card; answer 3
+   requests of 4 prompts x 128 tokens, each prefilled token by token
+   through the decode step and then decoded greedily for 128 tokens,
+   with no kernel launched; hold the logits after the last prompt token
+   against the prefill step's (its 1x1 plan, sites on the CUDA kernels)
+   on the same prompts; print per-token times beside the step's
+   weight-read bound; check a small f32 model's decode logits at every
+   position against its forward through the kernels (the hybrid's local
+   ring wraps);
+6. time each kernel at its slice shape beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` (a
    yardstick only: the port never calls it); time the attention kernel
    and SDPA at head dims 96 and 128 too, at the slice's B, S and H, and
@@ -66,8 +81,15 @@ LRU_TOL = {"bfloat16": 3e-2, "float32": 2e-5}
 # and the difference compounds over the bf16 layers; bound on
 # max|diff| relative to max|plain logits|
 LOGITS_REL_TOL = 2e-2
-# small f32 model, kernel sites vs plain sites
+# small f32 model, kernel sites vs plain sites; and its decode logits vs
+# its forward through the kernels
 SMALL_TOL = 1e-4
+# decode path: prompts x tokens of each request, tokens generated, cache
+DECODE_SHAPE = (4, 128)
+DECODE_GEN = 128
+DECODE_MAX_SEQ = 256
+# small f32 models' decode: tokens (past the hybrid's 16-token window)
+SMALL_DECODE_TOKENS = 40
 # H100 SXM data sheet (dense bf16 FLOP/s, f32 FLOP/s outside the tensor
 # cores, HBM bytes/s)
 PEAK_BF16_FLOPS = 989e12
@@ -340,7 +362,172 @@ def drive_path(torch, cfg, shape, counters, kernel, per_request):
     log(f"[small] {small.name} ({small.num_layers} layers) f32 logits "
         f"kernel vs plain: max|diff| {(got - want).abs().max().item():.3e} "
         f"(tol {SMALL_TOL}) ok")
-    return launches[kernel], routes
+    return launches[kernel], routes, params
+
+
+def percentile(xs, q: float) -> float:
+    """The ``q``-quantile of ``xs`` (linear between ranks)."""
+    xs = sorted(xs)
+    pos = q * (len(xs) - 1)
+    lo = int(pos)
+    hi = min(lo + 1, len(xs) - 1)
+    return xs[lo] + (xs[hi] - xs[lo]) * (pos - lo)
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor leaf of ``tree``."""
+    from repro_torch import pytree
+    return sum(x.numel() * x.element_size()
+               for x in pytree.tree_leaves(tree))
+
+
+def drive_decode(torch, cfg, params, counters, card) -> None:
+    """Plan and serve one model's decode path with ``params``.
+
+    Args:
+        cfg: the full-width model configuration.
+        params: its parameters on the card (those of the prefill path).
+        counters: kernel name -> its wrapper module (``launches``).
+        card: the card's name and power limit, for the time lines.
+    """
+    from repro_torch.api import Request, Session
+    from repro_torch.configs import get_config
+    from repro_torch.core.cost_model import MeshSpec
+    from repro_torch.core.partitioner import ShardingPlan
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import KernelDispatch, kernel_dispatch
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    B, P = DECODE_SHAPE
+    name = cfg.name
+    sess, names = serve.decode_session(cfg, B, DECODE_MAX_SEQ)
+    art = sess.artifacts
+    log(f"[decode session {name}] B={B} cache={DECODE_MAX_SEQ}: "
+        f"{len(art.prog.ops)} ops, {len(art.nda.color_summary())} colors, "
+        f"{len(art.analysis.conflicts)} conflicts, phases "
+        + json.dumps({k: round(v, 4) for k, v in art.phase_seconds.items()}))
+
+    req8 = serve.decode_request(cfg, names, MeshSpec(("data", "model"),
+                                                     (2, 4)))
+    plan8 = sess.partition(req8)
+    plan8.check(req8.constraints)
+    if ShardingPlan.from_json(plan8.to_json()).as_dict() != plan8.as_dict():
+        raise AssertionError("decode 2x4 plan JSON does not round-trip")
+    log(f"[decode partition {name} 2x4] cost={plan8.cost:.6f} constraints="
+        f"{[c.target for c in req8.constraints]} satisfied, rules="
+        f"{json.dumps(plan8.logical_rules)} search="
+        f"{plan8.search_seconds:.3f} s json round-trip ok")
+    plan1 = sess.partition(serve.decode_request(
+        cfg, names, MeshSpec(("data", "model"), (1, 1))))
+    if plan1.kernel_sites:
+        raise AssertionError(f"decode 1x1 plan has kernel sites "
+                             f"{plan1.kernel_sites}")
+    log(f"[decode partition {name} 1x1] cost={plan1.cost:.6f} no kernel "
+        f"sites")
+    decode = plan1.apply(make_decode_step(cfg))
+
+    # the prefill step on the same prompts, through its 1x1 plan
+    pstep = make_prefill_step(cfg)
+    psess = Session(pstep, (T.param_specs(cfg), {"tokens": torch.empty(
+        (B, P), dtype=torch.int32, device="meta")}))
+    pplan = psess.partition(Request(mesh=MeshSpec(("data", "model"),
+                                                  (1, 1))))
+    if {r["impl"] for r in pplan.kernel_sites} != {"cuda"}:
+        raise AssertionError(f"prefill 1x1 plan sites {pplan.kernel_sites}")
+    prefill = pplan.apply(pstep)
+
+    tgen = torch.Generator(device="cuda").manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab_size, (B, P), generator=tgen,
+                             device="cuda", dtype=torch.int32)
+               for _ in range(REQUESTS)]
+    # warm-up, not counted
+    serve.serve_loop(decode, params,
+                     T.init_cache(cfg, B, DECODE_MAX_SEQ), prompts[0][:, :4],
+                     4)
+    for mod in counters.values():
+        mod.launches = 0
+    results, medians = [], []
+    for i, pr in enumerate(prompts):
+        cache = T.init_cache(cfg, B, DECODE_MAX_SEQ)
+        torch.cuda.reset_peak_memory_stats()
+        res = serve.serve_loop(decode, params, cache, pr, DECODE_GEN)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if res.tokens.shape != (B, DECODE_GEN) or \
+                not torch.isfinite(res.prompt_logits).all() or \
+                not bool(((res.tokens >= 0) &
+                          (res.tokens < cfg.vocab_size)).all()):
+            raise AssertionError(f"decode request {i}: bad tokens or "
+                                 f"logits")
+        med = percentile(res.step_ms, 0.5)
+        medians.append(med)
+        log(f"[decode {name}] request {i}: prefill by decode {P} tokens "
+            f"{res.prefill_ms:.3f} ms ({res.prefill_ms / P:.3f} ms/token), "
+            f"decode {DECODE_GEN} tokens: median {med:.3f} ms/token, p90 "
+            f"{percentile(res.step_ms, 0.9):.3f} ms, peak {peak:.2f} GB; "
+            f"first tokens {res.tokens[0, :8].tolist()}")
+        results.append(res)
+    launches = {k: mod.launches for k, mod in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"the decode path launched kernels {launches}")
+    log(f"[decode {name}] kernel launches on the decode path: "
+        + json.dumps(launches))
+
+    for i, (pr, res) in enumerate(zip(prompts, results)):
+        want = prefill(params, {"tokens": pr}).float()
+        got = res.prompt_logits[:, 0].float()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        agree = (got.argmax(-1) == want.argmax(-1)).sum().item()
+        log(f"[decode {name}] request {i}: last prompt token, "
+            f"max|decode-prefill|/max|prefill| = {rel:.3e} (tol "
+            f"{LOGITS_REL_TOL}), argmax agree {agree}/{B}")
+        if rel > LOGITS_REL_TOL:
+            raise AssertionError("decode and prefill logits disagree")
+
+    # the bound: every weight read once (of the embedding table only the
+    # B rows the step gathers) and the cache read once, at HBM rate
+    embed = params["embed"]
+    w_bytes = tree_bytes(params) - embed.numel() * \
+        embed.element_size() + B * embed.shape[1] * embed.element_size()
+    c_bytes = tree_bytes(T.init_cache(cfg, B, DECODE_MAX_SEQ,
+                                             device="meta"))
+    bound_ms = (w_bytes + c_bytes) / PEAK_HBM_BYTES * 1e3
+    med = percentile(medians, 0.5)
+    log(f"[decode bound] {card}: {name} weights {w_bytes / 1e6:.2f} MB + "
+        f"cache {c_bytes / 1e6:.2f} MB -> {bound_ms:.4f} ms per token at "
+        f"3.35 TB/s; measured median {med:.3f} ms per token = "
+        f"{med / bound_ms:.1f}x the bound")
+    del results, prefill, decode
+
+    # small f32 model: decode logits at every position vs its forward
+    # through the kernels
+    small = dataclasses.replace(get_config(name).reduced(), use_pallas=True)
+    sp = T.init_params(small, torch.Generator(device="cuda").manual_seed(4))
+    S = SMALL_DECODE_TOKENS
+    toks = torch.randint(0, small.vocab_size, (2, S), generator=tgen,
+                         device="cuda", dtype=torch.int32)
+    before = {k: mod.launches for k, mod in counters.items()}
+    with kernel_dispatch(KernelDispatch(default_impl="cuda")):
+        want = T.forward(small, sp, toks)
+    ran = [k for k, mod in counters.items() if mod.launches > before[k]]
+    if not ran:
+        raise AssertionError("the small forward launched no kernel")
+    step = make_decode_step(small)
+    cache = T.init_cache(small, 2, S)
+    outs = []
+    for t in range(S):
+        logits, cache = step(sp, cache, toks[:, t:t + 1],
+                             torch.tensor(t, dtype=torch.int32,
+                                          device="cuda"))
+        outs.append(logits[:, 0])
+    got = torch.stack(outs, 1)
+    torch.testing.assert_close(got, want, rtol=SMALL_TOL, atol=SMALL_TOL)
+    ring = {k: v.shape[2] for k, v in (
+        (i, c["k"]) for i, c in enumerate(cache["layers"]) if "k" in c)}
+    log(f"[small decode] {small.name} ({small.num_layers} layers) f32, "
+        f"{S} tokens, attention ring slots {ring}: decode vs forward "
+        f"through {ran}: max|diff| {(got - want).abs().max().item():.3e} "
+        f"(tol {SMALL_TOL}) ok")
 
 
 def time_lru(lru, torch, gen, card, shape, dtype, route) -> dict:
@@ -470,16 +657,22 @@ def main() -> int:
     check_lru(lru, torch, packed[:, :, 0], packed[:, :, 1], "strided",
               "tma")
 
-    # -- 3, 4: plan and serve each path ----------------------------------
-    fa_launches, _ = drive_path(torch, qwen, QWEN_SHAPE, counters,
-                                "flash_attention", qwen.num_layers)
+    # -- 3, 4, 5: plan and serve each path, prefill then decode --------
+    fa_launches, _, params = drive_path(torch, qwen, QWEN_SHAPE, counters,
+                                        "flash_attention", qwen.num_layers)
+    torch.cuda.empty_cache()
+    drive_decode(torch, qwen, params, counters, card)
+    del params
     torch.cuda.empty_cache()
     n_lru = sum(k == "rglru" for k in hybrid.pattern)
-    lru_launches, lru_routes = drive_path(torch, hybrid, HYBRID_SHAPE,
-                                          counters, "rg_lru", n_lru)
+    lru_launches, lru_routes, params = drive_path(
+        torch, hybrid, HYBRID_SHAPE, counters, "rg_lru", n_lru)
+    torch.cuda.empty_cache()
+    drive_decode(torch, hybrid, params, counters, card)
+    del params
     torch.cuda.empty_cache()
 
-    # -- 5: each kernel's time at its slice shape ----------------------------
+    # -- 6: each kernel's time at its slice shape ----------------------------
     fa_row = time_fa(fa, torch, gen, card, B, S, H, hd, plain=True)
     fa_row.update(launches=fa_launches, max_abs_err=fa_err)
     # the head dims of the repo's other configs, at the slice's B, S, H

@@ -23,6 +23,11 @@ unchanged on the result:
   are broadcast literals, emitted where they are first used; a
   ``slice_scatter`` into one is the reference's ``pad`` (the associative
   scan's interleave), so the fill itself is never emitted there.
+- A chain of ``unsqueeze`` ops is one ``broadcast_in_dim``, as the
+  reference's ``x[:, None, None]``.  ``index_copy`` of one slot whose
+  index is a scalar made one-element (``slot[None]``) is the reference's
+  ``dynamic_update_slice`` at that scalar (the decode caches' ring
+  write), so the one-element index itself is never emitted.
 - The fused kernel ops (``repro_torch::flash_attention``,
   ``repro_torch::rg_lru``) are each recorded as one ``kernel:<name>``
   op; their impl argument is dropped, so the program does not depend on
@@ -161,15 +166,36 @@ class _Fill:
     vid: int | None = None
 
 
+@dataclasses.dataclass(frozen=True)
+class _Unsqueezed:
+    """An ``unsqueeze`` whose only user is another ``unsqueeze``: not
+    emitted, so the chain becomes one ``broadcast_in_dim`` of ``vid``."""
+
+    vid: int
+    bdims: tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class _SlotIndex:
+    """A scalar made one-element (``slot[None]``) whose every user takes
+    it as ``index_copy``'s index: the scalar ``vid`` is the start of the
+    reference's ``dynamic_update_slice``."""
+
+    vid: int
+
+
 # aten op -> prim for ops whose NDA rule is the elementwise default
 _ARITH = {
     "add": "add", "sub": "sub", "mul": "mul", "div": "div",
     "exp": "exp", "rsqrt": "rsqrt", "cos": "cos", "sin": "sin",
     "neg": "neg", "tanh": "tanh", "sigmoid": "logistic", "sqrt": "sqrt",
     "abs": "abs", "log1p": "log1p", "maximum": "max", "clamp_min": "max",
+    "remainder": "rem",
 }
-_COMPARE = {"ge": "ge", "lt": "lt", "ne": "ne", "bitwise_and": "and",
-            "__and__": "and"}
+_COMPARE = {"ge": "ge", "lt": "lt", "le": "le", "eq": "eq", "ne": "ne",
+            "bitwise_and": "and", "__and__": "and"}
+# ops whose lowering takes some arguments unemitted (see _ready)
+_LAZY_ARGS = frozenset({"slice_scatter", "unsqueeze", "index_copy"})
 # constant fills (a literal's value is not part of the IR)
 _FILLS = frozenset({"zeros", "new_zeros", "zeros_like", "full"})
 # nodes that compute nothing the analysis can see
@@ -180,6 +206,12 @@ _KERNEL_NAMESPACE = "repro_torch"
 
 def _norm_dim(d: int, rank: int) -> int:
     return d + rank if d < 0 else d
+
+
+def _packet(node) -> str | None:
+    """The aten overload packet's name of an exported node's target."""
+    return getattr(getattr(node.target, "_overloadpacket", None),
+                   "__name__", None)
 
 
 def _meta(node) -> tuple[tuple[int, ...], str]:
@@ -294,11 +326,10 @@ class _Extractor:
 
     def _call(self, node, env):
         target = node.target
-        packet = getattr(getattr(target, "_overloadpacket", None),
-                         "__name__", None)
+        packet = _packet(node)
         args = self._args(node.args, env)
         kwargs = self._args(dict(node.kwargs), env)
-        if packet != "slice_scatter":
+        if packet not in _LAZY_ARGS:
             args, kwargs = self._ready(args), self._ready(kwargs)
         if target is operator.getitem:
             return args[0][args[1]]
@@ -435,9 +466,39 @@ class _Extractor:
     def _aten_unsqueeze(self, node, args, kwargs):
         shape, _ = _meta(node)
         d = _norm_dim(args[1], len(shape))
-        return _Ref(self._bcast(args[0].vid, shape,
-                                tuple(i for i in range(len(shape))
-                                      if i != d)))
+        src = args[0]
+        if isinstance(src, _Unsqueezed):
+            vid, bdims = src.vid, tuple(b + (b >= d) for b in src.bdims)
+        else:
+            vid = self._ready(src).vid
+            bdims = tuple(i for i in range(len(shape)) if i != d)
+        users = list(node.users)
+        if len(users) == 1 and _packet(users[0]) == "unsqueeze":
+            return _Unsqueezed(vid, bdims)
+        if self._type(vid).rank == 0 and users and all(
+                _packet(u) == "index_copy" and u.args[2] is node and
+                node not in (u.args[0], u.args[3]) for u in users):
+            return _SlotIndex(vid)
+        return _Ref(self._bcast(vid, shape, bdims))
+
+    def _aten_index_copy(self, node, args, kwargs):
+        # reference: lax.dynamic_update_slice(operand, update, starts),
+        # the written dim's start the scalar, literal zeros elsewhere
+        operand, dim, index, source = args
+        if not isinstance(index, _SlotIndex):
+            raise UnsupportedOpError(
+                f"{node.target} with an index that is not one scalar "
+                f"slot (slot[None])")
+        operand, source = self._ready(operand), self._ready(source)
+        shape, dtype = _meta(node)
+        dim = _norm_dim(dim, len(shape))
+        if self._type(source.vid).shape[dim] != 1:
+            raise UnsupportedOpError(f"{node.target} of more than one slot")
+        starts = [index.vid if i == dim else self._literal("int32")
+                  for i in range(len(shape))]
+        return _Ref(self._emit("dynamic_update_slice", {},
+                               [operand.vid, source.vid, *starts], shape,
+                               dtype))
 
     def _aten_expand(self, node, args, kwargs):
         shape, _ = _meta(node)
@@ -801,7 +862,8 @@ def export_graph(fn, args: tuple, kwargs: dict | None = None):
     class _Flat(torch.nn.Module):
         def forward(self, *flat):
             a, kw = pytree.unflatten(tree, flat)
-            return fn(*a, **kw)
+            # outputs in the reference's order too (dicts by sorted key)
+            return pytree.tree_leaves(fn(*a, **kw))
 
     ep = torch.export.export(_Flat(), metas, strict=False)
     return ep, leaves, paths

@@ -1,0 +1,206 @@
+"""Batched serving launcher: prefill through the decode step, then
+greedy decode.
+
+A batch of prompts is fed token by token through the decode step, which
+fills the KV / recurrent caches, then decoded greedily from them, as the
+reference's serving launcher does.  ``--plan toast`` plans the decode
+step with TOAST first, through ``Session`` / ``Request`` with the
+reference serving launcher's request: the cache pinned ``Replicate`` (the
+classic serving layout: weights sharded, KV cache replicated per
+data-parallel group), and runs the one-device plan with ``plan.apply``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_05b \\
+        --reduced --batch 4 --prompt-len 16 --gen 16 --plan toast \\
+        --device cpu
+
+Without ``--device`` it runs on the CUDA card, and raises without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.cost_model import MeshSpec
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.train.steps import make_decode_step
+
+
+def decode_request(cfg, names, mesh: MeshSpec):
+    """The serving launcher's ``Request`` for the decode step on ``mesh``:
+    greedy, ``min_dims=4``, the step's logical names, and the KV cache
+    pinned replicated when the model has full attention blocks."""
+    from repro_torch.api import Replicate, Request
+    has_kv = "attn" in cfg.pattern and not cfg.is_encoder_decoder
+    return Request(mesh=mesh, backend="greedy", min_dims=4,
+                   logical_axes=names,
+                   constraints=(Replicate("['k']"), Replicate("['v']"))
+                   if has_kv else ())
+
+
+def decode_session(cfg, batch: int, max_seq: int):
+    """Trace and analyze the decode step on ``meta`` inputs.
+
+    Returns:
+        ``(session, names)``: the ``Session`` and the step's logical
+        names (for :func:`decode_request`).
+    """
+    from repro_torch.api import Session
+    from repro_torch.launch.specs import step_and_inputs
+    fn, args, names = step_and_inputs(
+        cfg, ShapeConfig("serve", max_seq, batch, "decode"))
+    return Session(fn, args), names
+
+
+def toast_decode_rules(cfg, batch: int, max_seq: int, n_dev: int):
+    """The decode step's logical rules for ``n_dev`` devices.
+
+    Args:
+        cfg: model config (reduced or full).
+        batch: decode batch size.
+        max_seq: cache depth (prompt + generated tokens).
+        n_dev: the number of devices the step runs on.
+
+    Returns:
+        ``({}, None)`` on one device, as the reference does: every
+        placement is the same there.
+
+    Raises:
+        NotImplementedError: on two or more devices; running a sharded
+            plan is ROADMAP queue 1, item 8.
+    """
+    if n_dev < 2:
+        return {}, None
+    raise NotImplementedError(
+        f"serving on {n_dev} devices needs multi-device plan.apply "
+        f"(DTensor), which is not ported yet (ROADMAP queue 1, item 8)")
+
+
+@dataclasses.dataclass
+class ServeResult:
+    """What :func:`serve_loop` returns.
+
+    Attributes:
+        tokens: (B, gen) int32 greedy tokens.
+        prompt_logits: (B, 1, vocab) logits after the last prompt token.
+        cache: the cache after the last step.
+        prefill_ms: time of the prompt's decode steps, all together.
+        step_ms: time of each generating decode step.
+    """
+
+    tokens: torch.Tensor
+    prompt_logits: torch.Tensor
+    cache: dict
+    prefill_ms: float
+    step_ms: list[float]
+
+
+def serve_loop(decode, params, cache, prompts, gen: int) -> ServeResult:
+    """Prefill ``prompts`` token by token through ``decode``, then
+    generate ``gen`` greedy tokens.
+
+    The loop never waits on the device: positions are made on the device
+    once, and each greedy token stays there.  On a CUDA device the times
+    are CUDA-event times, else host times.
+
+    Args:
+        decode: ``decode(params, cache, token, pos) -> (logits, cache)``.
+        params: the parameter tree.
+        cache: the empty cache (``transformer.init_cache``).
+        prompts: (B, P) int32 prompt tokens.
+        gen: the number of tokens to generate (at least 1).
+
+    Returns:
+        The :class:`ServeResult`.
+    """
+    dev = prompts.device
+    P = prompts.shape[1]
+    positions = torch.arange(P + gen, dtype=torch.int32, device=dev)
+    cuda = dev.type == "cuda"
+
+    def mark():
+        if cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def ms(a, b) -> float:
+        return a.elapsed_time(b) if cuda else (b - a) * 1e3
+
+    t0 = mark()
+    logits = None
+    for t in range(P):
+        logits, cache = decode(params, cache, prompts[:, t:t + 1],
+                               positions[t])
+    t1 = mark()
+    prompt_logits = logits
+    tokens = [logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)]
+    marks = [t1]
+    for g in range(gen - 1):
+        logits, cache = decode(params, cache, tokens[-1], positions[P + g])
+        tokens.append(logits[:, 0].argmax(-1, keepdim=True).to(torch.int32))
+        marks.append(mark())
+    if cuda:
+        torch.cuda.synchronize(dev)
+    return ServeResult(
+        tokens=torch.cat(tokens, 1), prompt_logits=prompt_logits,
+        cache=cache, prefill_ms=ms(t0, t1),
+        step_ms=[ms(a, b) for a, b in zip(marks, marks[1:])])
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2_05b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--greedy", action="store_true")
+    ap.add_argument("--plan", choices=["manual", "toast"],
+                    default="manual")
+    ap.add_argument("--device", default=None,
+                    help="where to run (default: the CUDA card)")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = T.init_params(cfg, gen, device=dev)
+    B, P, G = args.batch, args.prompt_len, args.gen
+    max_seq = P + G
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device=dev, dtype=torch.int32)
+    cache = T.init_cache(cfg, B, max_seq, device=dev)
+
+    dec = make_decode_step(cfg)
+    if args.plan == "toast":
+        n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+        toast_decode_rules(cfg, B, max_seq, n_dev)
+        sess, names = decode_session(cfg, B, max_seq)
+        plan = sess.partition(decode_request(
+            cfg, names, MeshSpec(("data", "model"), (1, 1))))
+        print(f"[toast] cost={plan.cost:.4f} rules={plan.logical_rules} "
+              f"search={plan.search_seconds:.1f}s")
+        dec = plan.apply(dec, device=dev)
+    res = serve_loop(dec, params, cache, prompts, G)
+    out = res.tokens.cpu().numpy()
+    per_token = sum(res.step_ms) / max(len(res.step_ms), 1)
+    print(f"prefill: {res.prefill_ms:.1f}ms  decode: {per_token:.2f}"
+          f"ms/token")
+    for b in range(B):
+        print(f"request {b}: prompt={prompts[b].cpu().numpy()[:8]}... "
+              f"generated={out[b][:12]}...")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,161 @@
+"""Abstract inputs (``meta`` tensors) and logical dim names for a step.
+
+``step_and_inputs`` builds the step function, its abstract arguments
+and their logical dim names for one (model, shape) cell;
+``cache_logical_axes`` names every decode-cache leaf;
+``specs_from_rules`` turns ``{logical name -> mesh axes}`` rules into a
+``PartitionSpec`` per leaf, dropping axes that do not divide a dim.
+Nothing here allocates device memory.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import pytree
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.partitioner import (PartitionSpec,
+                                          flatten_logical_axes)
+from repro_torch.models import transformer as T
+from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+
+def meta(shape, dtype) -> torch.Tensor:
+    """A ``meta`` tensor: shape and dtype only, nothing allocated."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _check_decoder_only(cfg: ModelConfig) -> None:
+    if cfg.is_encoder_decoder or cfg.frontend:
+        raise NotImplementedError(
+            "encoder-decoder and modality-frontend inputs are not ported "
+            "yet (ROADMAP queue 1, item 11)")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """The abstract prefill batch and its logical dim names.
+
+    Args:
+        cfg: the model configuration (a decoder-only one).
+        shape: the cell's shape; ``global_batch`` x ``seq_len`` tokens.
+
+    Returns:
+        ``(specs, names)``: ``{"tokens": meta (B, S) int32}`` and
+        ``{"tokens": ("batch", "seq")}``.
+    """
+    _check_decoder_only(cfg)
+    if shape.kind == "train":
+        raise NotImplementedError(
+            "the train step is not ported yet (ROADMAP queue 1, item 4)")
+    B, S = shape.global_batch, shape.seq_len
+    return ({"tokens": meta((B, S), torch.int32)},
+            {"tokens": ("batch", "seq")})
+
+
+_CACHE_NAMES = {
+    "k": (None, "batch", "seq", "kv_heads", None),
+    "v": (None, "batch", "seq", "kv_heads", None),
+    "slot_pos": (None, None),
+    "h": (None, "batch", "rnn"),
+    "conv": (None, "batch", None, "rnn"),
+    "C": (None, "batch", "heads", None, None),
+    "n": (None, "batch", "heads", None),
+    "m": (None, "batch", "heads"),
+    "c": (None, "batch", "heads", None),
+}
+
+
+def cache_logical_axes(cache):
+    """Logical dim names of every cache leaf, by its key; an unstacked
+    tail-layer leaf drops the leading (layer) name."""
+    def names(keys, leaf):
+        base = _CACHE_NAMES.get(keys[-1])
+        if base is None:
+            return (None,) * leaf.ndim
+        if len(base) > leaf.ndim:
+            return base[len(base) - leaf.ndim:]
+        return base + (None,) * (leaf.ndim - len(base))
+    return pytree.tree_map_with_path(names, cache)
+
+
+def step_and_inputs(cfg: ModelConfig, shape: ShapeConfig):
+    """The step of a cell, its abstract arguments and their names.
+
+    - prefill: ``fn(params, batch) -> last-token logits``;
+    - decode: ``fn(params, cache, token, pos) -> (logits, cache)``, one
+      new token against a ``seq_len``-deep cache.
+
+    Args:
+        cfg: the model configuration.
+        shape: the cell's shape (``kind`` "prefill" or "decode").
+
+    Returns:
+        ``(fn, args, names)``: ``args`` a tuple of ``meta`` tensor
+        trees, ``names`` the same trees with logical dim names.
+
+    Raises:
+        NotImplementedError: for the train step (ROADMAP queue 1,
+            item 4) and encoder-decoder or frontend models (item 11).
+    """
+    _check_decoder_only(cfg)
+    if shape.kind == "train":
+        raise NotImplementedError(
+            "the train step is not ported yet (ROADMAP queue 1, item 4)")
+    params = T.param_specs(cfg)
+    pnames = T.param_logical_axes(cfg, params)
+    if shape.kind == "prefill":
+        bspecs, bnames = batch_specs(cfg, shape)
+        return make_prefill_step(cfg), (params, bspecs), (pnames, bnames)
+    if shape.kind != "decode":
+        raise ValueError(f"unknown step kind {shape.kind!r}")
+    B, S = shape.global_batch, shape.seq_len
+    cache = T.init_cache(cfg, B, S, device="meta")
+    cnames = cache_logical_axes(cache)
+    token = meta((B, 1), torch.int32)
+    pos = meta((), torch.int32)
+    return make_decode_step(cfg), (params, cache, token, pos), \
+        (pnames, cnames, ("batch", None), None)
+
+
+def specs_from_rules(tree, names_tree, rules: dict[str, tuple[str, ...]],
+                     axis_sizes: dict[str, int]):
+    """``PartitionSpec`` of every leaf from logical-name rules.
+
+    Args:
+        tree: a tree of tensors (``meta`` ones suffice).
+        names_tree: the same tree with logical-name tuples (or ``None``)
+            at the leaves.
+        rules: logical name -> mesh axes.
+        axis_sizes: mesh axis -> its size.
+
+    Returns:
+        The tree of specs; an axis that is of size 1, already used in
+        the spec, or does not divide what is left of the dim is dropped.
+    """
+    leaves = pytree.tree_leaves(tree)
+    name_leaves = flatten_logical_axes(names_tree)
+    if len(name_leaves) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves but {len(name_leaves)} "
+                         f"name entries")
+
+    def one(leaf, names):
+        if names is None:
+            names = (None,) * leaf.ndim
+        entries = []
+        used: set[str] = set()
+        for size, name in zip(leaf.shape, names):
+            axes = rules.get(name, ()) if name else ()
+            keep = []
+            for a in axes:
+                f = axis_sizes.get(a, 1)
+                if a in used or f <= 1 or size % f != 0:
+                    continue
+                keep.append(a)
+                used.add(a)
+                size //= f
+            entries.append(keep[0] if len(keep) == 1 else
+                           tuple(keep) if keep else None)
+        return PartitionSpec(*entries)
+
+    return pytree.unflatten(tree, [one(x, n) for x, n in
+                                   zip(leaves, name_leaves)])

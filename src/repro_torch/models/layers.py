@@ -2,11 +2,12 @@
 parts.
 
 Ported so far: RMSNorm, RoPE, GQA attention (full, sliding-window and
-non-causal masking; the einsum path and the fused-kernel path), the
-SwiGLU MLP and the Griffin RG-LRU block (full sequence; the
-associative-scan path and the fused-kernel path).  The other block
-kinds of the reference (MoE, xLSTM, cross-attention, the GELU MLP, the
-decode caches) are ROADMAP queue 1, items 10-12.
+non-causal masking; the einsum path and the fused-kernel path; the
+one-token decode form over a ring-buffer KV cache), the SwiGLU MLP and
+the Griffin RG-LRU block (full sequence, on the associative-scan path
+or the fused-kernel path; the one-token decode form over its recurrent
+and conv state).  The other block kinds of the reference (MoE, xLSTM,
+cross-attention, the GELU MLP) are ROADMAP queue 1, items 10-11.
 
 Functions take plain tensors and parameter dicts in the reference's
 pytree layout.  They are written as the same reduce / elementwise steps
@@ -102,21 +103,24 @@ def attn_param_shapes(cfg) -> dict:
     return p
 
 
-def _project_qkv(cfg, p, x, positions):
+def _project_qkv(cfg, p, x, positions, kv_positions=None):
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if kv_positions is None:
+        kv_positions = positions
     q = rope(q.reshape(*x.shape[:-1], h, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(*x.shape[:-1], kv, hd), positions, cfg.rope_theta)
+    k = rope(k.reshape(*x.shape[:-1], kv, hd), kv_positions,
+             cfg.rope_theta)
     return q, k, v.reshape(*x.shape[:-1], kv, hd)
 
 
 def attn_core(cfg, q, k, v, mask):
-    """GQA attention. q: (B,S,H,hd); k,v: (B,T,KV,hd); mask: (S,T) bool
-    or None."""
+    """GQA attention. q: (B,S,H,hd); k,v: (B,T,KV,hd); mask: (B,S,T) or
+    (S,T) bool, or None."""
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     g = h // kv
     B, S = q.shape[0], q.shape[1]
@@ -125,9 +129,11 @@ def attn_core(cfg, q, k, v, mask):
     scores = scores / math.sqrt(hd)
     scores = constrain(scores, ("act_batch", "kv_heads", None, "seq", None))
     if mask is not None:
-        # one broadcast, as the reference's mask[None, None, None]
-        scores = torch.where(mask.expand(1, 1, 1, *mask.shape), scores,
-                             -1e30)
+        # one broadcast, as the reference's mask[:, None, None] or
+        # mask[None, None, None]
+        m = mask[:, None, None] if mask.ndim == 3 else \
+            mask.expand(1, 1, 1, *mask.shape)
+        scores = torch.where(m, scores, -1e30)
     probs = softmax(scores).to(v.dtype)
     out = torch.einsum("bkgst,btkh->bskgh", probs, v)
     return out.reshape(B, S, h * hd)
@@ -165,6 +171,52 @@ def attn_apply(cfg, p, x, positions, *, window=0, is_causal=True):
     out = attn_core(cfg, q, k, v, mask)
     out = constrain(out, ("act_batch", "seq", "heads"))
     return x + (out @ p["wo"])
+
+
+def attn_init_cache(cfg, batch, max_seq, window=0, device=None):
+    """One attention block's decode cache: a ring of ``T`` key / value
+    slots (``T = min(window, max_seq)`` when windowed) and the position
+    each slot holds (-1: empty)."""
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    T = min(window, max_seq) if window else max_seq
+    return {
+        "k": torch.zeros((batch, T, kvh, hd), dtype=cfg.dtype,
+                         device=device),
+        "v": torch.zeros((batch, T, kvh, hd), dtype=cfg.dtype,
+                         device=device),
+        "slot_pos": torch.full((T,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def attn_decode(cfg, p, x, cache, pos, *, window=0, enc_out=None):
+    """One-token self-attention decode. x: (B,1,D); pos: 0-d int32.
+
+    The new key and value go to slot ``pos % T`` of the ring; a slot is
+    visible when it holds a position in ``[0, pos]`` (and, windowed,
+    within ``window`` of ``pos``).  Returns the output and the new cache;
+    the old cache is not written.
+    """
+    if enc_out is not None:
+        raise NotImplementedError(
+            "cross-attention decode is not ported yet (ROADMAP queue 1, "
+            "item 11)")
+    h = rmsnorm(x, p["ln"])
+    # the query's and the key's position, each its own (1, 1) broadcast
+    # of pos as the reference's pos[None, None]
+    q, k_new, v_new = _project_qkv(cfg, p, h, pos.expand(1, 1),
+                                   pos.expand(1, 1))
+    T = cache["k"].shape[1]
+    # the slot as a one-element index: the tracer lowers index_copy to
+    # the reference's dynamic_update_slice at this scalar
+    idx = (pos % T).to(torch.int64)[None]
+    k = cache["k"].index_copy(1, idx, k_new)
+    v = cache["v"].index_copy(1, idx, v_new)
+    slot_pos = cache["slot_pos"].index_copy(0, idx, pos[None])
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if window:
+        valid = valid & ((pos - slot_pos) < window)
+    out = attn_core(cfg, q, k, v, valid.expand(1, 1, T))
+    return x + (out @ p["wo"]), {"k": k, "v": v, "slot_pos": slot_pos}
 
 
 # ---------------------------------------------------------------------------
@@ -232,13 +284,14 @@ def softplus(x):
                        amax + torch.log1p(torch.exp(-delta.abs())))
 
 
-def _causal_conv4(u, w, b):
-    """Depthwise causal conv, kernel 4, from a zero state (prefill).
+def _causal_conv4(u, w, b, state=None):
+    """Depthwise causal conv, kernel 4, from ``state`` (B,3,r) or, with
+    none (prefill), from zeros.
 
     u: (B,S,r); w: (4,r); b: (r,).  Returns the output and the last 3
     inputs (the decode state), as the reference does.
     """
-    pad = torch.zeros_like(u[:, :_CONV_K - 1])
+    pad = torch.zeros_like(u[:, :_CONV_K - 1]) if state is None else state
     ext = torch.cat([pad, u], 1)                           # (B, S+3, r)
     S = u.shape[1]
     out = sum(ext[:, i:i + S] * w[_CONV_K - 1 - i] for i in range(_CONV_K))
@@ -271,3 +324,24 @@ def rglru_apply(cfg, p, x):
         _, hseq = lru_associative_scan(a, bterm)
     y = gelu(h @ p["wy"]) * hseq.to(x.dtype)
     return x + (y @ p["wo"])
+
+
+def rglru_init_cache(cfg, batch, device=None):
+    """One RG-LRU block's decode state: the recurrence ``h`` (float32) and
+    the conv's last 3 inputs."""
+    r = rnn_width(cfg)
+    return {"h": torch.zeros((batch, r), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, _CONV_K - 1, r), dtype=cfg.dtype,
+                                device=device)}
+
+
+def rglru_decode(cfg, p, x, cache, pos):
+    """One-token RG-LRU decode: one step ``h = a*h + b``. x: (B,1,D)."""
+    h = rmsnorm(x, p["ln"])
+    u = h @ p["wx"]                                         # (B,1,r)
+    u, conv_state = _causal_conv4(u, p["conv_w"], p["conv_b"],
+                                  cache["conv"])
+    a, bterm = _rglru_gates(p, u)
+    hnew = a[:, 0] * cache["h"] + bterm[:, 0]               # (B,r)
+    y = gelu(h @ p["wy"]) * hnew[:, None].to(x.dtype)
+    return x + (y @ p["wo"]), {"h": hnew, "conv": conv_state}

@@ -1,8 +1,11 @@
-"""Model stack in PyTorch: parameters and the full-sequence forward.
+"""Model stack in PyTorch: parameters, the full-sequence forward and the
+one-token decode step.
 
 A model is ``init_params(cfg, generator)`` + ``forward(cfg, params,
-tokens)`` — plain functions over parameter trees in the reference
-package's layout, so traced programs name the same input paths.
+tokens)``, and for decode ``init_cache(cfg, batch, max_seq)`` +
+``decode_step(cfg, params, cache, token, pos)`` — plain functions over
+parameter and cache trees in the reference package's layout, so traced
+programs name the same input paths.
 
 Depth runs as a scan over *super-blocks* exactly as in the reference:
 the layer pattern's period defines one super-block whose parameters are
@@ -11,8 +14,9 @@ left-over layers run unscanned as the ``tail``.  :func:`scan_layers` is
 the one helper that runs that depth: under ``torch.export`` it emits one
 ``torch._higher_order_ops.scan`` (the tracer instantiates its body once,
 the structural analogue of the paper's §4.4 repeated-layer grouping);
-run eagerly it is a plain loop giving the same result.  ``remat`` has no
-effect in the forward pass.
+run eagerly it is a plain loop giving the same result.  Decode scans the
+stacked caches beside the parameters and returns the new caches stacked,
+as ``lax.scan``'s ``ys``.  ``remat`` has no effect in the forward pass.
 
 Ported block kinds: ``attn``, ``local`` and ``rglru``, with the dense
 MLP.  The others raise and name their ROADMAP item.
@@ -239,26 +243,37 @@ def apply_block(cfg, kind, p, x, positions):
     return x
 
 
-def scan_layers(body, h, xs):
+def scan_layers(body, h, xs, *, with_ys=False):
     """``h = body(h, xs[i])`` for every ``i`` along xs' leading dim.
+
+    With ``with_ys`` the body returns ``(h, y)`` and the result is
+    ``(h, ys)``, every leaf of the ``y``s stacked along a new leading
+    dim, as ``lax.scan`` returns them.
 
     Under ``torch.export`` this is one ``scan`` node whose body is
     traced once; eagerly it is a loop.  Each iteration runs under the
     same kernel-dispatch site keys, those of the body's one traced
     instance, so a plan's per-site decisions apply to every layer.
     """
+    step = body if with_ys else (lambda c, x: (body(c, x), ()))
     if torch.compiler.is_exporting():
         from torch._higher_order_ops.scan import scan
-        h, _ = scan(lambda c, x: (body(c, x), ()), h, xs)
-        return h
+        h, ys = scan(step, h, xs)
+        return (h, ys) if with_ys else h
     n = pytree.tree_leaves(xs)[0].shape[0]
     disp = get_kernel_dispatch()
     mark = disp.mark() if disp is not None else None
+    ys = []
     for i in range(n):
         if disp is not None:
             disp.rewind(mark)
-        h = body(h, pytree.tree_map(lambda a: a[i], xs))
-    return h
+        h, y = step(h, pytree.tree_map(lambda a: a[i], xs))
+        ys.append(y)
+    if not with_ys:
+        return h
+    stacked = [torch.stack(col) for col in
+               zip(*(pytree.tree_leaves(y) for y in ys))]
+    return h, pytree.unflatten(ys[0], stacked)
 
 
 def _run_layers(cfg, params, h, positions):
@@ -293,3 +308,104 @@ def forward(cfg, params, tokens):
     h = L.rmsnorm(h, params["final_ln"])
     logits = h @ params["unembed"]
     return constrain(logits, ("act_batch", "seq", "vocab"))
+
+
+# ---------------------------------------------------------------------------
+# decode (KV / recurrent caches)
+# ---------------------------------------------------------------------------
+
+
+def _block_cache(cfg, kind, batch, max_seq, device):
+    _check_ported(cfg, kind)
+    if kind == "rglru":
+        return L.rglru_init_cache(cfg, batch, device=device)
+    window = cfg.sliding_window if kind == "attn" else cfg.local_window
+    return L.attn_init_cache(cfg, batch, max_seq, window, device=device)
+
+
+def init_cache(cfg, batch, max_seq, device=None):
+    """The empty decode cache, in the reference's layout.
+
+    Args:
+        cfg: the model configuration.
+        batch: the decode batch size.
+        max_seq: the cache depth (prompt plus generated tokens); a
+            windowed attention block keeps ``min(window, max_seq)``
+            slots.
+        device: where the cache lives (``None``: the CUDA card;
+            ``"meta"``: shapes only, as the reference's
+            ``jax.eval_shape``).
+
+    Returns:
+        ``{"layers": ..., "tail": ...}``: per kind of the pattern's
+        period, its block cache stacked ``n_scan_blocks`` deep; per tail
+        layer, its block cache.
+    """
+    dev = resolve_device(device)
+    period_kinds, tail_kinds = block_kinds(cfg)
+    n_scan = n_scan_blocks(cfg)
+
+    def stack(tree):
+        return pytree.tree_map(
+            lambda x: x.expand((n_scan,) + tuple(x.shape)).clone(), tree)
+
+    return {
+        "layers": tuple(stack(_block_cache(cfg, k, batch, max_seq, dev))
+                        for k in period_kinds),
+        "tail": tuple(_block_cache(cfg, k, batch, max_seq, dev)
+                      for k in tail_kinds),
+    }
+
+
+def decode_block(cfg, kind, p, x, cache, pos):
+    """One layer's one-token decode; returns ``(x, new cache)``."""
+    _check_ported(cfg, kind)
+    if kind == "rglru":
+        x, cache = L.rglru_decode(cfg, p["mix"], x, cache, pos)
+    else:
+        window = cfg.sliding_window if kind == "attn" else cfg.local_window
+        x, cache = L.attn_decode(cfg, p["mix"], x, cache, pos,
+                                 window=window)
+    if "ffn" in p:
+        x = L.mlp_apply(cfg, p["ffn"], x)
+    return x, cache
+
+
+def decode_step(cfg, params, cache, token, pos):
+    """One autoregressive step.
+
+    Args:
+        cfg: the model configuration.
+        params: the parameter tree.
+        cache: the cache tree of :func:`init_cache`.
+        token: (B, 1) int token ids.
+        pos: the token's position, a 0-d int32 tensor (a traced input
+            under ``torch.export``, never read on the host).
+
+    Returns:
+        ``(logits (B, 1, vocab), new cache)``; ``cache`` is not written.
+    """
+    period_kinds, tail_kinds = block_kinds(cfg)
+    h = embed_tokens(cfg, params, token)
+    h = constrain(h, ("act_batch", None, "embed"))
+
+    def body(h, xs):
+        pslices, cslices = xs
+        new_c = []
+        for kind, p, c in zip(period_kinds, pslices, cslices):
+            h, c2 = decode_block(cfg, kind, p, h, c, pos)
+            new_c.append(c2)
+        return h, tuple(new_c)
+
+    if n_scan_blocks(cfg) > 0 and params["layers"]:
+        h, new_layer_cache = scan_layers(
+            body, h, (params["layers"], cache["layers"]), with_ys=True)
+    else:
+        new_layer_cache = cache["layers"]
+    new_tail = []
+    for kind, p, c in zip(tail_kinds, params["tail"], cache["tail"]):
+        h, c2 = decode_block(cfg, kind, p, h, c, pos)
+        new_tail.append(c2)
+    h = L.rmsnorm(h, params["final_ln"])
+    logits = h @ params["unembed"]
+    return logits, {"layers": new_layer_cache, "tail": tuple(new_tail)}
