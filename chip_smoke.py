@@ -40,7 +40,18 @@ request (the KV cache pinned replicated) and served token by token.
    weight-read bound; check a small f32 model's decode logits at every
    position against its forward through the kernels (the hybrid's local
    ring wraps);
-6. time each kernel at its slice shape beside its bound, its plain
+6. for the ``qwen2_05b`` train path (after its prefill and decode):
+   trace and analyze the full-width train step (AdamW, the loss's
+   gradient through the attention kernel's autograd, remat) on ``meta``
+   tensors at the prefill path's shape; search the 2x4 plan (JSON round
+   trip) and the 1x1 plan, and apply the latter on the card; take 8
+   steps on one fixed batch from the seed, each timed, with its peak
+   memory and its kernel launches (24 forward and 24 recomputed under
+   remat) and plain-vjp backward sites counted from zero; the loss must
+   stay finite and fall; hold step 1 against step 1 with every site on
+   the plain version (loss and grad norm), and a small f32 model's loss,
+   gradients and updated state likewise;
+7. time each kernel at its slice shape beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` (a
    yardstick only: the port never calls it); time the attention kernel
    and SDPA at head dims 96 and 128 too, at the slice's B, S and H, and
@@ -48,7 +59,8 @@ request (the KV cache pinned replicated) and served token by token.
    the RG-LRU ring in bf16 and at one batch row too, and its generic
    route at the slice shape.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``.  Needs one
+Run from the root of a checkout: ``python3 chip_smoke.py [--seed N]``
+(the seed of the train path's weights and batch, 0 by default).  Needs one
 CUDA card (sm_90a) and ``nvcc``; exits non-zero, printing no result,
 without them.  Any failed check raises.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it holds
@@ -57,9 +69,11 @@ the kernel measurements as JSON.
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -90,6 +104,15 @@ DECODE_GEN = 128
 DECODE_MAX_SEQ = 256
 # small f32 models' decode: tokens (past the hybrid's 16-token window)
 SMALL_DECODE_TOKENS = 40
+# train path: batch x tokens (the prefill path's shape), steps on one
+# fixed batch; the optimizer's warmup is short, as the default 100 warmup
+# steps would barely move the loss in 8 steps
+TRAIN_SHAPE = (4, 2048)
+TRAIN_STEPS = 8
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+# step 1 through the kernel vs through the plain version: loss and grad
+# norm, relative (bf16)
+TRAIN_REL_TOL = 2e-2
 # H100 SXM data sheet (dense bf16 FLOP/s, f32 FLOP/s outside the tensor
 # cores, HBM bytes/s)
 PEAK_BF16_FLOPS = 989e12
@@ -530,6 +553,173 @@ def drive_decode(torch, cfg, params, counters, card) -> None:
         f"(tol {SMALL_TOL}) ok")
 
 
+def drive_train(torch, cfg, counters, card, seed: int) -> dict:
+    """Plan and run the train step of ``cfg``; returns its launches.
+
+    Args:
+        cfg: the full-width model configuration (``use_pallas`` set).
+        counters: kernel name -> its wrapper module (``launches``).
+        card: the card's name and power limit, for the step lines.
+        seed: the seed of the weights and the batch.
+    """
+    from repro_torch.api import Request, Session
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.cost_model import MeshSpec
+    from repro_torch.core.partitioner import ShardingPlan
+    from repro_torch import pytree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.models.sharding import KernelDispatch, kernel_dispatch
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train import steps as TS
+
+    B, S = TRAIN_SHAPE
+    name = cfg.name
+    opt = AdamConfig(**TRAIN_OPT)
+    step = TS.make_train_step(cfg, opt)
+    bspec, _ = specs.batch_specs(cfg, ShapeConfig("train", S, B, "train"))
+    sess = Session(step, (TS.train_state_specs(cfg, opt), bspec))
+    art = sess.artifacts
+    prog = art.prog
+    trips = sorted(set(prog.trip_counts.values()))
+    kinds = [op.prim for op in prog.ops if op.prim.startswith("kernel:")]
+    log(f"[train session {name}] B={B} S={S} remat={cfg.remat}: "
+        f"{len(prog.ops)} ops, fingerprint {sess.fingerprint[:16]}, "
+        f"trip counts {trips}, "
+        f"{len(art.nda.color_summary())} colors, "
+        f"{len(art.analysis.conflicts)} conflicts, kernel ops {kinds}, "
+        f"phases " + json.dumps({k: round(v, 4) for k, v in
+                                 art.phase_seconds.items()}))
+    if trips != [1, cfg.num_layers]:
+        raise AssertionError(f"train program trip counts {trips}")
+    plan8 = sess.partition(Request(mesh=MeshSpec(("data", "model"), (2, 4))))
+    if ShardingPlan.from_json(plan8.to_json()).as_dict() != plan8.as_dict():
+        raise AssertionError("train 2x4 plan JSON does not round-trip")
+    log(f"[train partition {name} 2x4] cost={plan8.cost:.6f} "
+        f"kernel_sites={len(plan8.kernel_sites)} "
+        f"search={plan8.search_seconds:.3f} s "
+        f"evaluations={plan8.evaluations} json round-trip ok")
+    plan1 = sess.partition(Request(mesh=MeshSpec(("data", "model"), (1, 1))))
+    sites = {r["site"]: r["impl"] for r in plan1.kernel_sites}
+    if set(sites.values()) != {"cuda"} or len(sites) != 1 + cfg.remat:
+        raise AssertionError(f"train 1x1 plan kernel sites chose {sites}")
+    log(f"[train partition {name} 1x1] cost={plan1.cost:.6f} sites="
+        + json.dumps(sites))
+    applied = plan1.apply(step)
+    plain = dataclasses.replace(
+        plan1, kernel_sites=[{**r, "impl": "ref"}
+                             for r in plan1.kernel_sites]).apply(step)
+
+    state0 = TS.init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), opt)
+    tgen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=tgen,
+                           device="cuda", dtype=torch.int32)
+    batch = {"tokens": tokens[:, :-1].contiguous(),
+             "targets": tokens[:, 1:].contiguous()}
+    applied(state0, batch)                       # warm-up, not counted
+    torch.cuda.synchronize()
+
+    def run(fn, state, label, i):
+        for mod in counters.values():
+            mod.launches = 0
+        ops.bwd_calls = 0
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = fn(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        launches = {k: mod.launches for k, mod in counters.items()}
+        row = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+               "ms": start.elapsed_time(end),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": launches, "bwd": ops.bwd_calls}
+        log(f"[train {name} {label}] step {i}: loss {row['loss']:.6f} "
+            f"grad_norm {row['grad_norm']:.6f} {row['ms']:.3f} ms, peak "
+            f"{row['peak_gb']:.2f} GB, launches {json.dumps(launches)}, "
+            f"attention backward sites (plain vjp) {row['bwd']}")
+        return state, row
+
+    want_launches = {k: cfg.num_layers * (1 + cfg.remat)
+                     if k == "flash_attention" else 0 for k in counters}
+    rows, state = [], state0
+    for i in range(1, TRAIN_STEPS + 1):
+        state, row = run(applied, state, "cuda", i)
+        if row["launches"] != want_launches or \
+                row["bwd"] != cfg.num_layers:
+            raise AssertionError(
+                f"step {i}: launches {row['launches']}, backward sites "
+                f"{row['bwd']}; expected {want_launches} and "
+                f"{cfg.num_layers}")
+        rows.append(row)
+        if i == 1:
+            # step 1 again, every site on the plain version
+            prow = run(plain, state0, "plain", 1)[1]
+            del state0
+    del state
+    if any(prow["launches"].values()) or prow["bwd"] != cfg.num_layers:
+        raise AssertionError("the plain train step launched a kernel")
+    for key in ("loss", "grad_norm"):
+        rel = abs(rows[0][key] - prow[key]) / abs(prow[key])
+        log(f"[train {name}] step 1 {key}: kernel {rows[0][key]:.6f} vs "
+            f"plain {prow[key]:.6f}, rel {rel:.3e} (tol {TRAIN_REL_TOL})")
+        if rel > TRAIN_REL_TOL:
+            raise AssertionError(f"train step 1 {key}: kernel and plain "
+                                 f"disagree")
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"train losses {losses} not finite or not "
+                             f"falling")
+    fwd = cfg.num_layers
+    log(f"[train {name}] {card}: {TRAIN_STEPS} steps, loss {losses[0]:.6f} "
+        f"-> {losses[-1]:.6f}; flash_attention launches per step "
+        f"{want_launches['flash_attention']} = {fwd} forward + "
+        f"{fwd * cfg.remat} recomputed (remat); {fwd} backward sites per "
+        f"step on the plain vjp; median step "
+        f"{percentile([r['ms'] for r in rows], 0.5):.3f} ms")
+
+    # small f32 model (remat on, as the full one): loss, every gradient
+    # leaf and the updated state, kernel sites vs plain sites
+    small = dataclasses.replace(get_config(name).reduced(), use_pallas=True,
+                                remat=True)
+    sstep = TS.make_train_step(small, opt)
+    sspec, _ = specs.batch_specs(small, ShapeConfig("t", 64, 2, "train"))
+    splan = Session(sstep, (TS.train_state_specs(small, opt), sspec)
+                    ).partition(Request(mesh=MeshSpec(("data", "model"),
+                                                      (1, 1))))
+    splain = dataclasses.replace(
+        splan, kernel_sites=[{**r, "impl": "ref"}
+                             for r in splan.kernel_sites])
+    sstate = TS.init_train_state(
+        small, torch.Generator(device="cuda").manual_seed(seed + 2), opt)
+    sb = {k: torch.randint(0, small.vocab_size, (2, 64), generator=tgen,
+                           device="cuda", dtype=torch.int32)
+          for k in ("targets", "tokens")}
+    grads = TS.value_and_grad(TS.make_loss_fn(small), remat=True)
+    before = counters["flash_attention"].launches
+    with kernel_dispatch(KernelDispatch(default_impl="cuda")):
+        got = grads(sstate.params, sb)
+    if counters["flash_attention"].launches == before:
+        raise AssertionError("the small train step launched no kernel")
+    with kernel_dispatch(KernelDispatch(default_impl="ref")):
+        want = grads(sstate.params, sb)
+    got += splan.apply(sstep)(sstate, sb)
+    want += splain.apply(sstep)(sstate, sb)
+    diff = 0.0
+    for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        torch.testing.assert_close(a, b, rtol=SMALL_TOL, atol=SMALL_TOL)
+        diff = max(diff, (a.double() - b.double()).abs().max().item())
+    log(f"[small train] {small.name} ({small.num_layers} layers) f32 remat: "
+        f"loss, {len(pytree.tree_leaves(sstate.params))} gradient leaves "
+        f"and the updated state, kernel vs plain: max|diff| {diff:.3e} "
+        f"(tol {SMALL_TOL}) ok")
+    return {"launches_per_step": want_launches["flash_attention"],
+            "steps": rows}
+
+
 def time_lru(lru, torch, gen, card, shape, dtype, route) -> dict:
     """Times one RG-LRU route at ``shape`` beside its bound; logs a
     ``[time]`` line and returns ms, bound and the plain inputs."""
@@ -551,7 +741,11 @@ def time_lru(lru, torch, gen, card, shape, dtype, route) -> dict:
             "a": a, "b": b}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the train path's weights and batch")
+    opts = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -657,12 +851,14 @@ def main() -> int:
     check_lru(lru, torch, packed[:, :, 0], packed[:, :, 1], "strided",
               "tma")
 
-    # -- 3, 4, 5: plan and serve each path, prefill then decode --------
+    # -- 3-6: plan and serve each path, prefill then decode; train ----
     fa_launches, _, params = drive_path(torch, qwen, QWEN_SHAPE, counters,
                                         "flash_attention", qwen.num_layers)
     torch.cuda.empty_cache()
     drive_decode(torch, qwen, params, counters, card)
     del params
+    torch.cuda.empty_cache()
+    train = drive_train(torch, qwen, counters, card, opts.seed)
     torch.cuda.empty_cache()
     n_lru = sum(k == "rglru" for k in hybrid.pattern)
     lru_launches, lru_routes, params = drive_path(
@@ -672,9 +868,10 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # -- 6: each kernel's time at its slice shape ----------------------------
+    # -- 7: each kernel's time at its slice shape ----------------------------
     fa_row = time_fa(fa, torch, gen, card, B, S, H, hd, plain=True)
-    fa_row.update(launches=fa_launches, max_abs_err=fa_err)
+    fa_row.update(launches=fa_launches, max_abs_err=fa_err,
+                  launches_train_step=train["launches_per_step"])
     # the head dims of the repo's other configs, at the slice's B, S, H
     for hd_i in (96, 128):
         time_fa(fa, torch, gen, card, B, S, H, hd_i, plain=False)

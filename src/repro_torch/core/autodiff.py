@@ -1,0 +1,1107 @@
+"""Reverse-mode differentiation of a traced :class:`~repro_torch.core.ir.Program`.
+
+The train step's program is the reference's ``jax.value_and_grad`` of
+the loss followed by the AdamW update.  ``torch.export`` cannot give that
+program's backward with the layer scan kept whole, so the tracer
+(``core.ir``) exports the loss's forward only, and on the train step's
+``repro_torch::grad`` node calls :func:`value_and_grad` here, which
+builds the backward in the IR itself by the reference's rules — JAX's
+linearize-then-transpose, prim by prim:
+
+- each differentiated op's JVP splits into *residual* ops, on primal
+  values only (``rsqrt``'s ``-0.5 * ans / x``, ``logistic``'s ``ans * (1
+  - ans)``, ``div``'s ``y**-2``, ``reduce_max``'s location counts, ...),
+  and *linear* ops on tangents, recorded on a tape;
+- the tape is transposed in reverse: ``dot_general`` into a
+  ``dot_general`` and a ``transpose``, ``broadcast_in_dim`` into
+  ``reduce_sum``, ``slice`` into ``pad``, ``concatenate`` into
+  ``split``, ``gather`` into ``scatter-add`` into zeros, ``select_n``
+  into a ``select_n`` against zeros, a fused attention into one
+  ``kernel:flash_attention_bwd`` op; fanned-out cotangents meet in
+  ``add_any``;
+- the layer scan becomes a forward scan and a backward scan, each one
+  body with trip counts and value links.  The forward body's
+  loop-invariant ops (rope tables, masks) are hoisted out of it, as the
+  reference's scan partial evaluation does.  Without remat the forward
+  body also computes the residuals the backward body needs and stacks
+  them as ``ys``; with remat it stacks only the carry, and the backward
+  body recomputes the forward body's ops the transpose needs (invariant
+  ones included), as under ``jax.checkpoint``;
+- residual and linear ops that reach no gradient are dropped inside scan
+  bodies and kept at the top level, as the reference's program keeps
+  them (its top level is not dead-code eliminated).
+
+An op this module has no rule for raises :class:`NotImplementedError`
+when a gradient would flow through it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import numpy as np
+
+# prims whose results carry no tangent (integer / boolean results, or
+# the gradient explicitly stopped)
+_NO_TANGENT = frozenset({
+    "iota", "eq", "ne", "lt", "le", "gt", "ge", "and", "or", "not",
+    "is_finite", "stop_gradient", "sign", "rem",
+})
+_FLOAT = frozenset({"float16", "bfloat16", "float32", "float64"})
+
+
+class ScatterDimensionNumbers(NamedTuple):
+    """The scatter dimension numbers ``core.nda``'s scatter rule reads."""
+
+    update_window_dims: tuple[int, ...]
+    inserted_window_dims: tuple[int, ...]
+    scatter_dims_to_operand_dims: tuple[int, ...]
+    operand_batching_dims: tuple[int, ...] = ()
+    scatter_indices_batching_dims: tuple[int, ...] = ()
+
+
+@dataclasses.dataclass
+class ScanRecord:
+    """One layer scan as the tracer instantiated it: its body's ops are
+    ``prog.ops[lo:hi]``, run ``length`` times."""
+
+    lo: int
+    hi: int
+    length: int
+    carries: list[int]           # outer init values
+    xs: list[int]                # outer stacked inputs
+    consts: list[int]            # outer values the body reads
+    body_carry: list[int]        # body carry-in values
+    body_xs: list[int]           # body slices of xs
+    carry_outs: list[int]        # body carry-out values
+    y_outs: list[int]            # body ys
+    results: list[int]           # outer carries out, then stacked ys
+
+
+@dataclasses.dataclass(eq=False)
+class R:
+    """A residual op on primal values, emitted when first needed."""
+
+    prim: str
+    params: dict
+    operands: list               # vids, R's or Lit's
+    shape: tuple[int, ...]
+    dtype: str
+
+
+@dataclasses.dataclass(frozen=True)
+class Lit:
+    """A fresh scalar literal of ``dtype`` at each use."""
+
+    dtype: str
+
+
+@dataclasses.dataclass(eq=False)
+class Lin:
+    """One linear op of the tape.
+
+    ``args`` holds tangent keys as ``("t", key)`` and primal operands as
+    vids, :class:`R` or :class:`Lit`; ``out`` is the result's tangent key.
+    """
+
+    prim: str
+    params: dict
+    args: list
+    out: Any = None
+    scan: Any = None             # the forward scan of a "scan" entry
+
+
+def _t(key) -> tuple:
+    return ("t", key)
+
+
+def _is_t(a) -> bool:
+    return isinstance(a, tuple) and len(a) == 2 and a[0] == "t"
+
+
+class _Ctx:
+    """Where ops are emitted: a trip count and a renaming of primal
+    values (a scan body's forward values -> its backward body's)."""
+
+    def __init__(self, trip: int, rename: dict | None = None) -> None:
+        self.trip = trip
+        self.rename = rename if rename is not None else {}
+        self.memo: dict = {}       # R -> vid
+
+
+class _VJP:
+    def __init__(self, prog, stopped: set[int]) -> None:
+        self.prog = prog
+        self.stopped = stopped
+        self.ttypes: dict = {}     # temporary tangent key -> (shape, dtype)
+        self._ntmp = 0
+        self.new_rs: list[R] = []
+        self.active: set[int] = set()
+        self._tapes: dict = {}       # id(scan record) -> live body tape
+        self._body_ops: dict = {}    # id(scan record) -> forward body ops
+
+    # -- values ---------------------------------------------------------
+
+    def ttype(self, key) -> tuple[tuple[int, ...], str]:
+        if key in self.ttypes:
+            return self.ttypes[key]
+        t = self.prog.types[key]
+        return t.shape, t.dtype
+
+    def tmp(self, shape, dtype) -> int:
+        self._ntmp -= 1
+        self.ttypes[self._ntmp] = (tuple(shape), dtype)
+        return self._ntmp
+
+    def vtype(self, v):
+        if isinstance(v, R):
+            return v.shape, v.dtype
+        t = self.prog.types[v]
+        return t.shape, t.dtype
+
+    def r(self, prim, params, operands, shape, dtype) -> R:
+        res = R(prim, params, list(operands), tuple(shape), dtype)
+        self.new_rs.append(res)
+        return res
+
+    def emit(self, ctx: _Ctx, prim, params, operands, shape, dtype) -> int:
+        from repro_torch.core.ir import Op
+        vid = self.prog.new_value(shape, dtype)
+        self.prog.add_op(Op(prim, params, list(operands), [vid]), ctx.trip)
+        return vid
+
+    def emit_multi(self, ctx: _Ctx, prim, params, operands,
+                   types) -> list[int]:
+        from repro_torch.core.ir import Op
+        vids = [self.prog.new_value(s, d) for s, d in types]
+        self.prog.add_op(Op(prim, params, list(operands), vids), ctx.trip)
+        return vids
+
+    def lit(self, dtype) -> int:
+        return self.prog.new_value((), dtype)
+
+    def val(self, ctx: _Ctx, x) -> int:
+        """The vid of a primal operand in ``ctx``."""
+        if isinstance(x, Lit):
+            return self.lit(x.dtype)
+        if isinstance(x, R):
+            return self.mat(ctx, x)
+        return ctx.rename.get(x, x)
+
+    def mat(self, ctx: _Ctx, r: R) -> int:
+        if r not in ctx.memo:
+            ops = [self.val(ctx, o) for o in r.operands]
+            ctx.memo[r] = self.emit(ctx, r.prim, r.params, ops, r.shape,
+                                    r.dtype)
+        return ctx.memo[r]
+
+    def zeros(self, ctx: _Ctx, shape, dtype) -> int:
+        return self.emit(ctx, "broadcast_in_dim",
+                         {"shape": tuple(shape), "broadcast_dimensions": ()},
+                         [self.lit(dtype)], shape, dtype)
+
+    # -- activity -------------------------------------------------------
+
+    def is_active(self, v) -> bool:
+        return isinstance(v, int) and v in self.active and \
+            v not in self.stopped
+
+    def _op_activity(self, op) -> None:
+        if op.prim in _NO_TANGENT:
+            return
+        if any(self.is_active(v) for v in op.operands):
+            for r in op.results:
+                if self.prog.types[r].dtype in _FLOAT:
+                    self.active.add(r)
+
+    def scan_activity(self, rec: ScanRecord, body_ops) -> None:
+        for x, b in zip(rec.xs, rec.body_xs):
+            if self.is_active(x):
+                self.active.add(b)
+        for c, b in zip(rec.carries, rec.body_carry):
+            if self.is_active(c):
+                self.active.add(b)
+        while True:
+            for op in body_ops:
+                self._op_activity(op)
+            grew = False
+            for b, out in zip(rec.body_carry, rec.carry_outs):
+                if self.is_active(out) and b not in self.active:
+                    self.active.add(b)
+                    grew = True
+            if not grew:
+                break
+        if any(self.is_active(c) for c in rec.consts):
+            raise NotImplementedError(
+                "a gradient through a scan constant (a differentiated "
+                "value the layer body closes over) is not supported")
+        outs = rec.carry_outs + rec.y_outs
+        for res, out in zip(rec.results, outs):
+            if self.is_active(out):
+                self.active.add(res)
+
+    # -- JVP rules ------------------------------------------------------
+
+    def jvp(self, op) -> list[Lin]:
+        """Linear tape entries of one op whose result is active."""
+        prim = op.prim
+        act = [self.is_active(v) for v in op.operands]
+        ops = op.operands
+        out = op.results[0]
+        shape, dtype = self.ttype(out)
+        rule = _RULES.get(prim)
+        if rule is None and prim.startswith("kernel:"):
+            rule = _rule_kernel
+        if rule is None:
+            raise NotImplementedError(
+                f"no differentiation rule for prim {prim!r}")
+        return rule(self, op, ops, act, out, shape, dtype)
+
+    def maybe_bcast(self, key, shape, out) -> list[Lin]:
+        """``_maybe_broadcast``: the tangent ``key`` as ``out``."""
+        kshape, dtype = self.ttype(key)
+        if tuple(kshape) == tuple(shape):
+            return [Lin("copy", {}, [_t(key)], out)]
+        if not kshape:
+            return [Lin("broadcast_in_dim", {"shape": tuple(shape),
+                                             "broadcast_dimensions": ()},
+                        [_t(key)], out)]
+        dims = tuple(i for i, (a, b) in enumerate(zip(kshape, shape))
+                     if a == b)
+        sq = self.tmp([kshape[i] for i in dims], dtype)
+        return [Lin("reshape", {"new_sizes": tuple(kshape[i] for i in dims),
+                                "dimensions": None}, [_t(key)], sq),
+                Lin("broadcast_in_dim", {"shape": tuple(shape),
+                                         "broadcast_dimensions": dims},
+                    [_t(sq)], out)]
+
+    def add_tangents(self, parts: list[list[Lin]], outs: list[int],
+                     out: int) -> list[Lin]:
+        """Sum per-operand tangent contributions as ``add_any``."""
+        lins = [e for p in parts for e in p]
+        if len(outs) == 1:
+            for e in lins:
+                if e.out == outs[0]:
+                    e.out = out
+            return lins
+        shape, dtype = self.ttype(out)
+        acc = outs[0]
+        for i, o in enumerate(outs[1:]):
+            nxt = out if i == len(outs) - 2 else self.tmp(shape, dtype)
+            lins.append(Lin("add_any", {}, [_t(acc), _t(o)], nxt))
+            acc = nxt
+        return lins
+
+    # -- transposition --------------------------------------------------
+
+    def acc(self, ctx: _Ctx, env: dict, key, vid: int) -> None:
+        if key in env:
+            shape, dtype = self.ttype(key)
+            vid = self.emit(ctx, "add_any", {}, [env[key], vid], shape,
+                            dtype)
+        env[key] = vid
+
+    def unbroadcast(self, ctx: _Ctx, key, vid: int) -> int:
+        """``_unbroadcast``: a cotangent of the result's shape summed to
+        the shape of tangent ``key``."""
+        shape, dtype = self.ttype(key)
+        vshape = self.prog.types[vid].shape
+        if tuple(vshape) == tuple(shape):
+            return vid
+        if not shape:
+            dims = tuple(range(len(vshape)))
+        else:
+            dims = tuple(i for i, (a, b) in enumerate(zip(vshape, shape))
+                         if a != b)
+        red = tuple(d for i, d in enumerate(vshape) if i not in dims)
+        vid = self.emit(ctx, "reduce_sum", {"axes": dims}, [vid], red, dtype)
+        if tuple(red) != tuple(shape):
+            vid = self.emit(ctx, "reshape", {"new_sizes": tuple(shape),
+                                             "dimensions": None},
+                            [vid], shape, dtype)
+        return vid
+
+    def transpose(self, ctx: _Ctx, tape: list[Lin], env: dict) -> None:
+        for e in reversed(tape):
+            if e.prim == "scan":
+                self.transpose_scan(ctx, e, env)
+                continue
+            ct = env.pop(e.out, None)
+            if ct is None:
+                continue
+            _TRANSPOSE[e.prim](self, ctx, e, ct, env)
+
+    # -- scans ----------------------------------------------------------
+
+    def forward_scan(self, rec: ScanRecord, body_ops, remat: bool,
+                     outer_trip: int) -> Lin:
+        """Re-emit a forward scan (hoisted invariants, body, residual
+        ys) and return its tape entry."""
+        body_vals = set(rec.body_carry) | set(rec.body_xs)
+        for op in body_ops:
+            body_vals.update(op.results)
+        variant = set(rec.body_carry) | set(rec.body_xs)
+        hoisted, kept = [], []
+        for op in body_ops:
+            if any(v in variant for v in op.operands):
+                variant.update(op.results)
+                kept.append(op)
+            else:
+                hoisted.append(op)
+        # the body's tape, symbolically; then what reaches a gradient
+        self.new_rs = []
+        tape: list[Lin] = []
+        for op in body_ops:
+            if op.prim not in _NO_TANGENT and \
+                    any(self.is_active(r) for r in op.results):
+                tape.extend(self.jvp(op))
+        live_keys = {o for o in rec.carry_outs + rec.y_outs
+                     if self.is_active(o)}
+        live: list[Lin] = []
+        for e in reversed(tape):
+            if e.out in live_keys:
+                live.append(e)
+                live_keys.update(a[1] for a in e.args if _is_t(a))
+        live.reverse()
+        needed: list = []
+        seen: set = set()
+
+        def need(x):
+            if isinstance(x, Lit) or (not isinstance(x, R) and
+                                      x not in body_vals):
+                return
+            if id(x) in seen:
+                return
+            seen.add(id(x))
+            if isinstance(x, R):
+                for o in x.operands:
+                    need(o)
+            needed.append(x)
+
+        for e in live:
+            for a in e.args:
+                if not _is_t(a):
+                    need(a)
+
+        def r_variant(x) -> bool:
+            if isinstance(x, R):
+                return any(r_variant(o) for o in x.operands)
+            return isinstance(x, int) and x in variant
+
+        top = _Ctx(outer_trip)
+        for op in hoisted:
+            self.prog.add_op(op, outer_trip)
+        fwd = _Ctx(outer_trip * rec.length)
+        if not remat:
+            for x in needed:
+                if isinstance(x, R) and not r_variant(x):
+                    fwd.memo[x] = self.mat(top, x)
+        for op in kept:
+            self.prog.add_op(op, fwd.trip)
+        # the residuals, stacked as ys: with remat the carry in, else
+        # every per-iteration value the backward reads (the xs are
+        # stacked already)
+        if remat:
+            per_iter = list(rec.body_carry)
+        else:
+            per_iter = [self.mat(fwd, x) if isinstance(x, R) else x
+                        for x in needed if r_variant(x) and
+                        x not in rec.body_xs]
+        stacks = []
+        for v in per_iter:
+            t = self.prog.types[v]
+            st = self.prog.new_value((rec.length,) + t.shape, t.dtype)
+            self.prog.value_links.append((st, v, 1))
+            stacks.append((st, v))
+        self._tapes[id(rec)] = live
+        if not live:
+            return Lin("scan", {"dead": True}, [], scan=rec)
+        return Lin("scan", {"remat": remat, "needed": needed,
+                            "fwd_memo": fwd.memo, "stacks": stacks},
+                   [], scan=rec)
+
+    def transpose_scan(self, ctx: _Ctx, e: Lin, env: dict) -> None:
+        rec: ScanRecord = e.scan
+        if e.params.get("dead"):
+            return
+        p = e.params
+        n_carry = len(rec.carries)
+        init = []
+        for i in range(n_carry):
+            res = rec.results[i]
+            if not self.is_active(rec.carry_outs[i]):
+                init.append(None)
+                continue
+            ct = env.pop(res, None)
+            if ct is None:
+                t = self.prog.types[res]
+                ct = self.zeros(ctx, t.shape, t.dtype)
+            init.append(ct)
+        y_cts = [env.pop(rec.results[n_carry + j], None)
+                 for j in range(len(rec.y_outs))]
+        if any(c is not None for c in y_cts):
+            raise NotImplementedError(
+                "a gradient through a scan's stacked ys is not supported")
+        body = _Ctx(ctx.trip * rec.length)
+        links = self.prog.value_links
+        bcarry = []
+        for c in init:
+            if c is None:
+                bcarry.append(None)
+                continue
+            t = self.prog.types[c]
+            b = self.prog.new_value(t.shape, t.dtype)
+            links.append((c, b, 0))
+            bcarry.append(b)
+        # stacked inputs of the backward body: residual stacks and the
+        # forward xs (parameters) it reads
+        for s, v in p["stacks"]:
+            t = self.prog.types[v]
+            b = self.prog.new_value(t.shape, t.dtype)
+            links.append((s, b, 1))
+            body.rename[v] = b
+        for x, bx in zip(rec.xs, rec.body_xs):
+            t = self.prog.types[bx]
+            b = self.prog.new_value(t.shape, t.dtype)
+            links.append((x, b, 1))
+            body.rename[bx] = b
+        if p["remat"]:
+            # the recomputed forward and every residual the live linear
+            # ops read, as the reference's known (recomputed) body
+            self._recompute(body, rec, p)
+            for x in p["needed"]:
+                if isinstance(x, R):
+                    self.mat(body, x)
+        else:
+            for x, vid in p["fwd_memo"].items():
+                body.memo[x] = body.rename.get(vid, vid)
+        benv: dict = {}
+        for out, b in zip(rec.carry_outs, bcarry):
+            if b is not None:
+                benv[out] = b
+        self.transpose(body, self._tapes[id(rec)], benv)
+        carry_out = []
+        for i, bc in enumerate(rec.body_carry):
+            if bcarry[i] is None:
+                continue
+            ct = benv.pop(bc, None)
+            if ct is None:
+                t = self.prog.types[bc]
+                ct = self.zeros(body, t.shape, t.dtype)
+            carry_out.append((i, ct))
+        ys = []
+        for x, bx in zip(rec.xs, rec.body_xs):
+            if not self.is_active(bx):
+                continue
+            ct = benv.pop(bx, None)
+            if ct is None:
+                t = self.prog.types[bx]
+                ct = self.zeros(body, t.shape, t.dtype)
+            ys.append((x, ct))
+        for i, ct in carry_out:
+            t = self.prog.types[ct]
+            res = self.prog.new_value(t.shape, t.dtype)
+            links.append((ct, res, 0))
+            links.append((bcarry[i], res, 0))
+            self.acc(ctx, env, rec.carries[i], res)
+        for x, ct in ys:
+            t = self.prog.types[ct]
+            res = self.prog.new_value((rec.length,) + t.shape, t.dtype)
+            links.append((res, ct, 1))
+            self.acc(ctx, env, x, res)
+
+    def _recompute(self, body: _Ctx, rec: ScanRecord, p: dict) -> None:
+        """Emit the forward body's ops the backward body reads (remat)."""
+        from repro_torch.core.ir import Op
+        needed = p["needed"]
+        producer = {r: op for op in self._body_ops[id(rec)]
+                    for r in op.results}
+        want: set[int] = set()
+
+        def walk(x):
+            if isinstance(x, R):
+                for o in x.operands:
+                    walk(o)
+            elif isinstance(x, int) and x in producer and x not in want:
+                want.add(x)
+                for o in producer[x].operands:
+                    walk(o)
+
+        for x in needed:
+            walk(x)
+        for op in self._body_ops[id(rec)]:
+            if not any(r in want for r in op.results):
+                continue
+            operands = [body.rename.get(v, v) for v in op.operands]
+            results = []
+            for r in op.results:
+                t = self.prog.types[r]
+                nv = self.prog.new_value(t.shape, t.dtype)
+                body.rename[r] = nv
+                results.append(nv)
+            self.prog.add_op(Op(op.prim, op.params, operands, results),
+                             body.trip)
+
+
+# ---------------------------------------------------------------------------
+# JVP rules: (vjp, op, operands, active, out, shape, dtype) -> tape entries
+# ---------------------------------------------------------------------------
+
+
+def _rule_linear_unary(vjp, op, ops, act, out, shape, dtype):
+    return [Lin(op.prim, dict(op.params), [_t(ops[0])] + ops[1:], out)]
+
+
+def _rule_convert(vjp, op, ops, act, out, shape, dtype):
+    return [Lin("convert_element_type", dict(op.params), [_t(ops[0])], out)]
+
+
+def _rule_add(vjp, op, ops, act, out, shape, dtype):
+    if act[0] and act[1]:
+        return [Lin("add", {}, [_t(ops[0]), _t(ops[1])], out)]
+    return vjp.maybe_bcast(ops[0] if act[0] else ops[1], shape, out)
+
+
+def _rule_sub(vjp, op, ops, act, out, shape, dtype):
+    if act[0] and act[1]:
+        return [Lin("sub", {}, [_t(ops[0]), _t(ops[1])], out)]
+    if act[0]:
+        return vjp.maybe_bcast(ops[0], shape, out)
+    yshape, _ = vjp.ttype(ops[1])
+    neg = vjp.tmp(yshape, dtype)
+    return [Lin("neg", {}, [_t(ops[1])], neg)] + \
+        vjp.maybe_bcast(neg, shape, out)
+
+
+def _bshape(a, b):
+    if not a:
+        return tuple(b)
+    if not b:
+        return tuple(a)
+    return tuple(max(x, y) for x, y in zip(a, b))
+
+
+def _rule_mul(vjp, op, ops, act, out, shape, dtype):
+    parts, outs = [], []
+    if act[0]:
+        o = vjp.tmp(_bshape(vjp.ttype(ops[0])[0], vjp.vtype(ops[1])[0]),
+                    dtype)
+        parts.append([Lin("mul", {}, [_t(ops[0]), ops[1]], o)])
+        outs.append(o)
+    if act[1]:
+        o = vjp.tmp(_bshape(vjp.vtype(ops[0])[0], vjp.ttype(ops[1])[0]),
+                    dtype)
+        parts.append([Lin("mul", {}, [ops[0], _t(ops[1])], o)])
+        outs.append(o)
+    return vjp.add_tangents(parts, outs, out)
+
+
+def _rule_div(vjp, op, ops, act, out, shape, dtype):
+    parts, outs = [], []
+    x, y = ops
+    if act[0]:
+        o = vjp.tmp(_bshape(vjp.ttype(x)[0], vjp.vtype(y)[0]), dtype)
+        parts.append([Lin("div", {}, [_t(x), y], o)])
+        outs.append(o)
+    if act[1]:
+        yshape = vjp.ttype(y)[0]
+        xshape = vjp.vtype(x)[0]
+        pw = vjp.r("integer_pow", {"y": -2}, [y], yshape, dtype)
+        n = vjp.tmp(yshape, dtype)
+        m = vjp.tmp(_bshape(yshape, xshape), dtype)
+        o = vjp.tmp(_bshape(_bshape(yshape, xshape), yshape), dtype)
+        parts.append([Lin("neg", {}, [_t(y)], n),
+                      Lin("mul", {}, [_t(n), x], m),
+                      Lin("mul", {}, [_t(m), pw], o)])
+        outs.append(o)
+    return vjp.add_tangents(parts, outs, out)
+
+
+def _rule_neg(vjp, op, ops, act, out, shape, dtype):
+    return [Lin("neg", {}, [_t(ops[0])], out)]
+
+
+def _rule_exp(vjp, op, ops, act, out, shape, dtype):
+    return [Lin("mul", {}, [_t(ops[0]), out], out)]
+
+
+def _rule_log(vjp, op, ops, act, out, shape, dtype):
+    return [Lin("div", {}, [_t(ops[0]), ops[0]], out)]
+
+
+def _rule_rsqrt(vjp, op, ops, act, out, shape, dtype):
+    d = vjp.r("div", {}, [out, ops[0]], shape, dtype)
+    m = vjp.r("mul", {}, [Lit(dtype), d], shape, dtype)
+    return [Lin("mul", {}, [_t(ops[0]), m], out)]
+
+
+def _rule_sqrt(vjp, op, ops, act, out, shape, dtype):
+    d = vjp.r("div", {}, [Lit(dtype), out], shape, dtype)
+    return [Lin("mul", {}, [_t(ops[0]), d], out)]
+
+
+def _rule_logistic(vjp, op, ops, act, out, shape, dtype):
+    s = vjp.r("sub", {}, [Lit(dtype), out], shape, dtype)
+    m = vjp.r("mul", {}, [out, s], shape, dtype)
+    return [Lin("mul", {}, [_t(ops[0]), m], out)]
+
+
+def _rule_square(vjp, op, ops, act, out, shape, dtype):
+    m = vjp.r("mul", {}, [Lit(dtype), ops[0]], shape, dtype)
+    return [Lin("mul", {}, [_t(ops[0]), m], out)]
+
+
+def _rule_integer_pow(vjp, op, ops, act, out, shape, dtype):
+    y = op.params["y"]
+    pw = vjp.r("integer_pow", {"y": y - 1}, [ops[0]], shape, dtype)
+    m = vjp.r("mul", {}, [Lit(dtype), pw], shape, dtype)
+    return [Lin("mul", {}, [_t(ops[0]), m], out)]
+
+
+def _rule_abs(vjp, op, ops, act, out, shape, dtype):
+    ge = vjp.r("ge", {}, [ops[0], Lit(dtype)], shape, "bool")
+    n = vjp.tmp(shape, dtype)
+    return [Lin("neg", {}, [_t(ops[0])], n),
+            Lin("select_n", {}, [ge, _t(n), _t(ops[0])], out)]
+
+
+def _rule_reduce_max(vjp, op, ops, act, out, shape, dtype):
+    axes = tuple(op.params["axes"])
+    xshape = vjp.vtype(ops[0])[0]
+    kshape = tuple(1 if i in axes else d for i, d in enumerate(xshape))
+    rs = vjp.r("reshape", {"new_sizes": kshape, "dimensions": None}, [out],
+               kshape, dtype)
+    eq = vjp.r("eq", {}, [ops[0], rs], xshape, "bool")
+    loc = vjp.r("convert_element_type",
+                {"new_dtype": dtype, "weak_type": False}, [eq], xshape,
+                dtype)
+    cnt = vjp.r("reduce_sum", {"axes": axes}, [loc], shape, dtype)
+    m = vjp.tmp(xshape, dtype)
+    s = vjp.tmp(shape, dtype)
+    return [Lin("mul", {}, [_t(ops[0]), loc], m),
+            Lin("reduce_sum", {"axes": axes}, [_t(m)], s),
+            Lin("div", {}, [_t(s), cnt], out)]
+
+
+def _rule_dot_general(vjp, op, ops, act, out, shape, dtype):
+    parts, outs = [], []
+    for i in (0, 1):
+        if not act[i]:
+            continue
+        o = vjp.tmp(shape, dtype)
+        args = [_t(ops[0]), ops[1]] if i == 0 else [ops[0], _t(ops[1])]
+        parts.append([Lin("dot_general", dict(op.params), args, o)])
+        outs.append(o)
+    return vjp.add_tangents(parts, outs, out)
+
+
+def _rule_concatenate(vjp, op, ops, act, out, shape, dtype):
+    args = []
+    for v, a in zip(ops, act):
+        if a:
+            args.append(_t(v))
+        else:
+            s, d = vjp.vtype(v)
+            args.append(vjp.r("broadcast_in_dim",
+                              {"shape": tuple(s),
+                               "broadcast_dimensions": ()},
+                              [Lit(d)], s, d))
+    return [Lin("concatenate", dict(op.params), args, out)]
+
+
+def _rule_select_n(vjp, op, ops, act, out, shape, dtype):
+    args: list = [ops[0]]
+    zeros = None
+    for v, a in zip(ops[1:], act[1:]):
+        if a:
+            args.append(_t(v))
+            continue
+        if zeros is None:
+            zeros = vjp.r("broadcast_in_dim",
+                          {"shape": tuple(shape), "broadcast_dimensions": ()},
+                          [Lit(dtype)], shape, dtype)
+        args.append(zeros)
+    return [Lin("select_n", {}, args, out)]
+
+
+def _rule_gather(vjp, op, ops, act, out, shape, dtype):
+    if act[1]:
+        raise NotImplementedError("a gradient through gather indices")
+    return [Lin("gather", dict(op.params), [_t(ops[0]), ops[1]], out)]
+
+
+def _rule_kernel(vjp, op, ops, act, out, shape, dtype):
+    from repro_torch.kernels import registry
+    spec = registry.spec_for_prim(op.prim)
+    bwd = registry.KERNELS.get(spec.name + "_bwd") if spec else None
+    if bwd is None:
+        raise NotImplementedError(
+            f"no backward for the fused kernel {op.prim!r}")
+    return [Lin(bwd.prim, dict(op.params, kernel=bwd.name),
+                [_t(v) if a else v for v, a in zip(ops, act)] + list(ops),
+                out)]
+
+
+_RULES = {
+    "add": _rule_add, "add_any": _rule_add, "sub": _rule_sub,
+    "mul": _rule_mul, "div": _rule_div, "neg": _rule_neg,
+    "exp": _rule_exp, "log": _rule_log, "rsqrt": _rule_rsqrt,
+    "sqrt": _rule_sqrt, "logistic": _rule_logistic,
+    "square": _rule_square, "integer_pow": _rule_integer_pow,
+    "abs": _rule_abs, "reduce_max": _rule_reduce_max,
+    "reduce_sum": _rule_linear_unary, "broadcast_in_dim": _rule_linear_unary,
+    "reshape": _rule_linear_unary, "transpose": _rule_linear_unary,
+    "squeeze": _rule_linear_unary, "slice": _rule_linear_unary,
+    "convert_element_type": _rule_convert,
+    "dot_general": _rule_dot_general, "concatenate": _rule_concatenate,
+    "select_n": _rule_select_n, "gather": _rule_gather,
+}
+
+
+# ---------------------------------------------------------------------------
+# transpose rules: (vjp, ctx, entry, ct vid, env)
+# ---------------------------------------------------------------------------
+
+
+def _tr_copy(vjp, ctx, e, ct, env):
+    vjp.acc(ctx, env, e.args[0][1], ct)
+
+
+def _tr_neg(vjp, ctx, e, ct, env):
+    key = e.args[0][1]
+    shape, dtype = vjp.ttype(key)
+    vjp.acc(ctx, env, key, vjp.emit(ctx, "neg", {}, [ct], shape, dtype))
+
+
+def _tr_add(vjp, ctx, e, ct, env):
+    for a in e.args:
+        if _is_t(a):
+            vjp.acc(ctx, env, a[1], vjp.unbroadcast(ctx, a[1], ct))
+
+
+def _tr_sub(vjp, ctx, e, ct, env):
+    x, y = e.args
+    if _is_t(x):
+        vjp.acc(ctx, env, x[1], vjp.unbroadcast(ctx, x[1], ct))
+    if _is_t(y):
+        t = vjp.prog.types[ct]
+        n = vjp.emit(ctx, "neg", {}, [ct], t.shape, t.dtype)
+        vjp.acc(ctx, env, y[1], vjp.unbroadcast(ctx, y[1], n))
+
+
+def _tr_mul(vjp, ctx, e, ct, env):
+    x, y = e.args
+    t = vjp.prog.types[ct]
+    if _is_t(x):
+        other = vjp.val(ctx, y)
+        shape = _bshape(t.shape, vjp.prog.types[other].shape)
+        m = vjp.emit(ctx, "mul", {}, [ct, other], shape, t.dtype)
+        vjp.acc(ctx, env, x[1], vjp.unbroadcast(ctx, x[1], m))
+    else:
+        other = vjp.val(ctx, x)
+        shape = _bshape(vjp.prog.types[other].shape, t.shape)
+        m = vjp.emit(ctx, "mul", {}, [other, ct], shape, t.dtype)
+        vjp.acc(ctx, env, y[1], vjp.unbroadcast(ctx, y[1], m))
+
+
+def _tr_div(vjp, ctx, e, ct, env):
+    x, y = e.args
+    t = vjp.prog.types[ct]
+    other = vjp.val(ctx, y)
+    d = vjp.emit(ctx, "div", {}, [ct, other], t.shape, t.dtype)
+    vjp.acc(ctx, env, x[1], vjp.unbroadcast(ctx, x[1], d))
+
+
+def _tr_convert(vjp, ctx, e, ct, env):
+    key = e.args[0][1]
+    shape, dtype = vjp.ttype(key)
+    if vjp.prog.types[ct].dtype != dtype:
+        ct = vjp.emit(ctx, "convert_element_type",
+                      {"new_dtype": dtype, "weak_type": False}, [ct], shape,
+                      dtype)
+    vjp.acc(ctx, env, key, ct)
+
+
+def _tr_reduce_sum(vjp, ctx, e, ct, env):
+    key = e.args[0][1]
+    shape, dtype = vjp.ttype(key)
+    axes = set(e.params["axes"])
+    bdims = tuple(i for i in range(len(shape)) if i not in axes)
+    vjp.acc(ctx, env, key, vjp.emit(
+        ctx, "broadcast_in_dim", {"shape": tuple(shape),
+                                  "broadcast_dimensions": bdims},
+        [ct], shape, dtype))
+
+
+def _tr_broadcast_in_dim(vjp, ctx, e, ct, env):
+    key = e.args[0][1]
+    shape, dtype = vjp.ttype(key)
+    out_shape = e.params["shape"]
+    bd = list(e.params["broadcast_dimensions"])
+    unit = [i for i, s in enumerate(shape) if s == 1]
+    bdims = [d for i, d in enumerate(bd) if i not in unit]
+    axes = tuple(i for i in range(len(out_shape)) if i not in bdims)
+    v = ct
+    if axes:
+        red = tuple(s for i, s in enumerate(out_shape) if i not in axes)
+        v = vjp.emit(ctx, "reduce_sum", {"axes": axes}, [v], red, dtype)
+    if unit:
+        kept = tuple(i for i in range(len(shape)) if i not in unit)
+        v = vjp.emit(ctx, "broadcast_in_dim",
+                     {"shape": tuple(shape), "broadcast_dimensions": kept},
+                     [v], shape, dtype)
+    vjp.acc(ctx, env, key, v)
+
+
+def _tr_reshape(vjp, ctx, e, ct, env):
+    key = e.args[0][1]
+    shape, dtype = vjp.ttype(key)
+    if tuple(vjp.prog.types[ct].shape) != tuple(shape):
+        ct = vjp.emit(ctx, "reshape", {"new_sizes": tuple(shape),
+                                       "dimensions": None}, [ct], shape,
+                      dtype)
+    vjp.acc(ctx, env, key, ct)
+
+
+def _tr_transpose(vjp, ctx, e, ct, env):
+    key = e.args[0][1]
+    shape, dtype = vjp.ttype(key)
+    perm = tuple(int(i) for i in np.argsort(e.params["permutation"]))
+    vjp.acc(ctx, env, key, vjp.emit(ctx, "transpose", {"permutation": perm},
+                                    [ct], shape, dtype))
+
+
+def _tr_squeeze(vjp, ctx, e, ct, env):
+    key = e.args[0][1]
+    shape, dtype = vjp.ttype(key)
+    dims = set(e.params["dimensions"])
+    kept = tuple(i for i in range(len(shape)) if i not in dims)
+    vjp.acc(ctx, env, key, vjp.emit(
+        ctx, "broadcast_in_dim", {"shape": tuple(shape),
+                                  "broadcast_dimensions": kept},
+        [ct], shape, dtype))
+
+
+def _tr_slice(vjp, ctx, e, ct, env):
+    key = e.args[0][1]
+    shape, dtype = vjp.ttype(key)
+    start = e.params["start_indices"]
+    strides = e.params.get("strides") or (1,) * len(shape)
+    out = vjp.prog.types[ct].shape
+    cfg = []
+    for i, n in enumerate(shape):
+        real = start[i] + (0 if out[i] == 0 else
+                           1 + (out[i] - 1) * strides[i])
+        cfg.append((start[i], n - real, strides[i] - 1))
+    vjp.acc(ctx, env, key, vjp.emit(
+        ctx, "pad", {"padding_config": tuple(cfg)}, [ct, vjp.lit(dtype)],
+        shape, dtype))
+
+
+def _tr_concatenate(vjp, ctx, e, ct, env):
+    dim = e.params["dimension"]
+    types = []
+    for a in e.args:
+        s, d = vjp.ttype(a[1]) if _is_t(a) else vjp.vtype(a)
+        types.append((s, d))
+    parts = vjp.emit_multi(ctx, "split",
+                           {"sizes": tuple(s[dim] for s, _ in types),
+                            "axis": dim}, [ct], types)
+    for a, v in zip(e.args, parts):
+        if _is_t(a):
+            vjp.acc(ctx, env, a[1], v)
+
+
+def _tr_dot_general(vjp, ctx, e, ct, env):
+    (lc, rc), (lb, rb) = e.params["dimension_numbers"]
+    x, y = e.args
+    if _is_t(x):
+        y_v = vjp.val(ctx, y)
+        xs, dtype = vjp.ttype(x[1])
+        v = _dot_transpose_lhs(vjp, ctx, ct, xs, y_v, lc, rc, lb, rb,
+                               False, dtype)
+        vjp.acc(ctx, env, x[1], v)
+    else:
+        x_v = vjp.val(ctx, x)
+        ys, dtype = vjp.ttype(y[1])
+        v = _dot_transpose_lhs(vjp, ctx, ct, ys, x_v, rc, lc, rb, lb,
+                               True, dtype)
+        vjp.acc(ctx, env, y[1], v)
+
+
+def _ranges_like(*xs):
+    start = 0
+    for x in xs:
+        yield list(range(start, start + len(x)))
+        start += len(x)
+
+
+def _dot_transpose_lhs(vjp, ctx, g, x_shape, y, x_contract, y_contract,
+                       x_batch, y_batch, swap_ans, dtype):
+    """JAX's ``_dot_general_transpose_lhs``: the cotangent of the lhs."""
+    x_ndim = len(x_shape)
+    y_shape = vjp.prog.types[y].shape
+    x_kept = [i for i in range(x_ndim)
+              if i not in x_contract and i not in x_batch]
+    y_kept = [i for i in range(len(y_shape))
+              if i not in y_contract and i not in y_batch]
+    if swap_ans:
+        ans_batch, ans_y, _ = _ranges_like(x_batch, y_kept, x_kept)
+    else:
+        ans_batch, _, ans_y = _ranges_like(x_batch, x_kept, y_kept)
+    dims = ((tuple(ans_y), tuple(y_kept)), (tuple(ans_batch), tuple(y_batch)))
+    x_contract_sorted_by_y = list(np.take(x_contract, np.argsort(y_contract)))
+    out_axes = np.argsort(list(x_batch) + x_kept + x_contract_sorted_by_y)
+    g_shape = vjp.prog.types[g].shape
+    dshape = [g_shape[i] for i in ans_batch] + \
+        [g_shape[i] for i in range(len(g_shape))
+         if i not in ans_y and i not in ans_batch] + \
+        [y_shape[i] for i in range(len(y_shape))
+         if i not in y_kept and i not in y_batch]
+    v = vjp.emit(ctx, "dot_general",
+                 {"dimension_numbers": dims, "precision": None,
+                  "preferred_element_type": dtype}, [g, y], dshape, dtype)
+    perm = tuple(int(i) for i in out_axes)
+    if perm != tuple(range(len(perm))):
+        v = vjp.emit(ctx, "transpose", {"permutation": perm}, [v],
+                     x_shape, dtype)
+    return v
+
+
+def _tr_select_n(vjp, ctx, e, ct, env):
+    pred = vjp.val(ctx, e.args[0])
+    t = vjp.prog.types[ct]
+    cases = e.args[1:]
+    zeros = None
+    for i, a in enumerate(cases):
+        if not _is_t(a):
+            continue
+        if zeros is None:
+            zeros = vjp.zeros(ctx, t.shape, t.dtype)
+        ops = [pred] + [ct if j == i else zeros for j in range(len(cases))]
+        vjp.acc(ctx, env, a[1], vjp.emit(ctx, "select_n", {}, ops, t.shape,
+                                         t.dtype))
+
+
+def _tr_gather(vjp, ctx, e, ct, env):
+    key = e.args[0][1]
+    shape, dtype = vjp.ttype(key)
+    idx = vjp.val(ctx, e.args[1])
+    dn = e.params["dimension_numbers"]
+    sdn = ScatterDimensionNumbers(
+        update_window_dims=tuple(dn.offset_dims),
+        inserted_window_dims=tuple(dn.collapsed_slice_dims),
+        scatter_dims_to_operand_dims=tuple(dn.start_index_map),
+        operand_batching_dims=tuple(dn.operand_batching_dims),
+        scatter_indices_batching_dims=tuple(dn.start_indices_batching_dims))
+    zeros = vjp.zeros(ctx, shape, dtype)
+    vjp.acc(ctx, env, key, vjp.emit(
+        ctx, "scatter-add",
+        {"dimension_numbers": sdn, "indices_are_sorted": False,
+         "unique_indices": False, "mode": None, "update_jaxpr": None,
+         "update_consts": ()},
+        [zeros, idx, ct], shape, dtype))
+
+
+def _tr_add_any(vjp, ctx, e, ct, env):
+    for a in e.args:
+        vjp.acc(ctx, env, a[1], ct)
+
+
+def _tr_kernel_bwd(vjp, ctx, e, ct, env):
+    n = len(e.args) // 2
+    lin, prim_ops = e.args[:n], e.args[n:]
+    operands = [vjp.val(ctx, v) for v in prim_ops] + [ct]
+    types = [vjp.vtype(v) for v in prim_ops]
+    params = {k: v for k, v in e.params.items()}
+    cts = vjp.emit_multi(ctx, e.prim, params, operands, types)
+    for a, v in zip(lin, cts):
+        if _is_t(a):
+            vjp.acc(ctx, env, a[1], v)
+
+
+_TRANSPOSE = {
+    "copy": _tr_copy, "neg": _tr_neg, "add": _tr_add, "sub": _tr_sub,
+    "mul": _tr_mul, "div": _tr_div, "add_any": _tr_add_any,
+    "convert_element_type": _tr_convert, "reduce_sum": _tr_reduce_sum,
+    "broadcast_in_dim": _tr_broadcast_in_dim, "reshape": _tr_reshape,
+    "transpose": _tr_transpose, "squeeze": _tr_squeeze, "slice": _tr_slice,
+    "concatenate": _tr_concatenate, "dot_general": _tr_dot_general,
+    "select_n": _tr_select_n, "gather": _tr_gather,
+    "kernel:flash_attention_bwd": _tr_kernel_bwd,
+}
+
+
+def value_and_grad(prog, scans: list[ScanRecord], loss: int,
+                   wrt: list[int], stopped: set[int], remat: bool) -> list[int]:
+    """Append the backward of ``loss`` to ``prog``; returns the gradient
+    values of ``wrt``.
+
+    ``prog`` holds the forward (every op so far computes it); its ops
+    are re-emitted in the reference's order — hoisted loop invariants,
+    residuals, residual ``ys`` — and the backward follows.
+
+    Args:
+        prog: the program being traced.
+        scans: the forward's layer scans, as the tracer recorded them.
+        loss: the 0-d float value to differentiate.
+        wrt: the values to differentiate with respect to (the parameter
+            inputs), in output order.
+        stopped: values whose uses carry no gradient (detached).
+        remat: the backward recomputes each scan body (``cfg.remat``).
+
+    Returns:
+        One gradient vid per ``wrt`` entry, of its shape and dtype.
+    """
+    vjp = _VJP(prog, stopped)
+    vjp.active = set(wrt)
+    ops = prog.ops
+    trips = [prog.trip_counts[i] for i in range(len(ops))]
+    by_lo = {s.lo: s for s in scans}
+    items: list = []
+    i = 0
+    while i < len(ops):
+        if i in by_lo:
+            s = by_lo[i]
+            items.append(s)
+            i = s.hi
+        else:
+            items.append(i)
+            i += 1
+    for it in items:
+        if isinstance(it, ScanRecord):
+            vjp._body_ops[id(it)] = ops[it.lo:it.hi]
+            vjp.scan_activity(it, ops[it.lo:it.hi])
+        else:
+            vjp._op_activity(ops[it])
+    if not vjp.is_active(loss):
+        raise ValueError("the loss does not depend on the values to "
+                         "differentiate")
+    prog.ops, prog.trip_counts = [], {}
+    top = _Ctx(1)
+    tape: list[Lin] = []
+    for it in items:
+        if isinstance(it, ScanRecord):
+            tape.append(vjp.forward_scan(it, ops[it.lo:it.hi], remat,
+                                         top.trip))
+            continue
+        op = ops[it]
+        prog.add_op(op, trips[it])
+        if op.prim in _NO_TANGENT or \
+                not any(vjp.is_active(r) for r in op.results):
+            continue
+        vjp.new_rs = []
+        tape.extend(vjp.jvp(op))
+        for r in vjp.new_rs:
+            vjp.mat(top, r)
+    env = {loss: vjp.lit(prog.types[loss].dtype)}
+    vjp.transpose(top, tape, env)
+    grads = []
+    for w in wrt:
+        ct = env.get(w)
+        if ct is None:
+            t = prog.types[w]
+            ct = vjp.zeros(top, t.shape, t.dtype)
+        grads.append(ct)
+    return grads

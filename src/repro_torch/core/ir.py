@@ -190,16 +190,20 @@ _ARITH = {
     "exp": "exp", "rsqrt": "rsqrt", "cos": "cos", "sin": "sin",
     "neg": "neg", "tanh": "tanh", "sigmoid": "logistic", "sqrt": "sqrt",
     "abs": "abs", "log1p": "log1p", "maximum": "max", "clamp_min": "max",
-    "remainder": "rem",
+    "remainder": "rem", "log": "log", "square": "square",
+    "minimum": "min",
 }
 _COMPARE = {"ge": "ge", "lt": "lt", "le": "le", "eq": "eq", "ne": "ne",
-            "bitwise_and": "and", "__and__": "and"}
+            "bitwise_and": "and", "__and__": "and", "isfinite": "is_finite"}
 # ops whose lowering takes some arguments unemitted (see _ready)
 _LAZY_ARGS = frozenset({"slice_scatter", "unsqueeze", "index_copy"})
 # constant fills (a literal's value is not part of the IR)
-_FILLS = frozenset({"zeros", "new_zeros", "zeros_like", "full"})
+_FILLS = frozenset({"zeros", "new_zeros", "zeros_like", "full", "ones"})
 # nodes that compute nothing the analysis can see
 _IGNORED = {"_assert_tensor_metadata"}
+# the train step's gradient node (``train.steps``); every other op of the
+# namespace is a fused kernel
+_GRAD_OP = "grad"
 
 _KERNEL_NAMESPACE = "repro_torch"
 
@@ -232,6 +236,13 @@ class _Extractor:
     def __init__(self) -> None:
         self.prog = Program()
         self.trip = 1
+        # layer scans so far (``autodiff.ScanRecord``) and detached
+        # values, read when a gradient node is lowered
+        self.scans: list = []
+        self.stopped: set[int] = set()
+        # the node environments of the graphs being walked (a scan body's
+        # inside its parent's)
+        self._envs: list[dict] = []
 
     # -- value plumbing ---------------------------------------------------
 
@@ -294,6 +305,13 @@ class _Extractor:
     def walk(self, gm, arg_ids: list[int]) -> list[int]:
         """Lower one graph module; returns the vids of its outputs."""
         env: dict = {}
+        self._envs.append(env)
+        try:
+            return self._walk(gm, arg_ids, env)
+        finally:
+            self._envs.pop()
+
+    def _walk(self, gm, arg_ids: list[int], env: dict) -> list[int]:
         placeholders = [n for n in gm.graph.nodes if n.op == "placeholder"]
         if len(placeholders) != len(arg_ids):
             raise UnsupportedOpError(
@@ -338,6 +356,8 @@ class _Extractor:
             return self._scan(node, *args, **kwargs)
         namespace = getattr(target, "namespace", None)
         if namespace == _KERNEL_NAMESPACE:
+            if packet == _GRAD_OP:
+                return self._grad(node, args)
             return self._kernel(node, packet, args)
         if namespace != "aten" or packet is None:
             raise UnsupportedOpError(f"no IR lowering for {target}")
@@ -384,6 +404,12 @@ class _Extractor:
 
     def _aten_pow(self, node, args, kwargs):
         base, exponent = args
+        if isinstance(base, (int, float)) and isinstance(exponent, _Ref):
+            # a scalar to a tensor power (the optimizer's b ** step)
+            shape, dtype = _meta(node)
+            vid = self._convert(exponent.vid, dtype)
+            return _Ref(self._emit("pow", {}, [self._literal(dtype), vid],
+                                   shape, dtype))
         if not isinstance(base, _Ref) or isinstance(exponent, bool) or \
                 not isinstance(exponent, int):
             raise UnsupportedOpError(f"{node.target} with a non-integer "
@@ -392,6 +418,13 @@ class _Extractor:
         vid = self._convert(base.vid, dtype)
         return _Ref(self._emit("integer_pow", {"y": exponent}, [vid], shape,
                                dtype))
+
+    def _aten_reciprocal(self, node, args, kwargs):
+        # a Python scalar over a tensor: 1 / x here, the scalar's mul next
+        shape, dtype = _meta(node)
+        vid = self._convert(args[0].vid, dtype)
+        return _Ref(self._emit("div", {}, [self._literal(dtype), vid],
+                               shape, dtype))
 
     def _aten_relu(self, node, args, kwargs):
         shape, dtype = _meta(node)
@@ -423,6 +456,52 @@ class _Extractor:
 
     def _aten__to_copy(self, node, args, kwargs):
         return self._convert_node(node, args)
+
+    def _aten_clone(self, node, args, kwargs):
+        # a copy is the value itself in a functional program
+        return args[0]
+
+    def _aten_detach(self, node, args, kwargs):
+        # the reference's stop_gradient; when the detached value has no
+        # other user (and no other node lowered to the same value) the
+        # detach is a mark for the differentiator only, so forward
+        # programs stay the reference's
+        vid = args[0].vid
+        src = node.args[0]
+        aliases = [n for env in self._envs for n, v in env.items()
+                   if isinstance(v, _Ref) and v.vid == vid]
+        if len(src.users) == 1 and aliases == [src]:
+            self.stopped.add(vid)
+            return _Ref(vid)
+        shape, dtype = _meta(node)
+        out = self._emit("stop_gradient", {}, [vid], shape, dtype)
+        self.stopped.add(out)
+        return _Ref(out)
+
+    def _aten_clamp(self, node, args, kwargs):
+        # jnp.clip: max with the lower bound, then min with the upper
+        shape, dtype = _meta(node)
+        vid = self._convert(args[0].vid, dtype)
+        lo = args[1] if len(args) > 1 else kwargs.get("min")
+        hi = args[2] if len(args) > 2 else kwargs.get("max")
+        for bound, prim in ((lo, "max"), (hi, "min")):
+            if bound is None:
+                continue
+            if not isinstance(bound, (int, float)):
+                raise UnsupportedOpError(f"{node.target} with a tensor "
+                                         f"bound")
+            vid = self._emit(prim, {}, [vid, self._literal(dtype)], shape,
+                             dtype)
+        return _Ref(vid)
+
+    def _aten_mean(self, node, args, kwargs):
+        # jnp.mean: the sum, divided by the element count
+        dims, keep = self._reduce_args(args, kwargs)
+        shape, dtype = _meta(node)
+        vid = self._convert(args[0].vid, dtype)
+        s = self._reduce(node, "reduce_sum", vid, dims, keep)
+        return _Ref(self._emit("div", {}, [s, self._literal(dtype)], shape,
+                               dtype))
 
     # -- shape ops ----------------------------------------------------------
 
@@ -538,6 +617,20 @@ class _Extractor:
         shape, dtype = _meta(node)
         return _Ref(self._emit("squeeze", {"dimensions": (dim,)}, [sl],
                                shape, dtype))
+
+    def _aten_squeeze(self, node, args, kwargs):
+        vid = args[0].vid
+        t = self._type(vid)
+        dims = args[1] if len(args) > 1 else [
+            i for i, n in enumerate(t.shape) if n == 1]
+        dims = [dims] if isinstance(dims, int) else dims
+        dims = tuple(sorted(_norm_dim(d, t.rank) for d in dims
+                            if t.shape[_norm_dim(d, t.rank)] == 1))
+        if not dims:
+            return _Ref(vid)
+        shape, dtype = _meta(node)
+        return _Ref(self._emit("squeeze", {"dimensions": dims}, [vid], shape,
+                               dtype))
 
     def _aten_cat(self, node, args, kwargs):
         shape, dtype = _meta(node)
@@ -696,6 +789,32 @@ class _Extractor:
                        "slice_sizes": (1, self._type(table).shape[1])},
             [table, idx1], shape, dtype))
 
+    def _aten_gather(self, node, args, kwargs):
+        # reference lowering of jnp.take_along_axis: the index vector dim
+        # appended, every other dim a batching dim of both sides
+        src, dim, idx = args[0].vid, args[1], args[2].vid
+        st, it = self._type(src), self._type(idx)
+        dim = _norm_dim(dim, st.rank)
+        if it.rank != st.rank or any(
+                it.shape[i] != st.shape[i] for i in range(st.rank)
+                if i != dim):
+            raise UnsupportedOpError(f"{node.target} with an index that "
+                                     f"broadcasts")
+        shape, dtype = _meta(node)
+        idx1 = self._emit("reshape", {"new_sizes": it.shape + (1,),
+                                      "dimensions": None},
+                          [idx], it.shape + (1,), it.dtype)
+        batch = tuple(i for i in range(st.rank) if i != dim)
+        dn = GatherDimensionNumbers(offset_dims=(),
+                                    collapsed_slice_dims=(dim,),
+                                    start_index_map=(dim,),
+                                    operand_batching_dims=batch,
+                                    start_indices_batching_dims=batch)
+        return _Ref(self._emit(
+            "gather", {"dimension_numbers": dn,
+                       "slice_sizes": (1,) * st.rank},
+            [src, idx1], shape, dtype))
+
     # -- fused kernels and loops ---------------------------------------------
 
     def _kernel(self, node, name, args):
@@ -713,6 +832,17 @@ class _Extractor:
         shape, dtype = _meta(node)
         return _Ref(self._emit(spec.prim, params,
                                [a.vid for a in args[:n]], shape, dtype))
+
+    def _grad(self, node, args):
+        from repro_torch.core import autodiff
+        loss, wrt, remat = args
+        if self.trip != 1:
+            raise UnsupportedOpError("a gradient node inside a scan body")
+        grads = autodiff.value_and_grad(
+            self.prog, self.scans, loss.vid, [w.vid for w in wrt],
+            self.stopped, bool(remat))
+        self.scans = []
+        return [_Ref(g) for g in grads]
 
     def _scan(self, node, body_gm, init, xs, additional=(), **kwargs):
         if kwargs:
@@ -739,7 +869,9 @@ class _Extractor:
             body_xs_ids.append(b)
         outer_trip = self.trip
         self.trip = outer_trip * length
+        lo = len(self.prog.ops)
         outs = self.walk(body_gm, body_carry_ids + body_xs_ids + consts)
+        hi = len(self.prog.ops)
         self.trip = outer_trip
         carry_outs, y_outs = outs[:len(carries)], outs[len(carries):]
         results = []
@@ -755,6 +887,11 @@ class _Extractor:
             else:
                 self.prog.value_links.append(
                     (vid, y_outs[i - len(carries)], 1))
+        if outer_trip == 1:
+            from repro_torch.core.autodiff import ScanRecord
+            self.scans.append(ScanRecord(
+                lo, hi, length, carries, xss, consts, body_carry_ids,
+                body_xs_ids, carry_outs, y_outs, [r.vid for r in results]))
         return tuple(results)
 
 

@@ -51,6 +51,14 @@ def reference(q, k, v, *, causal: bool = True,
     return out.transpose(1, 2)
 
 
+def reference_bwd(q, k, v, do, *, causal: bool = True):
+    """The plain version's vjp, in model layout: ``(dq, dk, dv)``."""
+    t = lambda x: x.transpose(1, 2)
+    dq, dk, dv = ref.reference_attention_bwd(t(q), t(k), t(v), t(do),
+                                             causal=causal)
+    return t(dq), t(dk), t(dv)
+
+
 def _strides(t) -> list[int]:
     """Element strides of dims (B, S, H) as the kernel takes them.
 

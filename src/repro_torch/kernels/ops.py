@@ -14,8 +14,17 @@ Model code (``use_pallas=True`` paths) calls :func:`attention` and
 The op runs the kernel's plain version on a CPU tensor.  On a CUDA
 tensor, ``"cuda"`` launches the hand-written kernel (raising for a
 shape the kernel does not take) and ``"ref"`` runs the plain version on
-the card.  There is no fallback from one to the other.  No autograd is
-registered yet: the backward comes with the training path.
+the card.  There is no fallback from one to the other.
+
+*Autograd.*  ``repro_torch::flash_attention`` trains: its backward is
+its own op, ``repro_torch::flash_attention_bwd`` (q, k, v, dO -> dq,
+dk, dv), registered with ``torch.library.register_autograd``.  It
+computes the plain version's vjp, as the reference package's
+``_fa_bwd_jit`` does: the reference has no backward kernel (its
+registry lists only ``"ref"`` for ``flash_attention_bwd``), so this is
+the one implementation on every device, not a fallback.  The backward
+of ``repro_torch::rg_lru`` raises: the hybrid's train path is ROADMAP
+queue 1, item 20.
 """
 
 from __future__ import annotations
@@ -27,6 +36,10 @@ from repro_torch.kernels import registry
 from repro_torch.kernels import rg_lru as lru
 
 __all__ = ["attention", "rg_lru"]
+
+# attention backward calls made by this process (each runs the plain
+# vjp; read by the chip smoke run, beside the kernels' launch counts)
+bwd_calls = 0
 
 
 def _check_impl(kernel: str, impl: str) -> None:
@@ -46,6 +59,41 @@ def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @_flash_attention_op.register_fake
 def _(q, k, v, causal, impl):
     return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd",
+                         mutates_args=())
+def _flash_attention_bwd_op(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        do: torch.Tensor,
+        causal: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The attention backward: the plain version's vjp on any device
+    (the reference's backward has no kernel either)."""
+    global bwd_calls
+    bwd_calls += 1
+    return tuple(x.contiguous() for x in
+                 fa.reference_bwd(q, k, v, do, causal=causal))
+
+
+@_flash_attention_bwd_op.register_fake
+def _(q, k, v, do, causal):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _fa_setup_context(ctx, inputs, output):
+    q, k, v, causal, _ = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.causal = causal
+
+
+def _fa_backward(ctx, do):
+    q, k, v = ctx.saved_tensors
+    dq, dk, dv = _flash_attention_bwd_op(q, k, v, do, ctx.causal)
+    return dq, dk, dv, None, None
+
+
+_flash_attention_op.register_autograd(_fa_backward,
+                                      setup_context=_fa_setup_context)
 
 
 def _resolve(kernel: str) -> str:
@@ -89,6 +137,16 @@ def _rg_lru_op(a: torch.Tensor, b: torch.Tensor, impl: str) -> torch.Tensor:
 @_rg_lru_op.register_fake
 def _(a, b, impl):
     return a.new_empty(a.shape)
+
+
+def _rg_lru_backward(ctx, dh):
+    raise NotImplementedError(
+        "the RG-LRU scan has no backward yet: the hybrid's train path is "
+        "ROADMAP queue 1, item 20")
+
+
+_rg_lru_op.register_autograd(_rg_lru_backward,
+                             setup_context=lambda ctx, inputs, output: None)
 
 
 def rg_lru(a, b):

@@ -28,6 +28,40 @@ def reference_attention(q, k, v, *, causal: bool = True,
     return torch.einsum("bhst,bhtd->bhsd", p.to(v.dtype), v)
 
 
+def reference_attention_bwd(q, k, v, do, *, causal: bool = True,
+                            sm_scale: float | None = None):
+    """The vjp of :func:`reference_attention`, written out.
+
+    q (B,H,S,hd); k, v (B,H,T,hd); ``do`` the output's cotangent, in
+    q's layout.  The softmax's vjp is taken in float32 from the
+    recomputed probabilities; each cotangent leaves in its input's
+    dtype, as the reference package's ``jax.vjp`` of its plain
+    attention gives them.
+
+    Returns:
+        ``(dq, dk, dv)``.
+    """
+    hd = q.shape[-1]
+    sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
+    s = torch.einsum("bhsd,bhtd->bhst", q, k).to(torch.float32) * sm_scale
+    mask = None
+    if causal:
+        S, T = s.shape[-2:]
+        mask = torch.arange(S, device=s.device)[:, None] >= \
+            torch.arange(T, device=s.device)[None, :]
+        s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum("bhst,bhsd->bhtd", p.to(v.dtype), do)
+    dp = torch.einsum("bhsd,bhtd->bhst", do, v).to(torch.float32)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    if mask is not None:
+        ds = torch.where(mask, ds, 0.0)
+    ds = (ds * sm_scale).to(q.dtype)
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, k)
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, q)
+    return dq, dk, dv
+
+
 def _lru_combine(a1, b1, a2, b2):
     # (a1, b1) then (a2, b2): h -> a2 (a1 h + b1) + b2
     return a1 * a2, a2 * b1 + b2

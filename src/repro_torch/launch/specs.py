@@ -1,7 +1,8 @@
 """Abstract inputs (``meta`` tensors) and logical dim names for a step.
 
 ``step_and_inputs`` builds the step function, its abstract arguments
-and their logical dim names for one (model, shape) cell;
+and their logical dim names for one (model, shape) cell (train,
+prefill or decode); ``state_logical_axes`` names a train state's leaves;
 ``cache_logical_axes`` names every decode-cache leaf;
 ``specs_from_rules`` turns ``{logical name -> mesh axes}`` rules into a
 ``PartitionSpec`` per leaf, dropping axes that do not divide a dim.
@@ -17,7 +18,10 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.partitioner import (PartitionSpec,
                                           flatten_logical_axes)
 from repro_torch.models import transformer as T
-from repro_torch.train.steps import make_decode_step, make_prefill_step
+from repro_torch.optim.adam import AdamState
+from repro_torch.train.steps import (TrainState, make_decode_step,
+                                     make_prefill_step, make_train_step,
+                                     train_state_specs)
 
 
 def meta(shape, dtype) -> torch.Tensor:
@@ -33,7 +37,7 @@ def _check_decoder_only(cfg: ModelConfig) -> None:
 
 
 def batch_specs(cfg: ModelConfig, shape: ShapeConfig):
-    """The abstract prefill batch and its logical dim names.
+    """The abstract train / prefill batch and its logical dim names.
 
     Args:
         cfg: the model configuration (a decoder-only one).
@@ -41,15 +45,17 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig):
 
     Returns:
         ``(specs, names)``: ``{"tokens": meta (B, S) int32}`` and
-        ``{"tokens": ("batch", "seq")}``.
+        ``{"tokens": ("batch", "seq")}``, with ``"targets"`` alike for
+        the train kind.
     """
     _check_decoder_only(cfg)
-    if shape.kind == "train":
-        raise NotImplementedError(
-            "the train step is not ported yet (ROADMAP queue 1, item 4)")
     B, S = shape.global_batch, shape.seq_len
-    return ({"tokens": meta((B, S), torch.int32)},
-            {"tokens": ("batch", "seq")})
+    specs = {"tokens": meta((B, S), torch.int32)}
+    names = {"tokens": ("batch", "seq")}
+    if shape.kind == "train":
+        specs["targets"] = meta((B, S), torch.int32)
+        names["targets"] = names["tokens"]
+    return specs, names
 
 
 _CACHE_NAMES = {
@@ -78,29 +84,41 @@ def cache_logical_axes(cache):
     return pytree.tree_map_with_path(names, cache)
 
 
+def state_logical_axes(cfg: ModelConfig, state: TrainState) -> TrainState:
+    """Logical dim names of a train state: the parameters' names for the
+    parameters and both moments, none for the step."""
+    pax = T.param_logical_axes(cfg, state.params)
+    return TrainState(params=pax, opt=AdamState(step=None, m=pax, v=pax))
+
+
 def step_and_inputs(cfg: ModelConfig, shape: ShapeConfig):
     """The step of a cell, its abstract arguments and their names.
 
+    - train: ``fn(state, batch) -> (state, metrics)`` with the default
+      ``AdamConfig`` and one microbatch;
     - prefill: ``fn(params, batch) -> last-token logits``;
     - decode: ``fn(params, cache, token, pos) -> (logits, cache)``, one
       new token against a ``seq_len``-deep cache.
 
     Args:
         cfg: the model configuration.
-        shape: the cell's shape (``kind`` "prefill" or "decode").
+        shape: the cell's shape (``kind`` "train", "prefill" or
+            "decode").
 
     Returns:
         ``(fn, args, names)``: ``args`` a tuple of ``meta`` tensor
         trees, ``names`` the same trees with logical dim names.
 
     Raises:
-        NotImplementedError: for the train step (ROADMAP queue 1,
-            item 4) and encoder-decoder or frontend models (item 11).
+        NotImplementedError: for encoder-decoder or frontend models
+            (ROADMAP queue 1, item 11).
     """
     _check_decoder_only(cfg)
     if shape.kind == "train":
-        raise NotImplementedError(
-            "the train step is not ported yet (ROADMAP queue 1, item 4)")
+        state = train_state_specs(cfg)
+        bspecs, bnames = batch_specs(cfg, shape)
+        return make_train_step(cfg), (state, bspecs), \
+            (state_logical_axes(cfg, state), bnames)
     params = T.param_specs(cfg)
     pnames = T.param_logical_axes(cfg, params)
     if shape.kind == "prefill":

@@ -72,8 +72,12 @@ def rope(x, positions, theta):
 
 
 def softmax(x):
-    """Softmax over the last dim, as max-shifted exp over its sum."""
-    e = torch.exp(x - x.amax(-1, keepdim=True))
+    """Softmax over the last dim, as max-shifted exp over its sum.
+
+    The shift is detached, as the reference stops its gradient: it
+    cancels in the result, so no gradient flows through the max.
+    """
+    e = torch.exp(x - x.amax(-1, keepdim=True).detach())
     return e / e.sum(-1, keepdim=True)
 
 

@@ -86,14 +86,17 @@ def get_kernel_dispatch() -> KernelDispatch | None:
 
 
 @contextlib.contextmanager
-def kernel_dispatch(disp: KernelDispatch | None):
+def kernel_dispatch(disp: KernelDispatch | None, *, reset: bool = True):
     """Install ``disp`` as the ambient dispatch for this thread.
 
     Entering resets the site ordinal counters, so one context spans
-    exactly one run of the model function.
+    exactly one run of the model function.  With ``reset=False`` the
+    counters are kept: autograd's backward, which runs on a thread of
+    its own for CUDA tensors, re-enters a forward's dispatch that way to
+    recompute a checkpointed layer body.
     """
     prev = get_kernel_dispatch()
-    if disp is not None:
+    if disp is not None and reset:
         disp.reset()
     _STATE.kernel_dispatch = disp
     try:

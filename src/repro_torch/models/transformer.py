@@ -16,7 +16,9 @@ the one helper that runs that depth: under ``torch.export`` it emits one
 the structural analogue of the paper's §4.4 repeated-layer grouping);
 run eagerly it is a plain loop giving the same result.  Decode scans the
 stacked caches beside the parameters and returns the new caches stacked,
-as ``lax.scan``'s ``ys``.  ``remat`` has no effect in the forward pass.
+as ``lax.scan``'s ``ys``.  Under ``cfg.remat`` a training run (grad
+enabled, eager) checkpoints each layer body, as the reference's
+``jax.checkpoint``; the forward values do not change.
 
 Ported block kinds: ``attn``, ``local`` and ``rglru``, with the dense
 MLP.  The others raise and name their ROADMAP item.
@@ -32,7 +34,8 @@ import torch
 from repro_torch import pytree
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import constrain, get_kernel_dispatch
+from repro_torch.models.sharding import (constrain, get_kernel_dispatch,
+                                        kernel_dispatch)
 
 _NOT_PORTED = {
     "mlstm": "xLSTM blocks are not ported yet (ROADMAP queue 1, item 11)",
@@ -243,7 +246,7 @@ def apply_block(cfg, kind, p, x, positions):
     return x
 
 
-def scan_layers(body, h, xs, *, with_ys=False):
+def scan_layers(body, h, xs, *, with_ys=False, remat=False):
     """``h = body(h, xs[i])`` for every ``i`` along xs' leading dim.
 
     With ``with_ys`` the body returns ``(h, y)`` and the result is
@@ -254,6 +257,12 @@ def scan_layers(body, h, xs, *, with_ys=False):
     traced once; eagerly it is a loop.  Each iteration runs under the
     same kernel-dispatch site keys, those of the body's one traced
     instance, so a plan's per-site decisions apply to every layer.
+
+    With ``remat`` and gradients enabled, each eager iteration runs
+    under ``torch.utils.checkpoint`` (non-reentrant): the backward
+    recomputes the body.  The recomputations run under the site keys
+    that follow the forward's, as the traced train program holds the
+    recomputed body after the forward one (``core.autodiff``).
     """
     step = body if with_ys else (lambda c, x: (body(c, x), ()))
     if torch.compiler.is_exporting():
@@ -263,12 +272,31 @@ def scan_layers(body, h, xs, *, with_ys=False):
     n = pytree.tree_leaves(xs)[0].shape[0]
     disp = get_kernel_dispatch()
     mark = disp.mark() if disp is not None else None
+    run = step
+    if remat and torch.is_grad_enabled():
+        # the body rewinds to marks[0] in the forward pass and to
+        # marks[1] (set after the loop) when the backward recomputes it
+        marks = [mark]
+
+        def rewound(c, x):
+            # the recomputation runs on autograd's thread (its own for
+            # CUDA tensors): install the forward's dispatch there
+            with kernel_dispatch(disp, reset=False):
+                if disp is not None:
+                    disp.rewind(marks[-1])
+                return step(c, x)
+
+        def run(c, x):
+            from torch.utils.checkpoint import checkpoint
+            return checkpoint(rewound, c, x, use_reentrant=False)
     ys = []
     for i in range(n):
         if disp is not None:
             disp.rewind(mark)
-        h, y = step(h, pytree.tree_map(lambda a: a[i], xs))
+        h, y = run(h, pytree.tree_map(lambda a: a[i], xs))
         ys.append(y)
+    if run is not step and disp is not None:
+        marks.append(disp.mark())
     if not with_ys:
         return h
     stacked = [torch.stack(col) for col in
@@ -285,7 +313,7 @@ def _run_layers(cfg, params, h, positions):
         return constrain(h, ("act_batch", "seq", "embed"))
 
     if n_scan_blocks(cfg) > 0 and params["layers"]:
-        h = scan_layers(super_block, h, params["layers"])
+        h = scan_layers(super_block, h, params["layers"], remat=cfg.remat)
     for kind, p in zip(tail_kinds, params["tail"]):
         h = apply_block(cfg, kind, p, h, positions)
     return h

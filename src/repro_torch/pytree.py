@@ -1,10 +1,11 @@
 """Pytrees of tensors in the reference package's flattening order.
 
-The port keeps the reference's parameter layout — nested dicts, tuples
-and lists with tensors at the leaves — so that traced programs name
-their inputs with the same key paths (``"[0][0]['embed']"``) and plans
-map between the two packages.  Dicts flatten in sorted key order,
-sequences by index, and ``None`` holds no leaf, as in the reference.
+The port keeps the reference's parameter layout — nested dicts, tuples,
+lists and named tuples with tensors at the leaves — so that traced
+programs name their inputs with the same key paths (``"[0][0]['embed']"``,
+``"[0][0].opt.step"``) and plans map between the two packages.  Dicts
+flatten in sorted key order, sequences by index, named tuples by field
+(spelled ``.field``), and ``None`` holds no leaf, as in the reference.
 """
 
 from __future__ import annotations
@@ -12,10 +13,23 @@ from __future__ import annotations
 from typing import Any, Callable, Iterator
 
 
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
+def _rebuild(node, children):
+    """A sequence of ``node``'s type holding ``children``."""
+    if _is_namedtuple(node):
+        return type(node)(*children)
+    return type(node)(children)
+
+
 def _children(node) -> list[tuple[str, Any]] | None:
     """``[(keystr piece, child), ...]`` of a container, else ``None``."""
     if isinstance(node, dict):
         return [(f"[{k!r}]", node[k]) for k in sorted(node)]
+    if _is_namedtuple(node):
+        return [(f".{f}", getattr(node, f)) for f in node._fields]
     if isinstance(node, (tuple, list)):
         return [(f"[{i}]", c) for i, c in enumerate(node)]
     return None
@@ -77,7 +91,7 @@ def unflatten(template, leaves) -> Any:
             built = {k: build(node[k]) for k in sorted(node)}
             return {k: built[k] for k in node}
         if isinstance(node, (tuple, list)):
-            return type(node)(build(c) for c in node)
+            return _rebuild(node, [build(c) for c in node])
         try:
             return next(it)
         except StopIteration:
@@ -111,8 +125,8 @@ def tree_map_with_path(fn: Callable, tree) -> Any:
         if isinstance(node, dict):
             return {k: walk(v, keys + (k,)) for k, v in node.items()}
         if isinstance(node, (tuple, list)):
-            return type(node)(walk(c, keys + (i,))
-                              for i, c in enumerate(node))
+            return _rebuild(node, [walk(c, keys + (i,))
+                                   for i, c in enumerate(node)])
         return fn(keys, node)
 
     return walk(tree, ())

@@ -7,7 +7,10 @@ runs on a machine with the card:
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
 Tolerances are those of ``tests/test_kernels.py``: 2e-5 for float32;
-2e-2 (attention) and 3e-2 (RG-LRU) for bfloat16.
+2e-2 (attention) and 3e-2 (RG-LRU) for bfloat16.  Training through the
+attention kernel (its autograd: the kernel forward, the plain vjp back)
+is held to autograd of the plain attention with the same tolerances,
+and a small f32 model's gradients to its plain path within 1e-4.
 """
 
 import pytest
@@ -101,6 +104,61 @@ def test_raises_for_inputs_the_kernel_does_not_take(gen):
         with pytest.raises(ValueError, match="16 bytes"):
             fa.flash_attention(packed, packed, packed)
     assert fa.launches == before
+
+
+def plain_grads(q, k, v, do, causal):
+    """Autograd of the plain attention itself (einsum, softmax)."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = fa.reference(q, k, v, causal=causal)
+    return out, torch.autograd.grad(out, (q, k, v), do)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,T,causal,hd", [(256, 256, True, 64),
+                                           (200, 333, False, 64),
+                                           (130, 130, True, 128),
+                                           (64, 64, True, 16)])
+def test_attention_trains_through_the_kernel(gen, dtype, S, T, causal, hd):
+    q, k, v = (x.requires_grad_() for x in qkv(gen, 2, S, T, 4, hd, dtype))
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    launches, bwd = fa.launches, ops.bwd_calls
+    with kernel_dispatch(KernelDispatch(default_impl="cuda")):
+        out = ops.attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    # the forward launched the kernel once; the backward ran the plain vjp
+    assert fa.launches == launches + 1 and ops.bwd_calls == bwd + 1
+    want_out, want = plain_grads(q, k, v, do, causal)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol,
+                               atol=tol)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.device.type == "cuda"
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+def test_small_model_gradients_through_the_kernel(gen):
+    import dataclasses
+
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as TS
+    cfg = dataclasses.replace(get_config("qwen2_05b").reduced(),
+                              use_pallas=True, remat=True)
+    params = T.init_params(cfg, gen)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("targets", "tokens")}
+    grads = TS.value_and_grad(TS.make_loss_fn(cfg), remat=True)
+    before = fa.launches
+    with kernel_dispatch(KernelDispatch(default_impl="cuda")):
+        got = grads(params, batch)
+    # each layer's forward and its recomputation
+    assert fa.launches == before + 2 * cfg.num_layers
+    with kernel_dispatch(KernelDispatch(default_impl="ref")):
+        want = grads(params, batch)
+    for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
 def lru_inputs(gen, shape, dtype, lo=None, hi=None):
