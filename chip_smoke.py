@@ -6,9 +6,10 @@ partition and serve the ``qwen2_05b`` prefill step with its fused
 attention sites on the hand-written CUDA flash-attention kernel, and the
 ``recurrentgemma_2b`` hybrid prefill step with its RG-LRU scan sites on
 the hand-written CUDA RG-LRU kernel (its TMA-ring route; the generic
-route takes strides TMA cannot describe); and for both models the decode
+route takes strides TMA cannot describe); for both models the decode
 step with its KV and recurrent caches, planned with the serving launcher's
-request (the KV cache pinned replicated) and served token by token.
+request (the KV cache pinned replicated) and served token by token; and
+for both models the train step, through each kernel's autograd.
 
 1. print the card's name and power limit; build both kernels from the
    sources in this checkout, in parallel;
@@ -44,20 +45,28 @@ request (the KV cache pinned replicated) and served token by token.
    trace and analyze the full-width train step (AdamW, the loss's
    gradient through the attention kernel's autograd, remat) on ``meta``
    tensors at the prefill path's shape; search the 2x4 plan (JSON round
-   trip) and the 1x1 plan, and apply the latter on the card; take 8
-   steps on one fixed batch from the seed, each timed, with its peak
+   trip) and the 1x1 plan, and apply the latter on the card; take step 1
+   with every site on the plain version, then 8 steps through the
+   kernels on one fixed batch from the seed, each timed, with its peak
    memory and its kernel launches (24 forward and 24 recomputed under
    remat) and plain-vjp backward sites counted from zero; the loss must
-   stay finite and fall; hold step 1 against step 1 with every site on
-   the plain version (loss and grad norm), and a small f32 model's loss,
-   gradients and updated state likewise;
-7. time each kernel at its slice shape beside its bound, its plain
+   stay finite and fall; hold step 1 through the kernels against step 1
+   on the plain version (loss and grad norm), and a small f32 model's
+   loss, gradients and updated state likewise;
+7. the same for the ``recurrentgemma_2b`` train path (after its prefill
+   and decode, the ``qwen2_05b`` train states freed): the full-width step
+   at B 1 x S 4096 with bf16 moments, whose RG-LRU sites launch the
+   kernel 18 times forward (8 periods of 2 and the tail's 2) and 16
+   times recomputed, all on the TMA ring, with 18 plain-vjp backwards;
+   its small f32 model has two periods and the tail (8 layers);
+8. time each kernel at its slice shape beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` (a
    yardstick only: the port never calls it); time the attention kernel
    and SDPA at head dims 96 and 128 too, at the slice's B, S and H, and
    at hd 64 without the causal mask and at four times the length; time
    the RG-LRU ring in bf16 and at one batch row too, and its generic
-   route at the slice shape.
+   route at the slice shape; and at the hybrid train step's shape, the
+   RG-LRU kernel and its plain backward.
 
 Run from the root of a checkout: ``python3 chip_smoke.py [--seed N]``
 (the seed of the train path's weights and batch, 0 by default).  Needs one
@@ -74,6 +83,7 @@ import concurrent.futures
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -110,6 +120,14 @@ SMALL_DECODE_TOKENS = 40
 TRAIN_SHAPE = (4, 2048)
 TRAIN_STEPS = 8
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+# the hybrid's train path: one sequence of twice the local window (the
+# reference's train length), and the moments in bf16 (the reference's
+# option for very large models): with f32 moments the old and the new
+# train state of its 3.49 B parameters alone take 69.8 GB
+HYBRID_TRAIN_SHAPE = (1, 4096)
+HYBRID_TRAIN_OPT = dict(TRAIN_OPT, state_dtype="bfloat16")
+# its small f32 model: two periods of (rglru, rglru, local) and a tail
+HYBRID_SMALL_LAYERS = 8
 # step 1 through the kernel vs through the plain version: loss and grad
 # norm, relative (bf16)
 TRAIN_REL_TOL = 2e-2
@@ -553,7 +571,19 @@ def drive_decode(torch, cfg, params, counters, card) -> None:
         f"(tol {SMALL_TOL}) ok")
 
 
-def drive_train(torch, cfg, counters, card, seed: int) -> dict:
+def train_sites(cfg) -> dict:
+    """Per kernel: its forward sites in the scanned period, in the tail,
+    and its launches in one train step (the scanned ones again when
+    remat recomputes the body)."""
+    from repro_torch.models import transformer as T
+    n = T.n_scan_blocks(cfg)
+    return {k: {"period": p, "tail": t, "forward": n * p + t,
+                "launches": n * p * (1 + cfg.remat) + t}
+            for k, (p, t) in T.kernel_sites(cfg).items()}
+
+
+def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw,
+                small_layers=None) -> dict:
     """Plan and run the train step of ``cfg``; returns its launches.
 
     Args:
@@ -561,6 +591,10 @@ def drive_train(torch, cfg, counters, card, seed: int) -> dict:
         counters: kernel name -> its wrapper module (``launches``).
         card: the card's name and power limit, for the step lines.
         seed: the seed of the weights and the batch.
+        shape: batch x tokens of the step.
+        opt_kw: the ``AdamConfig`` fields.
+        small_layers: the small f32 model's depth (``None``: the reduced
+            config's).
     """
     from repro_torch.api import Request, Session
     from repro_torch.configs import get_config
@@ -570,13 +604,16 @@ def drive_train(torch, cfg, counters, card, seed: int) -> dict:
     from repro_torch import pytree
     from repro_torch.kernels import ops
     from repro_torch.launch import specs
+    from repro_torch.models import transformer as T
     from repro_torch.models.sharding import KernelDispatch, kernel_dispatch
     from repro_torch.optim.adam import AdamConfig
     from repro_torch.train import steps as TS
 
-    B, S = TRAIN_SHAPE
+    B, S = shape
     name = cfg.name
-    opt = AdamConfig(**TRAIN_OPT)
+    sites = train_sites(cfg)
+    ran = [k for k, v in sites.items() if v["forward"]]
+    opt = AdamConfig(**opt_kw)
     step = TS.make_train_step(cfg, opt)
     bspec, _ = specs.batch_specs(cfg, ShapeConfig("train", S, B, "train"))
     sess = Session(step, (TS.train_state_specs(cfg, opt), bspec))
@@ -591,7 +628,7 @@ def drive_train(torch, cfg, counters, card, seed: int) -> dict:
         f"{len(art.analysis.conflicts)} conflicts, kernel ops {kinds}, "
         f"phases " + json.dumps({k: round(v, 4) for k, v in
                                  art.phase_seconds.items()}))
-    if trips != [1, cfg.num_layers]:
+    if trips != [1, T.n_scan_blocks(cfg)]:
         raise AssertionError(f"train program trip counts {trips}")
     plan8 = sess.partition(Request(mesh=MeshSpec(("data", "model"), (2, 4))))
     if ShardingPlan.from_json(plan8.to_json()).as_dict() != plan8.as_dict():
@@ -601,11 +638,15 @@ def drive_train(torch, cfg, counters, card, seed: int) -> dict:
         f"search={plan8.search_seconds:.3f} s "
         f"evaluations={plan8.evaluations} json round-trip ok")
     plan1 = sess.partition(Request(mesh=MeshSpec(("data", "model"), (1, 1))))
-    sites = {r["site"]: r["impl"] for r in plan1.kernel_sites}
-    if set(sites.values()) != {"cuda"} or len(sites) != 1 + cfg.remat:
-        raise AssertionError(f"train 1x1 plan kernel sites chose {sites}")
+    got_sites = {r["site"]: r["impl"] for r in plan1.kernel_sites}
+    # the period's sites, the tail's, then the period's recomputed
+    want_sites = {f"{k}:{i}": "cuda" for k, v in sites.items()
+                  for i in range(v["period"] * (1 + cfg.remat) + v["tail"])}
+    if got_sites != want_sites:
+        raise AssertionError(f"train 1x1 plan kernel sites chose "
+                             f"{got_sites}, expected {want_sites}")
     log(f"[train partition {name} 1x1] cost={plan1.cost:.6f} sites="
-        + json.dumps(sites))
+        + json.dumps(got_sites))
     applied = plan1.apply(step)
     plain = dataclasses.replace(
         plan1, kernel_sites=[{**r, "impl": "ref"}
@@ -620,11 +661,13 @@ def drive_train(torch, cfg, counters, card, seed: int) -> dict:
              "targets": tokens[:, 1:].contiguous()}
     applied(state0, batch)                       # warm-up, not counted
     torch.cuda.synchronize()
+    lru = counters["rg_lru"]
 
     def run(fn, state, label, i):
         for mod in counters.values():
             mod.launches = 0
-        ops.bwd_calls = 0
+        lru.route_launches = dict.fromkeys(lru.ROUTES, 0)
+        ops.bwd_calls = ops.rg_lru_bwd_calls = 0
         torch.cuda.reset_peak_memory_stats()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -636,32 +679,38 @@ def drive_train(torch, cfg, counters, card, seed: int) -> dict:
         row = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
                "ms": start.elapsed_time(end),
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "launches": launches, "bwd": ops.bwd_calls}
+               "launches": launches, "routes": dict(lru.route_launches),
+               "bwd": {"flash_attention": ops.bwd_calls,
+                       "rg_lru": ops.rg_lru_bwd_calls}}
         log(f"[train {name} {label}] step {i}: loss {row['loss']:.6f} "
             f"grad_norm {row['grad_norm']:.6f} {row['ms']:.3f} ms, peak "
             f"{row['peak_gb']:.2f} GB, launches {json.dumps(launches)}, "
-            f"attention backward sites (plain vjp) {row['bwd']}")
+            f"rg_lru by route {json.dumps(row['routes'])}, backward "
+            f"sites (plain vjp) {json.dumps(row['bwd'])}")
         return state, row
 
-    want_launches = {k: cfg.num_layers * (1 + cfg.remat)
-                     if k == "flash_attention" else 0 for k in counters}
+    want_launches = {k: sites[k]["launches"] for k in counters}
+    want_bwd = {k: sites[k]["forward"] for k in counters}
+    # step 1 with every site on the plain version first: its new state is
+    # dropped before the kernel steps, so that no more than two train
+    # states are ever held
+    prow = run(plain, state0, "plain", 1)[1]
+    if any(prow["launches"].values()) or prow["bwd"] != want_bwd:
+        raise AssertionError("the plain train step launched a kernel")
     rows, state = [], state0
     for i in range(1, TRAIN_STEPS + 1):
         state, row = run(applied, state, "cuda", i)
-        if row["launches"] != want_launches or \
-                row["bwd"] != cfg.num_layers:
-            raise AssertionError(
-                f"step {i}: launches {row['launches']}, backward sites "
-                f"{row['bwd']}; expected {want_launches} and "
-                f"{cfg.num_layers}")
-        rows.append(row)
         if i == 1:
-            # step 1 again, every site on the plain version
-            prow = run(plain, state0, "plain", 1)[1]
             del state0
+        if row["launches"] != want_launches or row["bwd"] != want_bwd or \
+                row["routes"] != {"tma": want_launches["rg_lru"],
+                                  "generic": 0}:
+            raise AssertionError(
+                f"step {i}: launches {row['launches']} (rg_lru by route "
+                f"{row['routes']}), backward sites {row['bwd']}; expected "
+                f"{want_launches}, all on the TMA ring, and {want_bwd}")
+        rows.append(row)
     del state
-    if any(prow["launches"].values()) or prow["bwd"] != cfg.num_layers:
-        raise AssertionError("the plain train step launched a kernel")
     for key in ("loss", "grad_norm"):
         rel = abs(rows[0][key] - prow[key]) / abs(prow[key])
         log(f"[train {name}] step 1 {key}: kernel {rows[0][key]:.6f} vs "
@@ -673,18 +722,23 @@ def drive_train(torch, cfg, counters, card, seed: int) -> dict:
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         raise AssertionError(f"train losses {losses} not finite or not "
                              f"falling")
-    fwd = cfg.num_layers
+    n = T.n_scan_blocks(cfg)
+    per = "; ".join(
+        f"{k} launches per step {want_launches[k]} = {n} x {v['period']} "
+        f"forward + {v['tail']} tail + {n * v['period'] * cfg.remat} "
+        f"recomputed (remat), {want_bwd[k]} backward sites on the plain "
+        f"vjp" for k, v in sites.items() if v["forward"])
     log(f"[train {name}] {card}: {TRAIN_STEPS} steps, loss {losses[0]:.6f} "
-        f"-> {losses[-1]:.6f}; flash_attention launches per step "
-        f"{want_launches['flash_attention']} = {fwd} forward + "
-        f"{fwd * cfg.remat} recomputed (remat); {fwd} backward sites per "
-        f"step on the plain vjp; median step "
-        f"{percentile([r['ms'] for r in rows], 0.5):.3f} ms")
+        f"-> {losses[-1]:.6f}; {per}; median step "
+        f"{percentile([r['ms'] for r in rows], 0.5):.3f} ms, peak "
+        f"{max(r['peak_gb'] for r in rows):.2f} GB")
 
     # small f32 model (remat on, as the full one): loss, every gradient
     # leaf and the updated state, kernel sites vs plain sites
     small = dataclasses.replace(get_config(name).reduced(), use_pallas=True,
                                 remat=True)
+    if small_layers is not None:
+        small = dataclasses.replace(small, num_layers=small_layers)
     sstep = TS.make_train_step(small, opt)
     sspec, _ = specs.batch_specs(small, ShapeConfig("t", 64, 2, "train"))
     splan = Session(sstep, (TS.train_state_specs(small, opt), sspec)
@@ -699,10 +753,10 @@ def drive_train(torch, cfg, counters, card, seed: int) -> dict:
                            device="cuda", dtype=torch.int32)
           for k in ("targets", "tokens")}
     grads = TS.value_and_grad(TS.make_loss_fn(small), remat=True)
-    before = counters["flash_attention"].launches
+    before = {k: counters[k].launches for k in ran}
     with kernel_dispatch(KernelDispatch(default_impl="cuda")):
         got = grads(sstate.params, sb)
-    if counters["flash_attention"].launches == before:
+    if any(counters[k].launches == before[k] for k in ran):
         raise AssertionError("the small train step launched no kernel")
     with kernel_dispatch(KernelDispatch(default_impl="ref")):
         want = grads(sstate.params, sb)
@@ -716,8 +770,7 @@ def drive_train(torch, cfg, counters, card, seed: int) -> dict:
         f"loss, {len(pytree.tree_leaves(sstate.params))} gradient leaves "
         f"and the updated state, kernel vs plain: max|diff| {diff:.3e} "
         f"(tol {SMALL_TOL}) ok")
-    return {"launches_per_step": want_launches["flash_attention"],
-            "steps": rows}
+    return {"launches_per_step": want_launches, "steps": rows}
 
 
 def time_lru(lru, torch, gen, card, shape, dtype, route) -> dict:
@@ -746,6 +799,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the train path's weights and batch")
     opts = ap.parse_args(argv)
+    # the hybrid's train step holds two train states, its gradients and
+    # AdamW's f32 temporaries at once (PERF.md section 5): segments that
+    # grow in place keep the allocator from fragmenting between steps
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -851,14 +909,15 @@ def main(argv=None) -> int:
     check_lru(lru, torch, packed[:, :, 0], packed[:, :, 1], "strided",
               "tma")
 
-    # -- 3-6: plan and serve each path, prefill then decode; train ----
+    # -- 3-7: plan and serve each path, prefill then decode; train ----
     fa_launches, _, params = drive_path(torch, qwen, QWEN_SHAPE, counters,
                                         "flash_attention", qwen.num_layers)
     torch.cuda.empty_cache()
     drive_decode(torch, qwen, params, counters, card)
     del params
     torch.cuda.empty_cache()
-    train = drive_train(torch, qwen, counters, card, opts.seed)
+    train = drive_train(torch, qwen, counters, card, opts.seed, TRAIN_SHAPE,
+                        TRAIN_OPT)
     torch.cuda.empty_cache()
     n_lru = sum(k == "rglru" for k in hybrid.pattern)
     lru_launches, lru_routes, params = drive_path(
@@ -867,11 +926,16 @@ def main(argv=None) -> int:
     drive_decode(torch, hybrid, params, counters, card)
     del params
     torch.cuda.empty_cache()
+    hybrid_train = drive_train(torch, hybrid, counters, card, opts.seed,
+                               HYBRID_TRAIN_SHAPE, HYBRID_TRAIN_OPT,
+                               HYBRID_SMALL_LAYERS)
+    torch.cuda.empty_cache()
 
-    # -- 7: each kernel's time at its slice shape ----------------------------
+    # -- 8: each kernel's time at its slice shape ----------------------------
     fa_row = time_fa(fa, torch, gen, card, B, S, H, hd, plain=True)
     fa_row.update(launches=fa_launches, max_abs_err=fa_err,
-                  launches_train_step=train["launches_per_step"])
+                  launches_train_step=train["launches_per_step"][
+                      "flash_attention"])
     # the head dims of the repo's other configs, at the slice's B, S, H
     for hd_i in (96, 128):
         time_fa(fa, torch, gen, card, B, S, H, hd_i, plain=False)
@@ -888,7 +952,15 @@ def main(argv=None) -> int:
     plain_ms = cuda_ms(lambda: lru.reference(a, b), 5)
     log(f"[time] {card}: rg_lru plain {lru_shape} float32 {plain_ms:.4f} ms")
     time_lru(lru, torch, gen, card, lru_shape, bf16, "tma")
-    time_lru(lru, torch, gen, card, (1, *lru_shape[1:]), f32, "tma")
+    # the hybrid train step's shape (B 1): the forward kernel, and the
+    # backward (the plain scan's vjp, the one implementation)
+    train_ring = time_lru(lru, torch, gen, card, (1, *lru_shape[1:]), f32,
+                          "tma")
+    a1, b1 = train_ring["a"], train_ring["b"]
+    bwd_ms = cuda_ms(lambda: lru.reference_bwd(a1, b1, b1), 5)
+    log(f"[time] {card}: rg_lru_bwd plain vjp {tuple(a1.shape)} float32 "
+        f"{bwd_ms:.4f} ms per call (the train step's backward sites)")
+    del a1, b1, train_ring
     generic = time_lru(lru, torch, gen, card, lru_shape, f32, "generic")
     log(f"[time] {card}: rg_lru ring ({lru.TILE_BYTES} channel bytes x "
         f"{lru.BOX_S} steps per box, {lru.STAGES} stages, {lru.OUT_BOXES} "
@@ -901,7 +973,8 @@ def main(argv=None) -> int:
         "launches": lru_launches, "max_abs_err": lru_err,
         "ms": ring["ms"], "plain_ms": plain_ms,
         "bound_ms": ring["bound_ms"], "bound_by": ring["bound_by"],
-        "library_ms": None}
+        "library_ms": None,
+        "launches_train_step": hybrid_train["launches_per_step"]["rg_lru"]}
 
     log(f"[routes] rg_lru launches by route on the {hybrid.name} path: "
         + json.dumps(lru_routes))

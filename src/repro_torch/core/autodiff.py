@@ -10,23 +10,31 @@ linearize-then-transpose, prim by prim:
 
 - each differentiated op's JVP splits into *residual* ops, on primal
   values only (``rsqrt``'s ``-0.5 * ans / x``, ``logistic``'s ``ans * (1
-  - ans)``, ``div``'s ``y**-2``, ``reduce_max``'s location counts, ...),
-  and *linear* ops on tangents, recorded on a tape;
+  - ans)``, ``div``'s ``y**-2``, ``reduce_max``'s location counts,
+  ``max``'s tie weights, ...), and *linear* ops on tangents, recorded on
+  a tape; the residuals follow their op, in the JVP's order;
+- a few ops form one unit with a JVP of its own, as JAX's
+  ``custom_jvp``: ``jnp.logaddexp``'s steps (softplus) take its rule,
+  ``t * exp(x - out)`` with its ``inf`` guards, and their inner ops none;
 - the tape is transposed in reverse: ``dot_general`` into a
   ``dot_general`` and a ``transpose``, ``broadcast_in_dim`` into
-  ``reduce_sum``, ``slice`` into ``pad``, ``concatenate`` into
-  ``split``, ``gather`` into ``scatter-add`` into zeros, ``select_n``
-  into a ``select_n`` against zeros, a fused attention into one
-  ``kernel:flash_attention_bwd`` op; fanned-out cotangents meet in
-  ``add_any``;
+  ``reduce_sum``, ``slice`` into ``pad``, ``pad`` into a negative
+  ``pad`` and a strided ``slice``, ``concatenate`` into ``split``,
+  ``gather`` into ``scatter-add`` into zeros, ``select_n`` into a
+  ``select_n`` against zeros, a fused kernel into its backward op
+  (``kernel:flash_attention_bwd``, ``kernel:rg_lru_bwd``); fanned-out
+  cotangents meet in ``add_any``;
 - the layer scan becomes a forward scan and a backward scan, each one
   body with trip counts and value links.  The forward body's
-  loop-invariant ops (rope tables, masks) are hoisted out of it, as the
-  reference's scan partial evaluation does.  Without remat the forward
-  body also computes the residuals the backward body needs and stacks
-  them as ``ys``; with remat it stacks only the carry, and the backward
-  body recomputes the forward body's ops the transpose needs (invariant
-  ones included), as under ``jax.checkpoint``;
+  loop-invariant ops and residuals (rope tables, masks, constants) are
+  hoisted out of it, as the reference's scan partial evaluation does,
+  and its dead ops dropped with their values.  Without remat the
+  forward body also computes the residuals the backward body reads and
+  stacks them as ``ys``; with remat it stacks only the carry, and the
+  backward body recomputes the forward body's ops the transpose needs
+  (invariant ones included), as under ``jax.checkpoint``.  Ops after
+  the scan (a tail of unscanned layers) are differentiated at the top
+  level and not recomputed;
 - residual and linear ops that reach no gradient are dropped inside scan
   bodies and kept at the top level, as the reference's program keeps
   them (its top level is not dead-code eliminated).
@@ -128,6 +136,14 @@ class _Ctx:
         self.trip = trip
         self.rename = rename if rename is not None else {}
         self.memo: dict = {}       # R -> vid
+        # value -> the maker of its renaming, called at its first use
+        self.lazy: dict = {}
+
+    def name(self, v: int) -> int:
+        """``v`` as this context holds it."""
+        if v not in self.rename and v in self.lazy:
+            self.rename[v] = self.lazy.pop(v)()
+        return self.rename.get(v, v)
 
 
 class _VJP:
@@ -140,6 +156,29 @@ class _VJP:
         self.active: set[int] = set()
         self._tapes: dict = {}       # id(scan record) -> live body tape
         self._body_ops: dict = {}    # id(scan record) -> forward body ops
+        # ops differentiated as one unit by a custom JVP (JAX's
+        # ``custom_jvp``): the last op's result -> the unit's input, and
+        # the ids of the inner ops, which get no rule of their own
+        self.custom: dict[int, int] = {}
+        self.inner: set[int] = set()
+
+    def find_custom(self, ops, outputs) -> None:
+        """Record every ``logaddexp`` unit of ``ops`` (see
+        :func:`_match_logaddexp`)."""
+        producer = {r: op for op in ops for r in op.results}
+        uses: dict = {}
+        for v in [v for op in ops for v in op.operands] + list(outputs):
+            uses[v] = uses.get(v, 0) + 1
+        for op in ops:
+            m = _match_logaddexp(op, producer, uses, self.prog.types)
+            if m is not None:
+                self.custom[op.results[0]] = m[0]
+                self.inner.update(id(o) for o in m[1])
+
+    def differentiates(self, op) -> bool:
+        """Whether ``op`` takes a rule of its own on the tape."""
+        return op.prim not in _NO_TANGENT and id(op) not in self.inner and \
+            any(self.is_active(r) for r in op.results)
 
     # -- values ---------------------------------------------------------
 
@@ -165,6 +204,15 @@ class _VJP:
         self.new_rs.append(res)
         return res
 
+    def full(self, shape, dtype):
+        """A constant (``lax.full_like``): a broadcast literal, or the
+        literal itself for a scalar."""
+        if not shape:
+            return Lit(dtype)
+        return self.r("broadcast_in_dim", {"shape": tuple(shape),
+                                           "broadcast_dimensions": ()},
+                      [Lit(dtype)], shape, dtype)
+
     def emit(self, ctx: _Ctx, prim, params, operands, shape, dtype) -> int:
         from repro_torch.core.ir import Op
         vid = self.prog.new_value(shape, dtype)
@@ -187,7 +235,7 @@ class _VJP:
             return self.lit(x.dtype)
         if isinstance(x, R):
             return self.mat(ctx, x)
-        return ctx.rename.get(x, x)
+        return ctx.name(x)
 
     def mat(self, ctx: _Ctx, r: R) -> int:
         if r not in ctx.memo:
@@ -250,6 +298,8 @@ class _VJP:
         ops = op.operands
         out = op.results[0]
         shape, dtype = self.ttype(out)
+        if out in self.custom:
+            return _rule_logaddexp(self, self.custom[out], out, shape, dtype)
         rule = _RULES.get(prim)
         if rule is None and prim.startswith("kernel:"):
             rule = _rule_kernel
@@ -342,20 +392,24 @@ class _VJP:
         for op in body_ops:
             body_vals.update(op.results)
         variant = set(rec.body_carry) | set(rec.body_xs)
-        hoisted, kept = [], []
+        hoisted_ids = set()
         for op in body_ops:
             if any(v in variant for v in op.operands):
                 variant.update(op.results)
-                kept.append(op)
             else:
-                hoisted.append(op)
-        # the body's tape, symbolically; then what reaches a gradient
+                hoisted_ids.add(id(op))
+        # the body's tape, symbolically, and the body in the order of
+        # its JVP: each op followed by the residuals its rule made; then
+        # what reaches a gradient
         self.new_rs = []
         tape: list[Lin] = []
+        seq: list = []
         for op in body_ops:
-            if op.prim not in _NO_TANGENT and \
-                    any(self.is_active(r) for r in op.results):
+            seq.append(op)
+            if self.differentiates(op):
+                start = len(self.new_rs)
                 tape.extend(self.jvp(op))
+                seq.extend(self.new_rs[start:])
         live_keys = {o for o in rec.carry_outs + rec.y_outs
                      if self.is_active(o)}
         live: list[Lin] = []
@@ -383,30 +437,67 @@ class _VJP:
             for a in e.args:
                 if not _is_t(a):
                     need(a)
+        # what the linear ops read themselves: the residuals proper
+        direct: list = []
+        for e in live:
+            for a in e.args:
+                if not _is_t(a) and id(a) in seen and \
+                        all(a is not d for d in direct):
+                    direct.append(a)
 
         def r_variant(x) -> bool:
             if isinstance(x, R):
                 return any(r_variant(o) for o in x.operands)
             return isinstance(x, int) and x in variant
 
+        # the forward body keeps what its carries, ys and (without
+        # remat) the residuals read: dead primal ops go, as the
+        # reference's scan partial evaluation drops them
+        def live_body_ops(residuals: bool) -> set[int]:
+            vals = set(rec.carry_outs) | set(rec.y_outs)
+            if residuals:
+                vals.update(x for x in needed if not isinstance(x, R))
+            ops: set[int] = set()
+            for op in reversed(body_ops):
+                if any(r in vals for r in op.results):
+                    ops.add(id(op))
+                    vals.update(op.operands)
+            return ops
+
+        live_ops = live_body_ops(not remat)
+        order = seq
+        seq = [x for x in seq if isinstance(x, R) or id(x) in live_ops]
+        # what neither pass reads (nor remat recomputes) leaves the program
+        kept_ops = live_body_ops(True)
+        for op in body_ops:
+            if id(op) not in kept_ops:
+                for r in op.results:
+                    del self.prog.types[r]
+        # loop invariants before the scan, the rest in its body, in JVP
+        # order; without remat the residuals the backward reads come
+        # along (invariant ones hoisted), with remat none
         top = _Ctx(outer_trip)
-        for op in hoisted:
-            self.prog.add_op(op, outer_trip)
         fwd = _Ctx(outer_trip * rec.length)
-        if not remat:
-            for x in needed:
-                if isinstance(x, R) and not r_variant(x):
+        for x in seq:
+            if isinstance(x, R):
+                if not remat and id(x) in seen and not r_variant(x):
                     fwd.memo[x] = self.mat(top, x)
-        for op in kept:
-            self.prog.add_op(op, fwd.trip)
+            elif id(x) in hoisted_ids:
+                self.prog.add_op(x, outer_trip)
+        for x in seq:
+            if isinstance(x, R):
+                if not remat and id(x) in seen and r_variant(x):
+                    self.mat(fwd, x)
+            elif id(x) not in hoisted_ids:
+                self.prog.add_op(x, fwd.trip)
         # the residuals, stacked as ys: with remat the carry in, else
-        # every per-iteration value the backward reads (the xs are
+        # every per-iteration value the linear ops read (the xs are
         # stacked already)
         if remat:
             per_iter = list(rec.body_carry)
         else:
-            per_iter = [self.mat(fwd, x) if isinstance(x, R) else x
-                        for x in needed if r_variant(x) and
+            per_iter = [fwd.memo[x] if isinstance(x, R) else x
+                        for x in direct if r_variant(x) and
                         x not in rec.body_xs]
         stacks = []
         for v in per_iter:
@@ -417,7 +508,7 @@ class _VJP:
         self._tapes[id(rec)] = live
         if not live:
             return Lin("scan", {"dead": True}, [], scan=rec)
-        return Lin("scan", {"remat": remat, "needed": needed,
+        return Lin("scan", {"remat": remat, "needed": needed, "order": order,
                             "fwd_memo": fwd.memo, "stacks": stacks},
                    [], scan=rec)
 
@@ -454,25 +545,25 @@ class _VJP:
             b = self.prog.new_value(t.shape, t.dtype)
             links.append((c, b, 0))
             bcarry.append(b)
-        # stacked inputs of the backward body: residual stacks and the
-        # forward xs (parameters) it reads
+        # stacked inputs of the backward body: residual stacks, and the
+        # forward xs (parameters) it reads, each at its first read
         for s, v in p["stacks"]:
             t = self.prog.types[v]
             b = self.prog.new_value(t.shape, t.dtype)
             links.append((s, b, 1))
             body.rename[v] = b
-        for x, bx in zip(rec.xs, rec.body_xs):
+        def slice_of(x, bx):
             t = self.prog.types[bx]
             b = self.prog.new_value(t.shape, t.dtype)
             links.append((x, b, 1))
-            body.rename[bx] = b
+            return b
+
+        for x, bx in zip(rec.xs, rec.body_xs):
+            body.lazy[bx] = lambda x=x, bx=bx: slice_of(x, bx)
         if p["remat"]:
             # the recomputed forward and every residual the live linear
             # ops read, as the reference's known (recomputed) body
             self._recompute(body, rec, p)
-            for x in p["needed"]:
-                if isinstance(x, R):
-                    self.mat(body, x)
         else:
             for x, vid in p["fwd_memo"].items():
                 body.memo[x] = body.rename.get(vid, vid)
@@ -512,7 +603,8 @@ class _VJP:
             self.acc(ctx, env, x, res)
 
     def _recompute(self, body: _Ctx, rec: ScanRecord, p: dict) -> None:
-        """Emit the forward body's ops the backward body reads (remat)."""
+        """Emit the forward body's ops the backward body reads, and the
+        residuals, in the forward's JVP order (remat)."""
         from repro_torch.core.ir import Op
         needed = p["needed"]
         producer = {r: op for op in self._body_ops[id(rec)]
@@ -530,17 +622,22 @@ class _VJP:
 
         for x in needed:
             walk(x)
-        for op in self._body_ops[id(rec)]:
-            if not any(r in want for r in op.results):
+        rs = {id(x) for x in needed if isinstance(x, R)}
+        for x in p["order"]:
+            if isinstance(x, R):
+                if id(x) in rs:
+                    self.mat(body, x)
                 continue
-            operands = [body.rename.get(v, v) for v in op.operands]
+            if not any(r in want for r in x.results):
+                continue
+            operands = [body.name(v) for v in x.operands]
             results = []
-            for r in op.results:
+            for r in x.results:
                 t = self.prog.types[r]
                 nv = self.prog.new_value(t.shape, t.dtype)
                 body.rename[r] = nv
                 results.append(nv)
-            self.prog.add_op(Op(op.prim, op.params, operands, results),
+            self.prog.add_op(Op(x.prim, x.params, operands, results),
                              body.trip)
 
 
@@ -684,6 +781,117 @@ def _rule_reduce_max(vjp, op, ops, act, out, shape, dtype):
             Lin("div", {}, [_t(s), cnt], out)]
 
 
+def _rule_log1p(vjp, op, ops, act, out, shape, dtype):
+    r = vjp.r("add", {}, [ops[0], Lit(dtype)], shape, dtype)
+    return [Lin("div", {}, [_t(ops[0]), r], out)]
+
+
+def _rule_tanh(vjp, op, ops, act, out, shape, dtype):
+    # JAX's: (g + g * ans) * (1 - ans)
+    s = vjp.r("sub", {}, [Lit(dtype), out], shape, dtype)
+    m, a = vjp.tmp(shape, dtype), vjp.tmp(shape, dtype)
+    return [Lin("mul", {}, [_t(ops[0]), out], m),
+            Lin("add", {}, [_t(ops[0]), _t(m)], a),
+            Lin("mul", {}, [_t(a), s], out)]
+
+
+def _rule_max(vjp, op, ops, act, out, shape, dtype):
+    # JAX's ``_balanced_eq`` weights, per differentiated side: 1 where
+    # that side is the result, 1/2 where the two tie, else 0
+    def balanced(x, y):
+        ex = vjp.r("eq", {}, [x, out], shape, "bool")
+        hit = vjp.r("select_n", {}, [ex, vjp.full(shape, dtype),
+                                     vjp.full(shape, dtype)], shape, dtype)
+        ey = vjp.r("eq", {}, [y, out], shape, "bool")
+        tie = vjp.r("select_n", {}, [ey, vjp.full(shape, dtype),
+                                     vjp.full(shape, dtype)], shape, dtype)
+        return vjp.r("div", {}, [hit, tie], shape, dtype)
+
+    parts, outs = [], []
+    for i, (x, y) in enumerate(((ops[0], ops[1]), (ops[1], ops[0]))):
+        if not act[i]:
+            continue
+        o = vjp.tmp(_bshape(vjp.ttype(x)[0], shape), dtype)
+        parts.append([Lin("mul", {}, [_t(x), balanced(x, y)], o)])
+        outs.append(o)
+    return vjp.add_tangents(parts, outs, out)
+
+
+def _rule_pad(vjp, op, ops, act, out, shape, dtype):
+    if act[1]:
+        raise NotImplementedError("a gradient through a pad's value")
+    return [Lin("pad", dict(op.params), [_t(ops[0]), Lit(dtype)], out)]
+
+
+def _rule_logaddexp(vjp, x1, out, shape, dtype):
+    """JAX's ``custom_jvp`` of ``logaddexp(x1, c)`` for a constant ``c``
+    (``jax.nn.softplus``): ``t1 * exp(ri(x1) - ri(out)) + t2 * exp(ri(c)
+    - ri(out))``, ``ri`` the replacement of +inf by 0, ``t2`` the
+    constant's instantiated zero tangent."""
+    def ri(v, vshape):
+        eq = vjp.r("eq", {}, [v, Lit(dtype)], vshape, "bool")
+        return vjp.r("select_n", {}, [eq, v, vjp.full(vshape, dtype)],
+                     vshape, dtype)
+
+    xshape = vjp.vtype(x1)[0]
+    d1 = vjp.r("sub", {}, [ri(x1, xshape), ri(out, shape)], shape, dtype)
+    c1 = vjp.r("exp", {}, [d1], shape, dtype)
+    d2 = vjp.r("sub", {}, [ri(Lit(dtype), ()), ri(out, shape)], shape,
+               dtype)
+    c2 = vjp.r("exp", {}, [d2], shape, dtype)
+    k = vjp.r("mul", {}, [Lit(dtype), c2], shape, dtype)
+    m = vjp.tmp(shape, dtype)
+    return [Lin("mul", {}, [_t(x1), c1], m),
+            Lin("add", {}, [_t(m), k], out)]
+
+
+def _match_logaddexp(op, producer, uses, types):
+    """``(x1, interior ops)`` when ``op`` ends ``logaddexp(x1, c)`` for a
+    scalar constant ``c`` in ``jnp.logaddexp``'s steps, else ``None``:
+    ``select_n(ne(d, d), max(x1, c) + log1p(exp(-|d|)), x1 + c)`` with
+    ``d = x1 - c``, every inner value read inside the group only."""
+    def prod(v, prim):
+        p = producer.get(v)
+        return p if p is not None and p.prim == prim else None
+
+    def const(v):
+        return v not in producer and not types[v].shape
+
+    if op.prim != "select_n" or len(op.operands) != 3:
+        return None
+    pred, big, nan = op.operands
+    ne = prod(pred, "ne")
+    if ne is None or ne.operands[0] != ne.operands[1]:
+        return None
+    sub = prod(ne.operands[0], "sub")
+    if sub is None or not const(sub.operands[1]):
+        return None
+    x1 = sub.operands[0]
+    s = prod(nan, "add")
+    top = prod(big, "add")
+    if s is None or top is None or s.operands[0] != x1 or \
+            not const(s.operands[1]):
+        return None
+    mx = prod(top.operands[0], "max")
+    lg = prod(top.operands[1], "log1p")
+    if mx is None or lg is None or mx.operands[0] != x1 or \
+            not const(mx.operands[1]):
+        return None
+    chain = [lg]
+    for prim in ("exp", "neg", "abs"):
+        chain.append(prod(chain[-1].operands[0], prim))
+        if chain[-1] is None:
+            return None
+    if chain[-1].operands[0] != sub.results[0]:
+        return None
+    inner = [mx, sub, ne, s, *chain[::-1], top]
+    # d is read by ne twice and by abs; every other value once
+    if uses[sub.results[0]] != 3 or any(
+            uses[o.results[0]] != 1 for o in inner if o is not sub):
+        return None
+    return x1, inner
+
+
 def _rule_dot_general(vjp, op, ops, act, out, shape, dtype):
     parts, outs = [], []
     for i in (0, 1):
@@ -750,6 +958,8 @@ _RULES = {
     "sqrt": _rule_sqrt, "logistic": _rule_logistic,
     "square": _rule_square, "integer_pow": _rule_integer_pow,
     "abs": _rule_abs, "reduce_max": _rule_reduce_max,
+    "log1p": _rule_log1p, "tanh": _rule_tanh, "max": _rule_max,
+    "min": _rule_max, "pad": _rule_pad,
     "reduce_sum": _rule_linear_unary, "broadcast_in_dim": _rule_linear_unary,
     "reshape": _rule_linear_unary, "transpose": _rule_linear_unary,
     "squeeze": _rule_linear_unary, "slice": _rule_linear_unary,
@@ -899,6 +1109,24 @@ def _tr_slice(vjp, ctx, e, ct, env):
         shape, dtype))
 
 
+def _tr_pad(vjp, ctx, e, ct, env):
+    # JAX's: the padding undone by a negative pad, then the interior
+    # dropped by a strided slice
+    key = e.args[0][1]
+    shape, dtype = vjp.ttype(key)
+    cfg = e.params["padding_config"]
+    full = vjp.prog.types[ct].shape
+    ushape = tuple(n - lo - hi for n, (lo, hi, _) in zip(full, cfg))
+    u = vjp.emit(ctx, "pad", {"padding_config": tuple(
+        (-lo, -hi, 0) for lo, hi, _ in cfg)}, [ct, vjp.lit(dtype)], ushape,
+        dtype)
+    vjp.acc(ctx, env, key, vjp.emit(
+        ctx, "slice", {"start_indices": (0,) * len(shape),
+                       "limit_indices": ushape,
+                       "strides": tuple(i + 1 for _, _, i in cfg)},
+        [u], shape, dtype))
+
+
 def _tr_concatenate(vjp, ctx, e, ct, env):
     dim = e.params["dimension"]
     types = []
@@ -1027,9 +1255,11 @@ _TRANSPOSE = {
     "convert_element_type": _tr_convert, "reduce_sum": _tr_reduce_sum,
     "broadcast_in_dim": _tr_broadcast_in_dim, "reshape": _tr_reshape,
     "transpose": _tr_transpose, "squeeze": _tr_squeeze, "slice": _tr_slice,
+    "pad": _tr_pad,
     "concatenate": _tr_concatenate, "dot_general": _tr_dot_general,
     "select_n": _tr_select_n, "gather": _tr_gather,
     "kernel:flash_attention_bwd": _tr_kernel_bwd,
+    "kernel:rg_lru_bwd": _tr_kernel_bwd,
 }
 
 
@@ -1057,6 +1287,7 @@ def value_and_grad(prog, scans: list[ScanRecord], loss: int,
     vjp = _VJP(prog, stopped)
     vjp.active = set(wrt)
     ops = prog.ops
+    vjp.find_custom(ops, [loss])
     trips = [prog.trip_counts[i] for i in range(len(ops))]
     by_lo = {s.lo: s for s in scans}
     items: list = []
@@ -1088,8 +1319,7 @@ def value_and_grad(prog, scans: list[ScanRecord], loss: int,
             continue
         op = ops[it]
         prog.add_op(op, trips[it])
-        if op.prim in _NO_TANGENT or \
-                not any(vjp.is_active(r) for r in op.results):
+        if not vjp.differentiates(op):
             continue
         vjp.new_rs = []
         tape.extend(vjp.jvp(op))

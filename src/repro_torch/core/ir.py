@@ -122,9 +122,13 @@ class Program:
     # number of loop iterations each op executes (1 for top level,
     # `length` for ops inside a scan body) — used by the cost model.
     trip_counts: dict[int, int] = dataclasses.field(default_factory=dict)
+    # the next value id (values dropped by dead-code elimination leave
+    # their ids unused)
+    next_vid: int = 0
 
     def new_value(self, shape, dtype) -> int:
-        vid = len(self.types)
+        vid = max(len(self.types), self.next_vid)
+        self.next_vid = vid + 1
         self.types[vid] = TensorType(tuple(int(s) for s in shape),
                                      dtype_name(dtype))
         return vid
@@ -729,17 +733,24 @@ class _Extractor:
             raise UnsupportedOpError(f"einsum {eq!r} with {len(operands)} "
                                      f"operands")
         ins, out = eq.split("->")
-        ls, rs = ins.split(",")
-        if len(set(ls)) != len(ls) or len(set(rs)) != len(rs) or \
-                any(c not in ls and c not in rs for c in out):
+        first, second = ins.split(",")
+        if len(set(first)) != len(first) or len(set(second)) != len(second) \
+                or any(c not in first and c not in second for c in out) or \
+                any(c not in out for c in set(first) ^ set(second)):
             raise UnsupportedOpError(f"einsum {eq!r}")
-        batch = [c for c in ls if c in rs and c in out]
-        contract = [c for c in ls if c in rs and c not in out]
-        free_l = [c for c in ls if c not in rs]
-        free_r = [c for c in rs if c not in ls]
-        if any(c not in out for c in free_l + free_r):
-            raise UnsupportedOpError(f"einsum {eq!r} sums a free index")
-        dg_letters = batch + free_l + free_r
+        # jnp.einsum's pairwise contraction: the second operand is the
+        # lhs, contracted names sorted, batch names in the result's order,
+        # and the operands swapped when that makes the product's dims the
+        # result's own
+        batch = [c for c in out if c in first and c in second]
+        contract = sorted(c for c in first if c in second and c not in out)
+        (ls, lhs), (rs, rhs) = (second, operands[1]), (first, operands[0])
+        if batch + [c for c in rs if c not in ls] + \
+                [c for c in ls if c not in rs] == list(out):
+            (ls, lhs), (rs, rhs) = (rs, rhs), (ls, lhs)
+        dg_letters = batch + [c for c in ls if c not in rs] + \
+            [c for c in rs if c not in ls]
+        operands = [lhs, rhs]
         shape, dtype = _meta(node)
         dg_shape = [shape[out.index(c)] for c in dg_letters]
         vid = self.prog.new_value(dg_shape, dtype)
@@ -791,7 +802,9 @@ class _Extractor:
 
     def _aten_gather(self, node, args, kwargs):
         # reference lowering of jnp.take_along_axis: the index vector dim
-        # appended, every other dim a batching dim of both sides
+        # appended; every other dim a batching dim of both sides, but a
+        # dim of size 1, which the gather takes whole (an offset dim) and
+        # the index drops
         src, dim, idx = args[0].vid, args[1], args[2].vid
         st, it = self._type(src), self._type(idx)
         dim = _norm_dim(dim, st.rank)
@@ -801,15 +814,19 @@ class _Extractor:
             raise UnsupportedOpError(f"{node.target} with an index that "
                                      f"broadcasts")
         shape, dtype = _meta(node)
-        idx1 = self._emit("reshape", {"new_sizes": it.shape + (1,),
+        kept = [i for i in range(st.rank) if i == dim or it.shape[i] != 1]
+        ishape = tuple(it.shape[i] for i in kept) + (1,)
+        idx1 = self._emit("reshape", {"new_sizes": ishape,
                                       "dimensions": None},
-                          [idx], it.shape + (1,), it.dtype)
-        batch = tuple(i for i in range(st.rank) if i != dim)
-        dn = GatherDimensionNumbers(offset_dims=(),
-                                    collapsed_slice_dims=(dim,),
-                                    start_index_map=(dim,),
-                                    operand_batching_dims=batch,
-                                    start_indices_batching_dims=batch)
+                          [idx], ishape, it.dtype)
+        whole = tuple(i for i in range(st.rank)
+                      if i != dim and it.shape[i] == 1)
+        batch = tuple(i for i in range(st.rank)
+                      if i != dim and i not in whole)
+        dn = GatherDimensionNumbers(
+            offset_dims=whole, collapsed_slice_dims=(dim,),
+            start_index_map=(dim,), operand_batching_dims=batch,
+            start_indices_batching_dims=tuple(kept.index(i) for i in batch))
         return _Ref(self._emit(
             "gather", {"dimension_numbers": dn,
                        "slice_sizes": (1,) * st.rank},
@@ -827,11 +844,19 @@ class _Extractor:
                 f"custom op {node.target} does not match a registry "
                 f"kernel contract")
         params: dict = {"kernel": spec.name}
-        if spec.name == "flash_attention":
-            params["causal"] = bool(args[3])
-        shape, dtype = _meta(node)
-        return _Ref(self._emit(spec.prim, params,
-                               [a.vid for a in args[:n]], shape, dtype))
+        if spec.name.startswith("flash_attention"):
+            params["causal"] = bool(args[n])
+        if len(spec.result_roles) == 1:
+            shape, dtype = _meta(node)
+            return _Ref(self._emit(spec.prim, params,
+                                   [a.vid for a in args[:n]], shape, dtype))
+        # a backward: one result per differentiated operand
+        vids = [self.prog.new_value(tuple(int(d) for d in v.shape),
+                                    dtype_name(v.dtype))
+                for v in node.meta["val"]]
+        self.prog.add_op(Op(spec.prim, params, [a.vid for a in args[:n]],
+                            vids), self.trip)
+        return tuple(_Ref(v) for v in vids)
 
     def _grad(self, node, args):
         from repro_torch.core import autodiff

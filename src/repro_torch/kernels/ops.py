@@ -22,9 +22,13 @@ dk, dv), registered with ``torch.library.register_autograd``.  It
 computes the plain version's vjp, as the reference package's
 ``_fa_bwd_jit`` does: the reference has no backward kernel (its
 registry lists only ``"ref"`` for ``flash_attention_bwd``), so this is
-the one implementation on every device, not a fallback.  The backward
-of ``repro_torch::rg_lru`` raises: the hybrid's train path is ROADMAP
-queue 1, item 20.
+the one implementation on every device, not a fallback.
+``repro_torch::rg_lru`` trains the same way: its backward is the op
+``repro_torch::rg_lru_bwd`` (a, b, dh -> da, db), the plain scan's vjp,
+as the reference's ``_lru_bwd_jit`` (its registry lists only ``"ref"``
+for ``rg_lru_bwd``).  Both keep the forward's inputs as their residuals,
+as the reference's ``custom_vjp``s do, so the forward itself stays the
+kernel on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -37,9 +41,11 @@ from repro_torch.kernels import rg_lru as lru
 
 __all__ = ["attention", "rg_lru"]
 
-# attention backward calls made by this process (each runs the plain
-# vjp; read by the chip smoke run, beside the kernels' launch counts)
+# attention and RG-LRU backward calls made by this process (each runs
+# the plain vjp; read by the chip smoke run, beside the kernels' launch
+# counts)
 bwd_calls = 0
+rg_lru_bwd_calls = 0
 
 
 def _check_impl(kernel: str, impl: str) -> None:
@@ -139,14 +145,33 @@ def _(a, b, impl):
     return a.new_empty(a.shape)
 
 
-def _rg_lru_backward(ctx, dh):
-    raise NotImplementedError(
-        "the RG-LRU scan has no backward yet: the hybrid's train path is "
-        "ROADMAP queue 1, item 20")
+@torch.library.custom_op("repro_torch::rg_lru_bwd", mutates_args=())
+def _rg_lru_bwd_op(a: torch.Tensor, b: torch.Tensor,
+                   dh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU backward: the plain scan's vjp on any device (the
+    reference's backward has no kernel either)."""
+    global rg_lru_bwd_calls
+    rg_lru_bwd_calls += 1
+    return lru.reference_bwd(a, b, dh)
 
 
-_rg_lru_op.register_autograd(_rg_lru_backward,
-                             setup_context=lambda ctx, inputs, output: None)
+@_rg_lru_bwd_op.register_fake
+def _(a, b, dh):
+    return a.new_empty(a.shape), b.new_empty(b.shape)
+
+
+def _lru_setup_context(ctx, inputs, output):
+    a, b, _ = inputs
+    ctx.save_for_backward(a, b)
+
+
+def _lru_backward(ctx, dh):
+    a, b = ctx.saved_tensors
+    da, db = _rg_lru_bwd_op(a, b, dh)
+    return da, db, None
+
+
+_rg_lru_op.register_autograd(_lru_backward, setup_context=_lru_setup_context)
 
 
 def rg_lru(a, b):

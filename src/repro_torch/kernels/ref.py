@@ -111,3 +111,33 @@ def reference_rg_lru(a, b):
     """
     _, h = lru_associative_scan(a.to(torch.float32), b.to(torch.float32))
     return h.to(a.dtype)
+
+
+def reference_rg_lru_bwd(a, b, dh):
+    """The vjp of :func:`reference_rg_lru`, written out.
+
+    With ``h`` recomputed from ``(a, b)``, the cotangent of ``h_t`` that
+    reaches step t is ``g_t = dh_t + a_{t+1} g_{t+1}``: the same linear
+    recurrence run backwards in time (the associative scan of the
+    reversed inputs).  Then ``db = g`` and ``da_t = g_t h_{t-1}`` with
+    ``h_{-1} = 0``.  Computed in float32; each cotangent leaves in its
+    input's dtype, as the reference package's ``jax.vjp`` of its plain
+    scan gives them.
+
+    Args:
+        a: decay gates (B,S,R).
+        b: inputs, a's shape.
+        dh: the cotangent of the result, a's shape.
+
+    Returns:
+        ``(da, db)``.
+    """
+    af, bf = a.to(torch.float32), b.to(torch.float32)
+    _, h = lru_associative_scan(af, bf)
+    # a_{t+1}, zero past the end; both reversed in time for the scan
+    a_next = torch.cat([af[:, 1:], torch.zeros_like(af[:, :1])], 1)
+    _, g = lru_associative_scan(a_next.flip(1),
+                                dh.to(torch.float32).flip(1))
+    g = g.flip(1)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1)
+    return (g * h_prev).to(a.dtype), g.to(b.dtype)

@@ -53,6 +53,7 @@ _LIB = KernelLibrary("rg_lru.cu", "libtoast_rg_lru.so", _declare)
 build, build_dir, build_log = _LIB.build, _LIB.build_dir, _LIB.build_log
 
 reference = ref.reference_rg_lru
+reference_bwd = ref.reference_rg_lru_bwd
 
 
 def _strides(t) -> list[int]:

@@ -1,13 +1,16 @@
 """Profiles the train step on one CUDA card: where a step's time goes.
 
-The full-width ``qwen2_05b`` (or ``--arch``) with its fused attention
-sites on the CUDA kernel, weights from a seed, B 4 x S 2048 (the prefill
-path's shape), the config's remat.  Times (host clock around work that
-ends in a synchronize) the parts of a step apart — the loss's forward
-alone, the forward and backward (``value_and_grad``), the AdamW update,
-and within the backward one attention backward (the plain vjp) and the
-loss head (the f32 cross-entropy over the logits, forward and
-backward) — and ``--steps`` whole steps; then profiles one step under
+The full-width ``qwen2_05b`` (or ``--arch recurrentgemma_2b``) with its
+fused sites on the CUDA kernels, weights from a seed, at the train
+phase's shape and optimizer (``qwen2_05b``: B 4 x S 2048, the prefill
+path's shape; ``recurrentgemma_2b``: B 1 x S 4096, twice its local
+window, with bf16 moments), the config's remat.  Times (host clock around
+work that ends in a synchronize) the parts of a step apart — the loss's
+forward alone, the forward and backward (``value_and_grad``), the AdamW
+update, and within the backward one backward of each fused kernel the
+model runs (the plain vjp: attention, RG-LRU) and the loss head (the f32
+cross-entropy over the logits, forward and backward) — and ``--steps``
+whole steps; then profiles one step under
 ``torch.profiler``: the aten ops dispatched
 from Python, the work items the card ran, the card's busy time (the
 union of their intervals) and idle share, and the heaviest device
@@ -25,6 +28,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 from pathlib import Path
 
@@ -33,12 +37,19 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.profile_decode import _busy_us, _device_us
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.models.sharding import KernelDispatch, kernel_dispatch
 from repro_torch.optim import adam
 from repro_torch.train import steps as TS
 
-B, S = 4, 2048
 OPT = adam.AdamConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+# per model: batch x tokens and the optimizer of its train phase
+TRAIN = {
+    "qwen2_05b": ((4, 2048), OPT),
+    "recurrentgemma_2b": ((1, 4096), dataclasses.replace(
+        OPT, state_dtype="bfloat16")),
+}
 
 
 def _timed(fn, dev, n: int = 1) -> float:
@@ -58,35 +69,49 @@ def profile(arch: str, reduced: bool, steps: int, dev) -> dict:
     """Time and profile the train step of one model; returns the numbers."""
     from torch.profiler import ProfilerActivity
     cfg = get_config(arch)
-    b, s = B, S
+    (b, s), opt = TRAIN.get(arch, TRAIN["qwen2_05b"])
     if reduced:
         cfg, b, s = cfg.reduced(), 2, 64
     cfg = dataclasses.replace(cfg, use_pallas=True)
     gen = torch.Generator(device=dev).manual_seed(0)
-    state = TS.init_train_state(cfg, gen, OPT, device=dev)
+    state = TS.init_train_state(cfg, gen, opt, device=dev)
     toks = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
                          device=dev, dtype=torch.int32)
     batch = {"tokens": toks[:, :-1].contiguous(),
              "targets": toks[:, 1:].contiguous()}
     loss_fn = TS.make_loss_fn(cfg)
     grads_fn = TS.value_and_grad(loss_fn, remat=cfg.remat)
-    step = TS.make_train_step(cfg, OPT)
+    step = TS.make_train_step(cfg, opt)
     cuda = dev.type == "cuda"
+    # each fused kernel's backward sites per step: one per forward site
+    sites = {k: T.n_scan_blocks(cfg) * p + t
+             for k, (p, t) in T.kernel_sites(cfg).items()}
     with kernel_dispatch(KernelDispatch(default_impl="cuda")):
         with torch.no_grad():
             forward_ms = _timed(lambda: loss_fn(state.params, batch), dev)
         grads = grads_fn(state.params, batch)[2]
         fwd_bwd_ms = _timed(lambda: grads_fn(state.params, batch), dev)
         adam_ms = _timed(lambda: adam.apply_updates(
-            OPT, state.opt, state.params, grads), dev)
+            opt, state.opt, state.params, grads), dev)
         del grads
-        # one attention backward at the layer's shape, and the loss head
-        H, hd = cfg.num_heads, cfg.resolved_head_dim
-        q, k, v, do = (torch.randn((b, s, H, hd), generator=gen, device=dev,
-                                   dtype=cfg.dtype) for _ in range(4))
-        attn_bwd_ms = _timed(lambda: torch.ops.repro_torch.
-                             flash_attention_bwd(q, k, v, do, True), dev, 3)
-        del q, k, v, do
+        # one backward of each fused kernel at the layer's shape
+        bwd_ms = {}
+        if sites["flash_attention"]:
+            H, hd = cfg.num_heads, cfg.resolved_head_dim
+            q, k, v, do = (torch.randn((b, s, H, hd), generator=gen,
+                                       device=dev, dtype=cfg.dtype)
+                           for _ in range(4))
+            bwd_ms["flash_attention"] = _timed(
+                lambda: torch.ops.repro_torch.flash_attention_bwd(
+                    q, k, v, do, True), dev, 3)
+            del q, k, v, do
+        if sites["rg_lru"]:
+            a, x, dh = (torch.rand((b, s, L.rnn_width(cfg)), generator=gen,
+                                   device=dev) for _ in range(3))
+            bwd_ms["rg_lru"] = _timed(
+                lambda: torch.ops.repro_torch.rg_lru_bwd(a, x, dh), dev, 3)
+            del a, x, dh
+        # the loss head
         logits = torch.randn((b, s, cfg.vocab_size), generator=gen,
                              device=dev, dtype=cfg.dtype).requires_grad_()
 
@@ -116,8 +141,9 @@ def profile(arch: str, reduced: bool, steps: int, dev) -> dict:
                                      if cuda else "cpu"),
         "batch": b, "seq": s, "remat": cfg.remat, "steps": steps,
         "forward_ms": forward_ms, "forward_backward_ms": fwd_bwd_ms,
-        "adamw_ms": adam_ms, "attention_backward_ms": attn_bwd_ms,
-        "attention_backwards": cfg.num_layers, "loss_head_ms": head_ms,
+        "adamw_ms": adam_ms, "backward_ms": bwd_ms,
+        "backward_sites": {k: n for k, n in sites.items() if n},
+        "loss_head_ms": head_ms,
         "step_ms": step_ms,
         "profiled_step_ms": prof_ms, "aten_ops": len(top_ops),
         "device_items": len(dev_events),
@@ -145,6 +171,11 @@ def main(argv=None) -> None:
                     help="where to run (default: the CUDA card)")
     ap.add_argument("--out", default="results/train_profile.json")
     args = ap.parse_args(argv)
+    # read by the CUDA allocator at its first use: segments that grow in
+    # place keep the hybrid's step (two train states, its gradients and
+    # AdamW's f32 temporaries at once) from fragmenting the card
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     dev = resolve_device(args.device)
     r = profile(args.arch, args.reduced, args.steps, dev)
     busy = r["device_busy_ms"]
@@ -157,9 +188,11 @@ def main(argv=None) -> None:
           f"{r['forward_ms']:.3f}) + AdamW {r['adamw_ms']:.3f} ms; "
           f"{r['aten_ops']} aten ops, {r['device_items']} device items, "
           f"device {dev_txt}", flush=True)
-    print(f"[profile]   within: {r['attention_backwards']} attention "
-          f"backwards (plain vjp) x {r['attention_backward_ms']:.3f} ms, "
-          f"loss head forward+backward {r['loss_head_ms']:.3f} ms")
+    within = ", ".join(f"{n} {k} backwards (plain vjp) x "
+                       f"{r['backward_ms'][k]:.3f} ms"
+                       for k, n in r["backward_sites"].items())
+    print(f"[profile]   within: {within}, loss head forward+backward "
+          f"{r['loss_head_ms']:.3f} ms")
     for k in r["device_kernels"]:
         print(f"[profile]   device {k['name']}: {k['calls']} calls, "
               f"{k['ms']:.3f} ms")

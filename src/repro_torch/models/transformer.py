@@ -56,6 +56,23 @@ def n_scan_blocks(cfg) -> int:
     return cfg.num_layers // period
 
 
+def kernel_sites(cfg) -> dict[str, tuple[int, int]]:
+    """Per fused kernel, its call sites under ``use_pallas`` in the scanned
+    period and in the tail: an RG-LRU block calls the scan, full causal
+    attention flash attention, windowed attention none (its einsum
+    path)."""
+    def kernel(kind):
+        if kind == "rglru":
+            return "rg_lru"
+        window = cfg.sliding_window if kind == "attn" else cfg.local_window
+        return "flash_attention" if window == 0 else None
+
+    period, tail = block_kinds(cfg)
+    return {k: (sum(kernel(x) == k for x in period),
+                sum(kernel(x) == k for x in tail))
+            for k in ("flash_attention", "rg_lru")}
+
+
 def _check_ported(cfg, kind: str) -> None:
     if kind in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[kind])
@@ -261,8 +278,9 @@ def scan_layers(body, h, xs, *, with_ys=False, remat=False):
     With ``remat`` and gradients enabled, each eager iteration runs
     under ``torch.utils.checkpoint`` (non-reentrant): the backward
     recomputes the body.  The recomputations run under the site keys
-    that follow the forward's, as the traced train program holds the
-    recomputed body after the forward one (``core.autodiff``).
+    that follow the whole forward's (the tail layers' included), as the
+    traced train program holds the recomputed body in the backward
+    scan, after every forward site (``core.autodiff``).
     """
     step = body if with_ys else (lambda c, x: (body(c, x), ()))
     if torch.compiler.is_exporting():
@@ -274,8 +292,10 @@ def scan_layers(body, h, xs, *, with_ys=False, remat=False):
     mark = disp.mark() if disp is not None else None
     run = step
     if remat and torch.is_grad_enabled():
-        # the body rewinds to marks[0] in the forward pass and to
-        # marks[1] (set after the loop) when the backward recomputes it
+        # the body rewinds to marks[0] in the forward pass; after the
+        # loop a None stands for the counters at the forward's end, read
+        # when the backward first recomputes the body, and every
+        # recomputation rewinds to them
         marks = [mark]
 
         def rewound(c, x):
@@ -283,6 +303,8 @@ def scan_layers(body, h, xs, *, with_ys=False, remat=False):
             # CUDA tensors): install the forward's dispatch there
             with kernel_dispatch(disp, reset=False):
                 if disp is not None:
+                    if marks[-1] is None:
+                        marks[-1] = disp.mark()
                     disp.rewind(marks[-1])
                 return step(c, x)
 
@@ -296,7 +318,7 @@ def scan_layers(body, h, xs, *, with_ys=False, remat=False):
         h, y = run(h, pytree.tree_map(lambda a: a[i], xs))
         ys.append(y)
     if run is not step and disp is not None:
-        marks.append(disp.mark())
+        marks.append(None)
     if not with_ys:
         return h
     stacked = [torch.stack(col) for col in

@@ -10,7 +10,9 @@ Tolerances are those of ``tests/test_kernels.py``: 2e-5 for float32;
 2e-2 (attention) and 3e-2 (RG-LRU) for bfloat16.  Training through the
 attention kernel (its autograd: the kernel forward, the plain vjp back)
 is held to autograd of the plain attention with the same tolerances,
-and a small f32 model's gradients to its plain path within 1e-4.
+and a small f32 model's gradients to its plain path within 1e-4.  The
+RG-LRU kernel trains the same way (the kernel forward, the plain scan's
+vjp back), on both of its routes, and so does a small f32 hybrid.
 """
 
 import pytest
@@ -270,3 +272,73 @@ def test_rg_lru_tma_route_refuses_what_tma_cannot_take(gen):
     with pytest.raises(RuntimeError, match="tma route"):
         lru.launch(lru.build(), a, b, "tma")
     assert lru.route_launches == before
+
+
+def plain_lru_grads(a, b, dh):
+    a, b = (x.detach().requires_grad_() for x in (a, b))
+    out = lru.reference(a, b)
+    return out, torch.autograd.grad(out, (a, b), dh)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,route,strided", [
+    ((1, 4096, 3840), "tma", False), ((2, 1000, 256), "tma", False),
+    ((2, 300, 131), "generic", True), ((1, 64, 131), "generic", False)])
+def test_rg_lru_trains_through_the_kernel(gen, dtype, shape, route,
+                                          strided):
+    if strided:
+        # a and b as the halves of one packed tensor: rows of 2 x 131
+        # channels put the sequence stride off TMA's 16-byte grid
+        packed = torch.rand((*shape[:2], 2, shape[2]), generator=gen,
+                            device="cuda").to(dtype)
+        a, b = packed[:, :, 0], packed[:, :, 1]
+    else:
+        a, b = lru_inputs(gen, shape, dtype)
+    a, b = a.detach().requires_grad_(), b.detach().requires_grad_()
+    assert lru.route(a, b) == route
+    dh = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    before = dict(lru.route_launches)
+    calls = ops.rg_lru_bwd_calls
+    with kernel_dispatch(KernelDispatch(default_impl="cuda")):
+        out = ops.rg_lru(a, b)
+    got = torch.autograd.grad(out, (a, b), dh)
+    # the forward launched the kernel once, on its route; the backward
+    # ran the plain vjp
+    assert {r: n - before[r] for r, n in lru.route_launches.items()} == \
+        {r: int(r == route) for r in lru.ROUTES}
+    assert ops.rg_lru_bwd_calls == calls + 1
+    want_out, want = plain_lru_grads(a, b, dh)
+    tol = LRU_TOL[dtype]
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=tol,
+                               atol=tol)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.device.type == "cuda"
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+def test_small_hybrid_gradients_through_the_kernel(gen):
+    import dataclasses
+
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as TS
+    # two periods of (rglru, rglru, local) and a tail of two RG-LRU blocks
+    cfg = dataclasses.replace(get_config("recurrentgemma_2b").reduced(),
+                              num_layers=8, use_pallas=True, remat=True)
+    params = T.init_params(cfg, gen)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("targets", "tokens")}
+    grads = TS.value_and_grad(TS.make_loss_fn(cfg), remat=True)
+    before, calls = lru.launches, ops.rg_lru_bwd_calls
+    with kernel_dispatch(KernelDispatch(default_impl="cuda")):
+        got = grads(params, batch)
+    # 2 x 2 in the scanned bodies and 2 in the tail forward, the bodies'
+    # 4 again recomputed; one plain-vjp backward per forward site
+    assert lru.launches == before + 10
+    assert ops.rg_lru_bwd_calls == calls + 6
+    with kernel_dispatch(KernelDispatch(default_impl="ref")):
+        want = grads(params, batch)
+    for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)

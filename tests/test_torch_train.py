@@ -335,11 +335,18 @@ def test_attention_trains_through_the_custom_op(impl):
 
 
 def test_rg_lru_backward_names_its_roadmap_item():
+    # the backward of ROADMAP item 20: the op repro_torch::rg_lru_bwd,
+    # the plain scan's vjp
     a = torch.rand(1, 8, 4, requires_grad=True)
     b = torch.rand(1, 8, 4, requires_grad=True)
+    calls = ops.rg_lru_bwd_calls
     h = ops.rg_lru(a, b)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        h.sum().backward()
+    h.sum().backward()
+    assert ops.rg_lru_bwd_calls == calls + 1
+    da, db = torch.ops.repro_torch.rg_lru_bwd(a.detach(), b.detach(),
+                                               torch.ones_like(h))
+    torch.testing.assert_close(a.grad, da, rtol=0, atol=0)
+    torch.testing.assert_close(b.grad, db, rtol=0, atol=0)
 
 
 def test_remat_recomputes_under_the_following_site_keys():
@@ -414,12 +421,12 @@ def test_prefill_returns_a_fresh_b_by_vocab_tensor():
     torch.testing.assert_close(out, full[:, -1], rtol=0, atol=0)
 
 
-# the prefill programs of the parent tree: the copy lowers as an identity
-# and the softmax's detached shift as a mark, so they did not move
+# the prefill programs: the copy lowers as an identity and the softmax's
+# detached shift as a mark, so the train step does not move them
 PREFILL_FINGERPRINTS = {
-    "qwen2_05b": "9dc955da1c2139059bcd1bf858c0c75a29628f719aac3e783ebaeff35235b2a9",
-    "phi3_mini": "ce6e7a79518f825e1b90507c6972ec769f7cb0118fec41077aaf0138f577889d",
-    "recurrentgemma_2b": "d5e6e0b78b45682da90248379b2ffdc6474d9621300c83ca8e8b3e2bd6949e21",
+    "qwen2_05b": "226eb0717f8c3435f602cd01229853533001c0769532a376715bc1653fece8ac",
+    "phi3_mini": "cfdbae43ca286b31b7781f45822ff0c5ef6c5cbfca997b5b31db64344023884d",
+    "recurrentgemma_2b": "0958980ec55d1a8459b1afa4835377727f281819018344020d62bb9d9353e1e0",
 }
 
 

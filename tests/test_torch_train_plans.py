@@ -21,9 +21,8 @@ sets, resolution bits and communication bytes; costs within 2%.
 dead ops its trace never removed — ``jnp.take_along_axis``'s index
 fix-up, ``logsumexp``'s ``max(-inf, ·)`` and its JVP's tie weights, the
 unused ``sign`` — and its softmax the ``max(-inf, ·)`` before its
-``stop_gradient``; the port's iotas are int64 and its einsums keep their
-operand order.  So the two count a few colors apart, with the same
-conflicts and costs.
+``stop_gradient``; the port's iotas are int64.  So the two count a few
+colors apart, with the same conflicts and costs.
 
 *Fused sites.*  With ``use_pallas`` the forward body holds one
 ``kernel:flash_attention`` op, the backward body one
