@@ -23,29 +23,37 @@ for both models the train step, through each kernel's autograd.
    plan, check every kernel site chose ``"cuda"``, and apply it on the
    card with seeded random weights;
 4. answer 3 requests per path (qwen2_05b: 4 prompts x 2048 tokens;
-   recurrentgemma_2b: 4 x 4096, twice its local window), count each
-   kernel's launches from zero (RG-LRU: by route, all on the TMA ring),
-   and hold the last-token logits against the same requests with every
-   site forced to the plain version; check a small f32 model against the
-   plain path too;
+   recurrentgemma_2b: 4 x 4096, twice its local window) through the
+   applied plan, which captures the step as one CUDA graph on its first
+   call and replays it, and again through the same plan applied eagerly
+   (``capture=False``): the logits must be equal bit for bit; count each
+   kernel's launches from zero (each replay counted as the launches its
+   capture recorded; RG-LRU: by route, all on the TMA ring); time both in
+   turns; hold the last-token logits against the same requests with
+   every site forced to the plain version; check a small f32 model
+   against the plain path too;
 5. for each model's decode path (``launch/serve.py``, the same weights):
    trace and analyze the decode step at B = 4 and cache 256; search the
    2x4 plan with the serving launcher's request (it must satisfy its
    ``Replicate`` constraints and round-trip through JSON) and the 1x1
-   plan (no kernel sites), and apply the latter on the card; answer 3
-   requests of 4 prompts x 128 tokens, each prefilled token by token
-   through the decode step and then decoded greedily for 128 tokens,
-   with no kernel launched; hold the logits after the last prompt token
-   against the prefill step's (its 1x1 plan, sites on the CUDA kernels)
-   on the same prompts; print per-token times beside the step's
-   weight-read bound; check a small f32 model's decode logits at every
-   position against its forward through the kernels (the hybrid's local
-   ring wraps);
+   plan (no kernel sites), and apply the latter on the card, captured
+   (one graph for every step) and eager; answer 3 requests of 4 prompts
+   x 128 tokens, each prefilled token by token through the decode step
+   and then decoded greedily for 128 tokens, with no kernel launched,
+   captured and eager in turns: the tokens, the prompt logits and the
+   final cache must be equal bit for bit; hold the logits after the last
+   prompt token against the prefill step's (its 1x1 plan captured, sites
+   on the CUDA kernels) on the same prompts; print per-token times of
+   both beside the step's weight-read bound, each graph's capture
+   seconds and pool bytes; release every graph; check a small f32
+   model's decode logits at every position against its forward through
+   the kernels (the hybrid's local ring wraps);
 6. for the ``qwen2_05b`` train path (after its prefill and decode):
    trace and analyze the full-width train step (AdamW, the loss's
    gradient through the attention kernel's autograd, remat) on ``meta``
    tensors at the prefill path's shape; search the 2x4 plan (JSON round
-   trip) and the 1x1 plan, and apply the latter on the card; take step 1
+   trip) and the 1x1 plan, and apply the latter on the card, eagerly
+   (train steps are not captured yet); take step 1
    with every site on the plain version, then 8 steps through the
    kernels on one fixed batch from the seed, each timed, with its peak
    memory and its kernel launches (24 forward and 24 recomputed under
@@ -275,7 +283,7 @@ def lru_inputs(torch, gen, shape, dtype, lo=None, hi=None):
     return a.to(dtype), b.to(dtype)
 
 
-def drive_path(torch, cfg, shape, counters, kernel, per_request):
+def drive_path(torch, cfg, shape, counters, kernel, per_request, card):
     """Plan and serve one model's prefill path; returns its launches.
 
     Args:
@@ -284,6 +292,7 @@ def drive_path(torch, cfg, shape, counters, kernel, per_request):
         counters: kernel name -> its wrapper module (``launches``).
         kernel: the kernel this path runs.
         per_request: that kernel's launches in one request.
+        card: the card's name and power limit, for the time lines.
     """
     from repro_torch.api import Request, Session
     from repro_torch.configs import get_config
@@ -321,17 +330,27 @@ def drive_path(torch, cfg, shape, counters, kernel, per_request):
     log(f"[partition {name} 1x1] cost={plan1.cost:.6f} sites="
         + json.dumps(sites))
     applied = plan1.apply(step)
+    eager = plan1.apply(step, capture=False)
     params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     tgen = torch.Generator(device="cuda").manual_seed(1)
     requests = [{"tokens": torch.randint(0, cfg.vocab_size, (B, S),
                                          generator=tgen, device="cuda",
                                          dtype=torch.int32)}
                 for _ in range(REQUESTS)]
-    applied(params, requests[0])            # warm-up, not counted
-    torch.cuda.synchronize()
+    eager(params, requests[0])              # warm-up, not counted
+    graph = capture_once(torch, applied, f"{name} prefill B={B} S={S}",
+                         params, requests[0])
+    lru = counters["rg_lru"]
+    if graph.launches[kernel] != per_request or \
+            graph.warmup_launches[kernel] != per_request or \
+            any(graph.launches[k] for k in counters if k != kernel):
+        raise AssertionError(f"{name}: the graph recorded launches "
+                             f"{graph.launches}, its warm-up "
+                             f"{graph.warmup_launches}; expected "
+                             f"{per_request} {kernel}")
 
     def serve(fn, label):
-        outs = []
+        outs, times = [], []
         for i, req in enumerate(requests):
             torch.cuda.reset_peak_memory_stats()
             start = torch.cuda.Event(enable_timing=True)
@@ -346,34 +365,69 @@ def drive_path(torch, cfg, shape, counters, kernel, per_request):
                                      f"{tuple(logits.shape)} not finite "
                                      f"or misshapen")
             ids = logits.float().argmax(-1).tolist()
+            times.append(start.elapsed_time(end))
             log(f"[serve {name} {label}] request {i}: next tokens {ids} "
-                f"prefill {start.elapsed_time(end):.3f} ms, peak "
+                f"prefill {times[-1]:.3f} ms, peak "
                 f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
             outs.append(logits.float())
-        return outs
+        return outs, times
 
-    for mod in counters.values():
-        mod.launches = 0
-    lru = counters["rg_lru"]
-    lru.route_launches = dict.fromkeys(lru.ROUTES, 0)
-    kernel_logits = serve(applied, "cuda")
-    launches = {k: mod.launches for k, mod in counters.items()}
-    routes = dict(lru.route_launches)
-    want = {k: per_request * REQUESTS if k == kernel else 0
-            for k in counters}
-    if launches != want:
-        raise AssertionError(f"{name}: kernel launches {launches}, "
-                             f"expected {want}")
-    log(f"[serve {name}] {kernel} launches {launches[kernel]} = "
-        f"{per_request} x {REQUESTS}")
-    if routes != {"tma": launches["rg_lru"], "generic": 0}:
-        raise AssertionError(f"{name}: rg_lru launches by route {routes}, "
-                             f"expected all on the TMA ring")
+    def counted(fn, label):
+        """Serves the requests through ``fn``; its launches from zero,
+        each replay of the graph counted as the launches it recorded."""
+        for mod in counters.values():
+            mod.launches = 0
+        lru.route_launches = dict.fromkeys(lru.ROUTES, 0)
+        replays, captures = applied.replays, applied.captures
+        outs, times = serve(fn, label)
+        if applied.captures != captures:
+            raise AssertionError(f"{label}: a request captured a new graph")
+        launches = graph_launches(counters, applied, replays)
+        want = {k: per_request * REQUESTS if k == kernel else 0
+                for k in counters}
+        got = {k: launches[k] for k in counters}
+        routes = {r: launches[f"rg_lru.{r}"] for r in lru.ROUTES}
+        if got != want:
+            raise AssertionError(f"{name} {label}: kernel launches {got}, "
+                                 f"expected {want}")
+        if routes != {"tma": got["rg_lru"], "generic": 0}:
+            raise AssertionError(f"{name} {label}: rg_lru launches by "
+                                 f"route {routes}, expected all on the TMA "
+                                 f"ring")
+        log(f"[serve {name} {label}] {kernel} launches {got[kernel]} = "
+            f"{per_request} x {REQUESTS} ({applied.replays - replays} "
+            f"replays x {graph.launches[kernel]} recorded + "
+            f"{sum(mod.launches for mod in counters.values())} eager)")
+        return outs, times, got, routes
+
+    kernel_logits, cap_ms, launches, routes = counted(applied, "captured")
+    eager_logits, eager_ms, _, _ = counted(eager, "eager")
+    for i, (a, b) in enumerate(zip(kernel_logits, eager_logits)):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{name} request {i}: captured and eager logits differ, "
+                f"max|diff| {(a - b).abs().max().item():.3e}")
+        log(f"[serve {name}] request {i}: captured logits equal eager bit "
+            f"for bit")
+    # a second round in the other order, for the spread
+    eager_ms += serve(eager, "eager")[1]
+    cap_ms += serve(applied, "captured")[1]
+    if applied.captures != 1:
+        raise AssertionError(f"{name}: {applied.captures} captures of one "
+                             f"signature")
+    log(f"[prefill time] {card}: {name} B={B} S={S} per request, captured "
+        f"{fmt_ms(cap_ms)} (median {percentile(cap_ms, 0.5):.3f}), eager "
+        f"{fmt_ms(eager_ms)} (median {percentile(eager_ms, 0.5):.3f}); "
+        f"capture {graph.seconds:.3f} s, graph pool "
+        f"{graph.pool_bytes / 1e9:.3f} GB, {applied.replays} replays")
+    del graph, eager
+    applied.release()
     plain_plan = dataclasses.replace(
         plan1, kernel_sites=[{**r, "impl": "ref"}
                              for r in plan1.kernel_sites])
-    plain_logits = serve(plain_plan.apply(step), "plain")
-    if {k: mod.launches for k, mod in counters.items()} != launches:
+    before = {k: mod.launches for k, mod in counters.items()}
+    plain_logits = serve(plain_plan.apply(step, capture=False), "plain")[0]
+    if {k: mod.launches for k, mod in counters.items()} != before:
         raise AssertionError("the plain path launched a kernel")
     for i, (a, b) in enumerate(zip(kernel_logits, plain_logits)):
         rel = ((a - b).abs().max() / b.abs().max()).item()
@@ -406,6 +460,41 @@ def drive_path(torch, cfg, shape, counters, kernel, per_request):
     return launches[kernel], routes, params
 
 
+def fmt_ms(xs) -> str:
+    return "[" + ", ".join(f"{x:.3f}" for x in xs) + "] ms"
+
+
+def capture_once(torch, applied, label, *args):
+    """The first call of ``applied`` on ``args``: captures its one graph;
+    logs its seconds and its pool's bytes; returns the graph."""
+    if applied.captures:
+        raise AssertionError(f"{label}: captured before its first call")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_stats()["reserved_bytes.all.current"]
+    applied(*args)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()["reserved_bytes.all.current"]
+    (graph,) = applied.graphs
+    log(f"[capture {label}] 1 graph in {graph.seconds:.3f} s, pool "
+        f"{graph.pool_bytes / 1e9:.3f} GB (reserved {reserved / 1e9:.3f} -> "
+        f"{after / 1e9:.3f} GB), launches recorded "
+        f"{json.dumps(graph.launches)}, in its warm-up "
+        f"{json.dumps(graph.warmup_launches)}")
+    return graph
+
+
+def graph_launches(counters, applied, replays) -> dict:
+    """Kernel launches since the counters were zeroed: the wrappers'
+    counts plus each replay of ``applied``'s graphs since ``replays``
+    counted as the launches its capture recorded."""
+    from repro_torch.kernels.ops import launch_counts
+    counts = launch_counts()
+    n = applied.replays - replays
+    (graph,) = applied.graphs
+    return {k: counts[k] + n * graph.launches[k] for k in counts}
+
+
 def percentile(xs, q: float) -> float:
     """The ``q``-quantile of ``xs`` (linear between ranks)."""
     xs = sorted(xs)
@@ -431,6 +520,7 @@ def drive_decode(torch, cfg, params, counters, card) -> None:
         counters: kernel name -> its wrapper module (``launches``).
         card: the card's name and power limit, for the time lines.
     """
+    from repro_torch import pytree
     from repro_torch.api import Request, Session
     from repro_torch.configs import get_config
     from repro_torch.core.cost_model import MeshSpec
@@ -467,6 +557,7 @@ def drive_decode(torch, cfg, params, counters, card) -> None:
     log(f"[decode partition {name} 1x1] cost={plan1.cost:.6f} no kernel "
         f"sites")
     decode = plan1.apply(make_decode_step(cfg))
+    decode_eager = plan1.apply(make_decode_step(cfg), capture=False)
 
     # the prefill step on the same prompts, through its 1x1 plan
     pstep = make_prefill_step(cfg)
@@ -482,39 +573,75 @@ def drive_decode(torch, cfg, params, counters, card) -> None:
     prompts = [torch.randint(0, cfg.vocab_size, (B, P), generator=tgen,
                              device="cuda", dtype=torch.int32)
                for _ in range(REQUESTS)]
-    # warm-up, not counted
-    serve.serve_loop(decode, params,
+    # warm-up, not counted: eager, then the capture of the decode step's
+    # one signature (every prompt and generating step shares it)
+    serve.serve_loop(decode_eager, params,
                      T.init_cache(cfg, B, DECODE_MAX_SEQ), prompts[0][:, :4],
                      4)
+    graph = capture_once(torch, decode, f"{name} decode B={B} cache="
+                         f"{DECODE_MAX_SEQ}", params,
+                         T.init_cache(cfg, B, DECODE_MAX_SEQ),
+                         prompts[0][:, :1], torch.zeros((), dtype=torch.int32,
+                                                        device="cuda"))
+    if any(graph.launches.values()) or any(graph.warmup_launches.values()):
+        raise AssertionError(f"the decode graph recorded kernel launches "
+                             f"{graph.launches}")
     for mod in counters.values():
         mod.launches = 0
-    results, medians = [], []
+    replays = decode.replays
+    results = {"captured": [], "eager": []}
+    steps = {"captured": [], "eager": []}
     for i, pr in enumerate(prompts):
-        cache = T.init_cache(cfg, B, DECODE_MAX_SEQ)
-        torch.cuda.reset_peak_memory_stats()
-        res = serve.serve_loop(decode, params, cache, pr, DECODE_GEN)
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        if res.tokens.shape != (B, DECODE_GEN) or \
-                not torch.isfinite(res.prompt_logits).all() or \
-                not bool(((res.tokens >= 0) &
-                          (res.tokens < cfg.vocab_size)).all()):
-            raise AssertionError(f"decode request {i}: bad tokens or "
-                                 f"logits")
-        med = percentile(res.step_ms, 0.5)
-        medians.append(med)
-        log(f"[decode {name}] request {i}: prefill by decode {P} tokens "
-            f"{res.prefill_ms:.3f} ms ({res.prefill_ms / P:.3f} ms/token), "
-            f"decode {DECODE_GEN} tokens: median {med:.3f} ms/token, p90 "
-            f"{percentile(res.step_ms, 0.9):.3f} ms, peak {peak:.2f} GB; "
-            f"first tokens {res.tokens[0, :8].tolist()}")
-        results.append(res)
-    launches = {k: mod.launches for k, mod in counters.items()}
+        # in turns: captured first for even requests, eager for odd
+        order = ("captured", "eager") if i % 2 == 0 else ("eager", "captured")
+        for label in order:
+            fn = decode if label == "captured" else decode_eager
+            cache = T.init_cache(cfg, B, DECODE_MAX_SEQ)
+            torch.cuda.reset_peak_memory_stats()
+            res = serve.serve_loop(fn, params, cache, pr, DECODE_GEN)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            if res.tokens.shape != (B, DECODE_GEN) or \
+                    not torch.isfinite(res.prompt_logits).all() or \
+                    not bool(((res.tokens >= 0) &
+                              (res.tokens < cfg.vocab_size)).all()):
+                raise AssertionError(f"decode request {i} {label}: bad "
+                                     f"tokens or logits")
+            med = percentile(res.step_ms, 0.5)
+            steps[label] += res.step_ms
+            log(f"[decode {name} {label}] request {i}: prefill by decode {P} "
+                f"tokens {res.prefill_ms:.3f} ms ({res.prefill_ms / P:.3f} "
+                f"ms/token), decode {DECODE_GEN} tokens: median {med:.3f} "
+                f"ms/token, p90 {percentile(res.step_ms, 0.9):.3f} ms, peak "
+                f"{peak:.2f} GB; first tokens {res.tokens[0, :8].tolist()}")
+            results[label].append(res)
+    launches = graph_launches(counters, decode, replays)
+    launches = {k: launches[k] for k in counters}
     if any(launches.values()):
         raise AssertionError(f"the decode path launched kernels {launches}")
+    if decode.captures != 1 or \
+            decode.replays - replays != REQUESTS * (P + DECODE_GEN - 1):
+        raise AssertionError(f"decode: {decode.captures} captures, "
+                             f"{decode.replays - replays} replays")
     log(f"[decode {name}] kernel launches on the decode path: "
-        + json.dumps(launches))
+        + json.dumps(launches) + f" ({decode.replays - replays} replays of "
+        f"1 graph)")
+    for i, (got, want) in enumerate(zip(results["captured"],
+                                        results["eager"])):
+        same = {"tokens": torch.equal(got.tokens, want.tokens),
+                "prompt logits": torch.equal(got.prompt_logits,
+                                             want.prompt_logits),
+                "cache": all(torch.equal(a, b) for a, b in zip(
+                    pytree.tree_leaves(got.cache),
+                    pytree.tree_leaves(want.cache)))}
+        if not all(same.values()):
+            raise AssertionError(f"decode request {i}: captured and eager "
+                                 f"differ: {same}")
+        log(f"[decode {name}] request {i}: {B} x {DECODE_GEN} greedy tokens "
+            f"identical, prompt logits and the final cache "
+            f"({len(pytree.tree_leaves(got.cache))} leaves) equal bit for "
+            f"bit, captured vs eager")
 
-    for i, (pr, res) in enumerate(zip(prompts, results)):
+    for i, (pr, res) in enumerate(zip(prompts, results["captured"])):
         want = prefill(params, {"tokens": pr}).float()
         got = res.prompt_logits[:, 0].float()
         rel = ((got - want).abs().max() / want.abs().max()).item()
@@ -524,6 +651,13 @@ def drive_decode(torch, cfg, params, counters, card) -> None:
             f"{LOGITS_REL_TOL}), argmax agree {agree}/{B}")
         if rel > LOGITS_REL_TOL:
             raise AssertionError("decode and prefill logits disagree")
+    if prefill.captures != 1 or prefill.replays != REQUESTS:
+        raise AssertionError(f"prefill B={B} S={P}: {prefill.captures} "
+                             f"captures, {prefill.replays} replays")
+    (pgraph,) = prefill.graphs
+    log(f"[capture {name} prefill B={B} S={P}] 1 graph in "
+        f"{pgraph.seconds:.3f} s, pool {pgraph.pool_bytes / 1e9:.3f} GB, "
+        f"{prefill.replays} replays")
 
     # the bound: every weight read once (of the embedding table only the
     # B rows the step gathers) and the cache read once, at HBM rate
@@ -533,12 +667,21 @@ def drive_decode(torch, cfg, params, counters, card) -> None:
     c_bytes = tree_bytes(T.init_cache(cfg, B, DECODE_MAX_SEQ,
                                              device="meta"))
     bound_ms = (w_bytes + c_bytes) / PEAK_HBM_BYTES * 1e3
-    med = percentile(medians, 0.5)
+    times = []
+    for label in ("captured", "eager"):
+        med = percentile(steps[label], 0.5)
+        times.append(f"{label} median {med:.3f} ms, p90 "
+                     f"{percentile(steps[label], 0.9):.3f} ms = "
+                     f"{med / bound_ms:.1f}x the bound")
     log(f"[decode bound] {card}: {name} weights {w_bytes / 1e6:.2f} MB + "
         f"cache {c_bytes / 1e6:.2f} MB -> {bound_ms:.4f} ms per token at "
-        f"3.35 TB/s; measured median {med:.3f} ms per token = "
-        f"{med / bound_ms:.1f}x the bound")
-    del results, prefill, decode
+        f"3.35 TB/s; over {REQUESTS} x {DECODE_GEN - 1} steps each: "
+        + "; ".join(times) + f"; capture {graph.seconds:.3f} s, graph pool "
+        f"{graph.pool_bytes / 1e9:.3f} GB")
+    del results, graph, pgraph
+    decode.release()
+    prefill.release()
+    del prefill, decode, decode_eager
 
     # small f32 model: decode logits at every position vs its forward
     # through the kernels
@@ -647,10 +790,13 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw,
                              f"{got_sites}, expected {want_sites}")
     log(f"[train partition {name} 1x1] cost={plan1.cost:.6f} sites="
         + json.dumps(got_sites))
-    applied = plan1.apply(step)
+    # train steps run eagerly: a captured step would hold three train
+    # states (ROADMAP: train steps under capture with donated inputs)
+    applied = plan1.apply(step, capture=False)
     plain = dataclasses.replace(
         plan1, kernel_sites=[{**r, "impl": "ref"}
-                             for r in plan1.kernel_sites]).apply(step)
+                             for r in plan1.kernel_sites]).apply(
+                                 step, capture=False)
 
     state0 = TS.init_train_state(
         cfg, torch.Generator(device="cuda").manual_seed(seed), opt)
@@ -760,8 +906,8 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw,
         raise AssertionError("the small train step launched no kernel")
     with kernel_dispatch(KernelDispatch(default_impl="ref")):
         want = grads(sstate.params, sb)
-    got += splan.apply(sstep)(sstate, sb)
-    want += splain.apply(sstep)(sstate, sb)
+    got += splan.apply(sstep, capture=False)(sstate, sb)
+    want += splain.apply(sstep, capture=False)(sstate, sb)
     diff = 0.0
     for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
         torch.testing.assert_close(a, b, rtol=SMALL_TOL, atol=SMALL_TOL)
@@ -911,21 +1057,26 @@ def main(argv=None) -> int:
 
     # -- 3-7: plan and serve each path, prefill then decode; train ----
     fa_launches, _, params = drive_path(torch, qwen, QWEN_SHAPE, counters,
-                                        "flash_attention", qwen.num_layers)
+                                        "flash_attention", qwen.num_layers,
+                                        card)
     torch.cuda.empty_cache()
     drive_decode(torch, qwen, params, counters, card)
     del params
     torch.cuda.empty_cache()
+    log(f"[graphs released] before the train path: "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
     train = drive_train(torch, qwen, counters, card, opts.seed, TRAIN_SHAPE,
                         TRAIN_OPT)
     torch.cuda.empty_cache()
     n_lru = sum(k == "rglru" for k in hybrid.pattern)
     lru_launches, lru_routes, params = drive_path(
-        torch, hybrid, HYBRID_SHAPE, counters, "rg_lru", n_lru)
+        torch, hybrid, HYBRID_SHAPE, counters, "rg_lru", n_lru, card)
     torch.cuda.empty_cache()
     drive_decode(torch, hybrid, params, counters, card)
     del params
     torch.cuda.empty_cache()
+    log(f"[graphs released] before the train path: "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
     hybrid_train = drive_train(torch, hybrid, counters, card, opts.seed,
                                HYBRID_TRAIN_SHAPE, HYBRID_TRAIN_OPT,
                                HYBRID_SMALL_LAYERS)

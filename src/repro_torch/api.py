@@ -11,7 +11,8 @@ set::
     sess = Session(prefill_step, (param_specs, batch))   # analyze once
     plan = sess.partition(Request(mesh=MeshSpec(("data", "model"), (2, 4))))
     plan1 = sess.partition(Request(mesh=MeshSpec(("data", "model"), (1, 1))))
-    logits = plan1.apply(prefill_step)(params, batch)    # on the card
+    applied = plan1.apply(prefill_step)   # a CUDA graph per signature
+    logits = applied(params, batch)       # captured, then replayed
 
 - :class:`Session` traces (``torch.export`` on ``meta`` tensors) and
   analyzes the function **once**; every ``partition`` call reuses the
@@ -20,6 +21,12 @@ set::
   mesh, hardware, backend + config, ``min_dims`` pruning, logical dim
   names, and user constraints, which seed the search root and prune the
   action space so every backend inherits them.
+- ``plan.apply(fn)`` binds a one-device plan to ``fn``.  On the card it
+  captures each argument signature's step as a CUDA graph and replays
+  it, as the reference jits the step per signature;
+  ``plan.apply(fn, capture=False)`` runs it eagerly, op by op (the train
+  steps, and the eager side of a parity check); on the CPU it runs
+  eagerly.
 
 Not ported yet: the plan store, mesh co-search, ``plan_for_state``, the
 static verifier and learned guidance (ROADMAP queue 1, items 13-16).

@@ -48,6 +48,13 @@ bwd_calls = 0
 rg_lru_bwd_calls = 0
 
 
+def launch_counts() -> dict[str, int]:
+    """Each kernel wrapper's launches so far, and the RG-LRU's by route
+    (``"rg_lru.tma"``, ``"rg_lru.generic"``)."""
+    return {"flash_attention": fa.launches, "rg_lru": lru.launches,
+            **{f"rg_lru.{r}": n for r, n in lru.route_launches.items()}}
+
+
 def _check_impl(kernel: str, impl: str) -> None:
     if impl not in registry.KERNELS[kernel].impls:
         raise ValueError(f"unknown {kernel} impl {impl!r}")

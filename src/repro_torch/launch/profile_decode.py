@@ -7,10 +7,13 @@ greedy decode steps run once timed with CUDA events and once under
 dispatched from Python, the work items the card ran (kernels, copies,
 fills), the card's busy time (the union of their intervals) and its idle
 share, and the heaviest host ops and device kernels; writes the numbers
-as JSON.
+as JSON.  ``--capture`` profiles each model a second time through the
+decode step's one-device TOAST plan applied with capture (as
+``launch/serve.py --plan toast`` serves it): one CUDA graph, replayed
+for every token, beside the eager numbers.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \\
-        [--archs qwen2_05b recurrentgemma_2b] [--out FILE]
+        [--archs qwen2_05b recurrentgemma_2b] [--capture] [--out FILE]
 
 ``--device cpu --reduced`` runs it on the CPU at a small size, where no
 device number is taken.
@@ -27,7 +30,9 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.serve import serve_loop
+from repro_torch.core.cost_model import MeshSpec
+from repro_torch.launch.serve import (decode_request, decode_session,
+                                      serve_loop)
 from repro_torch.models import transformer as T
 from repro_torch.train.steps import make_decode_step
 
@@ -52,8 +57,13 @@ def _device_us(avg) -> float:
                    getattr(avg, "self_cuda_time_total", 0.0))
 
 
-def profile(arch: str, reduced: bool, steps: int, dev) -> dict:
-    """Profile ``steps`` decode steps of one model; returns the numbers."""
+def profile(arch: str, reduced: bool, steps: int, dev,
+            capture: bool = False) -> dict:
+    """Profile ``steps`` decode steps of one model; returns the numbers.
+
+    With ``capture`` the step runs through its one-device plan applied
+    with capture (a CUDA graph, replayed), else eagerly.
+    """
     from torch.profiler import ProfilerActivity
     cfg = get_config(arch)
     if reduced:
@@ -63,6 +73,11 @@ def profile(arch: str, reduced: bool, steps: int, dev) -> dict:
     prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen,
                             device=dev, dtype=torch.int32)
     dec = make_decode_step(cfg)
+    if capture:
+        sess, names = decode_session(cfg, B, MAX_SEQ)
+        plan = sess.partition(decode_request(
+            cfg, names, MeshSpec(("data", "model"), (1, 1))))
+        dec = plan.apply(dec, device=dev, capture=True)
     res = serve_loop(dec, params, T.init_cache(cfg, B, MAX_SEQ, device=dev),
                      prompts, 2)
     cache, pos0 = res.cache, PROMPT + 1
@@ -102,6 +117,9 @@ def profile(arch: str, reduced: bool, steps: int, dev) -> dict:
     out = {
         "arch": cfg.name, "device": (torch.cuda.get_device_name(dev)
                                      if cuda else "cpu"),
+        "mode": "captured" if capture else "eager",
+        "captures": dec.captures if capture else 0,
+        "capture_seconds": (dec.graphs[0].seconds if capture else None),
         "batch": B, "cache": MAX_SEQ, "steps": steps,
         "wall_ms_per_token": wall_ms,
         "profiled_wall_ms_per_token": prof_wall_ms,
@@ -133,24 +151,32 @@ def main(argv=None) -> None:
                     default=["qwen2_05b", "recurrentgemma_2b"])
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--capture", action="store_true",
+                    help="also profile the decode step captured as a CUDA "
+                         "graph (needs the card)")
     ap.add_argument("--device", default=None,
                     help="where to run (default: the CUDA card)")
     ap.add_argument("--out", default="results/decode_profile.json")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     rows = []
-    for arch in args.archs:
-        r = profile(arch, args.reduced, args.steps, dev)
+    modes = [False, True] if args.capture else [False]
+    for arch, capture in ((a, c) for a in args.archs for c in modes):
+        r = profile(arch, args.reduced, args.steps, dev, capture)
         rows.append(r)
         busy = r["device_busy_ms_per_token"]
         dev_txt = "not measured" if busy is None else \
             f"{busy:.3f} ms busy, idle share {r['device_idle_share']:.3f}"
-        print(f"[profile] {r['device']}: {r['arch']} B={B} cache={MAX_SEQ}: "
+        print(f"[profile] {r['device']}: {r['arch']} {r['mode']} B={B} "
+              f"cache={MAX_SEQ}: "
               f"{r['wall_ms_per_token']:.3f} ms per token "
               f"({r['profiled_wall_ms_per_token']:.3f} profiled), "
               f"{r['aten_ops_per_token']:.0f} aten ops and "
               f"{r['device_items_per_token']:.0f} device items per token, "
               f"device {dev_txt}", flush=True)
+        if capture:
+            print(f"[profile]   {r['captures']} capture in "
+                  f"{r['capture_seconds']:.3f} s, replayed for every token")
         for h in r["host_ops"][:6]:
             print(f"[profile]   host {h['name']}: {h['calls_per_token']:.0f}"
                   f" calls, {h['self_cpu_ms_per_token']:.3f} ms per token")

@@ -7,7 +7,10 @@ reference's serving launcher does.  ``--plan toast`` plans the decode
 step with TOAST first, through ``Session`` / ``Request`` with the
 reference serving launcher's request: the cache pinned ``Replicate`` (the
 classic serving layout: weights sharded, KV cache replicated per
-data-parallel group), and runs the one-device plan with ``plan.apply``.
+data-parallel group), and runs the one-device plan with ``plan.apply``,
+which on the card captures the decode step as one CUDA graph (the
+prompt's steps and the generating steps share its signature) and
+replays it for every token.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_05b \\
         --reduced --batch 4 --prompt-len 16 --gen 16 --plan toast \\
@@ -197,6 +200,9 @@ def main(argv=None) -> None:
     per_token = sum(res.step_ms) / max(len(res.step_ms), 1)
     print(f"prefill: {res.prefill_ms:.1f}ms  decode: {per_token:.2f}"
           f"ms/token")
+    if args.plan == "toast":
+        print(f"[toast] captures={dec.captures} replays={dec.replays} "
+              f"({'CUDA graph' if dec.capture else 'eager'})")
     for b in range(B):
         print(f"request {b}: prompt={prompts[b].cpu().numpy()[:8]}... "
               f"generated={out[b][:12]}...")

@@ -68,6 +68,18 @@ def tree_leaves(tree) -> list:
     return flatten_with_paths(tree)[0]
 
 
+def treedef(tree) -> Any:
+    """A hashable description of ``tree``'s structure (the reference's
+    treedef): container types and dict keys, with ``"*"`` at each leaf."""
+    if tree is None:
+        return None
+    kids = _children(tree)
+    if kids is None:
+        return "*"
+    return (type(tree), tuple(piece for piece, _ in kids),
+            tuple(treedef(child) for _, child in kids))
+
+
 def unflatten(template, leaves) -> Any:
     """Rebuild ``template``'s structure with ``leaves`` in flatten order.
 

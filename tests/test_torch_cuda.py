@@ -342,3 +342,180 @@ def test_small_hybrid_gradients_through_the_kernel(gen):
         want = grads(params, batch)
     for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+# --- plan.apply captured as CUDA graphs ------------------------------------
+
+
+def small_config(arch, dtype):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch).reduced(), use_pallas=True,
+                               param_dtype=dtype)
+
+
+def prefill_plan(cfg, B, S):
+    """The small model's prefill step and its one-device plan."""
+    from repro_torch.api import Request, Session
+    from repro_torch.core.cost_model import MeshSpec
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_prefill_step
+    step = make_prefill_step(cfg)
+    plan = Session(step, (T.param_specs(cfg), {"tokens": torch.empty(
+        (B, S), dtype=torch.int32, device="meta")})).partition(
+            Request(mesh=MeshSpec(("data", "model"), (1, 1))))
+    return step, plan
+
+
+def tokens(gen, cfg, B, S):
+    return {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                    device="cuda", dtype=torch.int32)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,kernel", [("qwen2_05b", "flash_attention"),
+                                         ("recurrentgemma_2b", "rg_lru")])
+def test_captured_prefill_equals_eager_bit_for_bit(gen, arch, kernel, dtype):
+    """Both kernels run inside a graph: the replay of the small prefill
+    step equals its eager run exactly, request by request."""
+    from repro_torch.models import transformer as T
+    cfg = small_config(arch, dtype)
+    step, plan = prefill_plan(cfg, 2, 64)
+    params = T.init_params(cfg, gen)
+    captured = plan.apply(step)
+    eager = plan.apply(step, capture=False)
+    assert captured.capture and not eager.capture
+    for _ in range(3):
+        batch = tokens(gen, cfg, 2, 64)
+        got = captured(params, batch)
+        want = eager(params, batch)
+        assert got.dtype == cfg.dtype and got.shape == (2, cfg.vocab_size)
+        assert torch.equal(got, want)
+    assert captured.captures == 1 and captured.replays == 3
+    (graph,) = captured.graphs
+    sites = sum(k == ("attn" if kernel == "flash_attention" else "rglru")
+                for k in cfg.pattern[:cfg.num_layers])
+    assert sites > 0
+    assert graph.launches[kernel] == graph.warmup_launches[kernel] == sites
+    assert graph.pool_bytes > 0 and graph.seconds > 0
+
+
+@pytest.mark.parametrize("arch", ["qwen2_05b", "recurrentgemma_2b"])
+def test_captured_decode_equals_eager_for_16_steps(gen, arch):
+    """8 prompt tokens and 8 greedy tokens through one captured decode
+    graph: the same tokens, prompt logits and final cache as eager."""
+    from repro_torch import pytree
+    from repro_torch.core.cost_model import MeshSpec
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_decode_step
+    cfg = small_config(arch, "float32")
+    B, P, G, max_seq = 2, 8, 8, 32
+    sess, names = serve.decode_session(cfg, B, max_seq)
+    plan = sess.partition(serve.decode_request(
+        cfg, names, MeshSpec(("data", "model"), (1, 1))))
+    params = T.init_params(cfg, gen)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    captured = plan.apply(make_decode_step(cfg))
+    got = serve.serve_loop(captured, params, T.init_cache(cfg, B, max_seq),
+                           prompts, G)
+    want = serve.serve_loop(plan.apply(make_decode_step(cfg),
+                                       capture=False),
+                            params, T.init_cache(cfg, B, max_seq), prompts, G)
+    assert captured.captures == 1 and captured.replays == P + G - 1
+    assert not any(captured.graphs[0].launches.values())
+    assert torch.equal(got.tokens, want.tokens)
+    assert torch.equal(got.prompt_logits, want.prompt_logits)
+    for a, b in zip(pytree.tree_leaves(got.cache),
+                    pytree.tree_leaves(want.cache)):
+        assert torch.equal(a, b)
+
+
+def test_a_kept_result_is_not_overwritten_by_the_next_call(gen):
+    from repro_torch.models import transformer as T
+    cfg = small_config("qwen2_05b", "float32")
+    step, plan = prefill_plan(cfg, 2, 64)
+    params = T.init_params(cfg, gen)
+    applied = plan.apply(step)
+    first = applied(params, tokens(gen, cfg, 2, 64))
+    kept = first.clone()
+    second = applied(params, tokens(gen, cfg, 2, 64))
+    assert torch.equal(first, kept) and not torch.equal(first, second)
+    assert first.data_ptr() not in [o.data_ptr()
+                                    for o in applied.graphs[0].outputs]
+
+
+def test_a_new_shape_makes_a_second_capture(gen):
+    from repro_torch.models import transformer as T
+    cfg = small_config("qwen2_05b", "float32")
+    step, plan = prefill_plan(cfg, 2, 64)
+    params = T.init_params(cfg, gen)
+    applied = plan.apply(step)
+    eager = plan.apply(step, capture=False)
+    for S in (64, 32, 64, 32):
+        batch = tokens(gen, cfg, 2, S)
+        assert torch.equal(applied(params, batch), eager(params, batch))
+    assert applied.captures == 2 and len(applied.graphs) == 2
+    assert [g.replays for g in applied.graphs] == [2, 2]
+
+
+def test_a_moved_input_is_copied_and_an_unchanged_parameter_is_not(gen):
+    """The parameters (the first argument) are read in place while the
+    caller passes the same tensors; the other leaves are copied into the
+    plan's buffers; no caller's tensor is written.  A parameter that
+    arrives as another tensor is copied from then on (one new capture)."""
+    from repro_torch.api import Request, Session
+    from repro_torch.core.cost_model import MeshSpec
+
+    def step(p, x):
+        return torch.tanh(x @ p["w"]) + p["b"]
+
+    plan = Session(step, ({"w": torch.empty((32, 16), device="meta"),
+                           "b": torch.empty((16,), device="meta")},
+                          torch.empty((8, 32), device="meta"))).partition(
+        Request(mesh=MeshSpec(("data", "model"), (1, 1)), min_dims=1,
+                backend="greedy"))
+    params = {"b": torch.randn((16,), generator=gen, device="cuda"),
+              "w": torch.randn((32, 16), generator=gen, device="cuda")}
+    applied = plan.apply(step)
+    xs = [torch.randn((8, 32), generator=gen, device="cuda")
+          for _ in range(3)]
+    versions = [t._version for t in (*params.values(), *xs)]
+    for x in xs:
+        assert torch.equal(applied(params, x), step(params, x))
+    (graph,) = applied.graphs
+    # flattening order: b, w, x
+    assert graph.held == [True, True, False]
+    assert graph.inputs[0] is params["b"] and graph.inputs[1] is params["w"]
+    assert graph.inputs[2].data_ptr() not in [x.data_ptr() for x in xs]
+    assert graph.inputs[2]._version >= len(xs)       # copied into, each call
+    assert [t._version for t in (*params.values(), *xs)] == versions
+    moved = {"b": params["b"], "w": params["w"].clone()}
+    assert torch.equal(applied(moved, xs[0]), step(moved, xs[0]))
+    assert applied.captures == 2
+    assert applied.graphs[0].held == [True, False, False]
+    moved["w"].mul_(2.0)                              # copied, not held
+    assert torch.equal(applied(moved, xs[1]), step(moved, xs[1]))
+    assert applied.captures == 2
+
+
+def test_release_returns_the_pool_memory(gen):
+    from repro_torch.models import transformer as T
+    cfg = small_config("recurrentgemma_2b", "float32")
+    step, plan = prefill_plan(cfg, 2, 64)
+    params = T.init_params(cfg, gen)
+    applied = plan.apply(step)
+    applied(params, tokens(gen, cfg, 2, 64))
+    (graph,) = applied.graphs
+    pool = graph.pool_bytes
+    assert pool > 0
+    del graph
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    applied.release()
+    torch.cuda.empty_cache()
+    assert applied.graphs == [] and not applied._cache
+    assert held - torch.cuda.memory_reserved() >= pool
