@@ -8,8 +8,10 @@ attention sites on the hand-written CUDA flash-attention kernel, and the
 the hand-written CUDA RG-LRU kernel (its TMA-ring route; the generic
 route takes strides TMA cannot describe); for both models the decode
 step with its KV and recurrent caches, planned with the serving launcher's
-request (the KV cache pinned replicated) and served token by token; and
-for both models the train step, through each kernel's autograd.
+request (the KV cache pinned replicated) and served token by token; for
+both models the train step, through each kernel's autograd, captured with
+its state donated; and the training launcher, with checkpoints, a failure
+and a restart.
 
 1. print the card's name and power limit; build both kernels from the
    sources in this checkout, in parallel;
@@ -52,21 +54,34 @@ for both models the train step, through each kernel's autograd.
    trace and analyze the full-width train step (AdamW, the loss's
    gradient through the attention kernel's autograd, remat) on ``meta``
    tensors at the prefill path's shape; search the 2x4 plan (JSON round
-   trip) and the 1x1 plan, and apply the latter on the card, eagerly
-   (train steps are not captured yet); take step 1
-   with every site on the plain version, then 8 steps through the
-   kernels on one fixed batch from the seed, each timed, with its peak
-   memory and its kernel launches (24 forward and 24 recomputed under
-   remat) and plain-vjp backward sites counted from zero; the loss must
-   stay finite and fall; hold step 1 through the kernels against step 1
-   on the plain version (loss and grad norm), and a small f32 model's
-   loss, gradients and updated state likewise;
-7. the same for the ``recurrentgemma_2b`` train path (after its prefill
-   and decode, the ``qwen2_05b`` train states freed): the full-width step
-   at B 1 x S 4096 with bf16 moments, whose RG-LRU sites launch the
-   kernel 18 times forward (8 periods of 2 and the tail's 2) and 16
-   times recomputed, all on the TMA ring, with 18 plain-vjp backwards;
-   its small f32 model has two periods and the tail (8 layers);
+   trip) and the 1x1 plan; take step 1 with every site on the plain
+   version; then 8 steps through the kernels on one fixed batch from the
+   seed, first captured with the train state donated
+   (``plan.apply(step, donate_argnums=0)``: one CUDA graph that writes
+   each new state into the old one's buffers) and then eagerly from the
+   same state, each step timed, with its peak memory, its kernel
+   launches (24 forward and 24 recomputed under remat; a replay counted
+   as the launches its capture recorded) and plain-vjp backward sites;
+   every loss and grad norm and the final state (kept on the host) must
+   be equal captured and eager, bit for bit, or within two eager runs'
+   spread; the loss must stay finite and fall; hold step 1 through the
+   kernels against step 1 on the plain version (loss and grad norm), and
+   a small f32 model's loss, gradients and updated state likewise;
+6b. the training launcher (``launch/train.py``) on ``qwen2_05b`` at the
+   same shape: 6 steps from the seed's weights and data pipeline
+   uninterrupted (``--plan manual``), then again with ``--plan toast``,
+   a checkpoint every 3 steps and a failure injected at step 4: attempt
+   1 must resume from
+   step 3, each attempt capture one graph, and the final checkpoint
+   equal the uninterrupted run's final state bit for bit; the seconds
+   and bytes of each save and restore are printed;
+7. the same as 6 for the ``recurrentgemma_2b`` train path (after its
+   prefill and decode, the ``qwen2_05b`` train states freed): the
+   full-width step at B 1 x S 4096 with bf16 moments, whose RG-LRU sites
+   launch the kernel 18 times forward (8 periods of 2 and the tail's 2)
+   and 16 times recomputed, all on the TMA ring, with 18 plain-vjp
+   backwards; its small f32 model has two periods and the tail (8
+   layers);
 8. time each kernel at its slice shape beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` (a
    yardstick only: the port never calls it); time the attention kernel
@@ -81,7 +96,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py [--seed N]``
 CUDA card (sm_90a) and ``nvcc``; exits non-zero, printing no result,
 without them.  Any failed check raises.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it holds
-the kernel measurements as JSON.
+the kernel measurements as JSON, and the one before that the script's
+total seconds.
 """
 
 from __future__ import annotations
@@ -136,6 +152,12 @@ HYBRID_TRAIN_SHAPE = (1, 4096)
 HYBRID_TRAIN_OPT = dict(TRAIN_OPT, state_dtype="bfloat16")
 # its small f32 model: two periods of (rglru, rglru, local) and a tail
 HYBRID_SMALL_LAYERS = 8
+# the training launcher at full width (qwen2_05b at TRAIN_SHAPE): steps,
+# a checkpoint every LAUNCH_CKPT_EVERY steps, a failure injected at step
+# LAUNCH_FAIL_AT of the first attempt
+LAUNCH_STEPS = 6
+LAUNCH_CKPT_EVERY = 3
+LAUNCH_FAIL_AT = 4
 # step 1 through the kernel vs through the plain version: loss and grad
 # norm, relative (bf16)
 TRAIN_REL_TOL = 2e-2
@@ -495,6 +517,20 @@ def graph_launches(counters, applied, replays) -> dict:
     return {k: counts[k] + n * graph.launches[k] for k in counts}
 
 
+def state_diffs(torch, host, state) -> dict:
+    """Per leaf path of ``state``: max |host leaf - leaf|, 0.0 where the
+    two are equal bit for bit (``host``: the leaves of another state,
+    copied to the host, in flattening order)."""
+    from repro_torch import pytree
+    leaves, paths = pytree.flatten_with_paths(state)
+    out = {}
+    for path, h, x in zip(paths, host, leaves):
+        x = x.cpu()
+        out[path] = 0.0 if torch.equal(h, x) else \
+            (h.double() - x.double()).abs().max().item()
+    return out
+
+
 def percentile(xs, q: float) -> float:
     """The ``q``-quantile of ``xs`` (linear between ranks)."""
     xs = sorted(xs)
@@ -790,30 +826,35 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw,
                              f"{got_sites}, expected {want_sites}")
     log(f"[train partition {name} 1x1] cost={plan1.cost:.6f} sites="
         + json.dumps(got_sites))
-    # train steps run eagerly: a captured step would hold three train
-    # states (ROADMAP: train steps under capture with donated inputs)
-    applied = plan1.apply(step, capture=False)
+    # captured with the state donated (the graph writes each new state
+    # into the old one's buffers), and eagerly, each from the same state
+    applied = plan1.apply(step, donate_argnums=0)
+    eager = plan1.apply(step, capture=False)
     plain = dataclasses.replace(
         plan1, kernel_sites=[{**r, "impl": "ref"}
                              for r in plan1.kernel_sites]).apply(
                                  step, capture=False)
 
-    state0 = TS.init_train_state(
-        cfg, torch.Generator(device="cuda").manual_seed(seed), opt)
+    def init_state():
+        return TS.init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(seed), opt)
+
     tgen = torch.Generator(device="cuda").manual_seed(seed + 1)
     tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=tgen,
                            device="cuda", dtype=torch.int32)
     batch = {"tokens": tokens[:, :-1].contiguous(),
              "targets": tokens[:, 1:].contiguous()}
-    applied(state0, batch)                       # warm-up, not counted
-    torch.cuda.synchronize()
     lru = counters["rg_lru"]
 
     def run(fn, state, label, i):
+        """One step through ``fn``; its kernel launches from zero, a
+        capture's warm-up and recording taken out and each replay counted
+        as the launches its graph recorded."""
         for mod in counters.values():
             mod.launches = 0
         lru.route_launches = dict.fromkeys(lru.ROUTES, 0)
         ops.bwd_calls = ops.rg_lru_bwd_calls = 0
+        captures, replays = fn.captures, fn.replays
         torch.cuda.reset_peak_memory_stats()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -821,50 +862,123 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw,
         state, m = fn(state, batch)
         end.record()
         torch.cuda.synchronize()
-        launches = {k: mod.launches for k, mod in counters.items()}
+        counts = ops.launch_counts()
+        if fn.capture:
+            (graph,) = fn.graphs
+            if fn.captures != captures:
+                counts = {k: v - graph.warmup_launches[k] - graph.launches[k]
+                          for k, v in counts.items()}
+            if any(counts.values()):
+                raise AssertionError(f"{label} step {i}: launches outside "
+                                     f"the graph {counts}")
+            counts = {k: (fn.replays - replays) * graph.launches[k]
+                      for k in counts}
         row = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
                "ms": start.elapsed_time(end),
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "launches": launches, "routes": dict(lru.route_launches),
-               "bwd": {"flash_attention": ops.bwd_calls,
-                       "rg_lru": ops.rg_lru_bwd_calls}}
+               "launches": {k: counts[k] for k in counters},
+               "routes": {r: counts[f"rg_lru.{r}"] for r in lru.ROUTES},
+               "bwd": {k: counts[f"{k}_bwd"] for k in counters}}
         log(f"[train {name} {label}] step {i}: loss {row['loss']:.6f} "
             f"grad_norm {row['grad_norm']:.6f} {row['ms']:.3f} ms, peak "
-            f"{row['peak_gb']:.2f} GB, launches {json.dumps(launches)}, "
-            f"rg_lru by route {json.dumps(row['routes'])}, backward "
-            f"sites (plain vjp) {json.dumps(row['bwd'])}")
+            f"{row['peak_gb']:.2f} GB, launches "
+            f"{json.dumps(row['launches'])}, rg_lru by route "
+            f"{json.dumps(row['routes'])}, backward sites (plain vjp) "
+            f"{json.dumps(row['bwd'])}")
         return state, row
 
     want_launches = {k: sites[k]["launches"] for k in counters}
     want_bwd = {k: sites[k]["forward"] for k in counters}
-    # step 1 with every site on the plain version first: its new state is
-    # dropped before the kernel steps, so that no more than two train
-    # states are ever held
-    prow = run(plain, state0, "plain", 1)[1]
+
+    def steps(fn, state, label):
+        rows = []
+        for i in range(1, TRAIN_STEPS + 1):
+            state, row = run(fn, state, label, i)
+            if row["launches"] != want_launches or \
+                    row["bwd"] != want_bwd or \
+                    row["routes"] != {"tma": want_launches["rg_lru"],
+                                      "generic": 0}:
+                raise AssertionError(
+                    f"{label} step {i}: launches {row['launches']} (rg_lru "
+                    f"by route {row['routes']}), backward sites "
+                    f"{row['bwd']}; expected {want_launches}, all on the "
+                    f"TMA ring, and {want_bwd}")
+            rows.append(row)
+        return state, rows
+
+    # step 1 with every site on the plain version first (it also warms
+    # the eager path up); its new state is dropped before the kernel
+    # steps, so that no more than two train states are ever held
+    state = init_state()
+    prow = run(plain, state, "plain", 1)[1]
     if any(prow["launches"].values()) or prow["bwd"] != want_bwd:
         raise AssertionError("the plain train step launched a kernel")
-    rows, state = [], state0
-    for i in range(1, TRAIN_STEPS + 1):
-        state, row = run(applied, state, "cuda", i)
-        if i == 1:
-            del state0
-        if row["launches"] != want_launches or row["bwd"] != want_bwd or \
-                row["routes"] != {"tma": want_launches["rg_lru"],
-                                  "generic": 0}:
-            raise AssertionError(
-                f"step {i}: launches {row['launches']} (rg_lru by route "
-                f"{row['routes']}), backward sites {row['bwd']}; expected "
-                f"{want_launches}, all on the TMA ring, and {want_bwd}")
-        rows.append(row)
-    del state
+    # captured: the first call warms up, captures and replays step 1
+    mine = pytree.tree_leaves(state)
+    state, cap_rows = steps(applied, state, "captured")
+    if applied.captures != 1 or applied.replays != TRAIN_STEPS or \
+            any(a is not b for a, b in zip(pytree.tree_leaves(state), mine)):
+        raise AssertionError(f"captured: {applied.captures} captures, "
+                             f"{applied.replays} replays, or the state "
+                             f"did not come back in place")
+    (graph,) = applied.graphs
+    torch.cuda.synchronize()
+    cap_mem = {"peak_gb": max(r["peak_gb"] for r in cap_rows[1:]),
+               "pool_gb": graph.pool_bytes / 1e9,
+               "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+    log(f"[capture {name} train B={B} S={S}] 1 graph in "
+        f"{graph.seconds:.3f} s, pool {cap_mem['pool_gb']:.3f} GB, "
+        f"{len(graph.pairs)} donated leaves written back in the graph, "
+        f"launches recorded {json.dumps(graph.launches)}; step 1 (warm-up, "
+        f"capture, replay) peak {cap_rows[0]['peak_gb']:.2f} GB")
+    # the captured final state goes to the host: two of the hybrid's
+    # train states beside its step do not fit on the card
+    host = [x.cpu() for x in pytree.tree_leaves(state)]
+    applied.release()
+    del state, mine, graph
+    torch.cuda.empty_cache()
+    state, eager_rows = steps(eager, init_state(), "eager")
+    eager_mem = {"peak_gb": max(r["peak_gb"] for r in eager_rows[1:]),
+                 "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+    diffs = state_diffs(torch, host, state)
+    same = all(c[k] == e[k] for c, e in zip(cap_rows, eager_rows)
+               for k in ("loss", "grad_norm")) and not any(diffs.values())
+    if not same:
+        # an op with atomics would make two eager runs differ too: the
+        # captured run may differ from eager by no more than that
+        host_eager = [x.cpu() for x in pytree.tree_leaves(state)]
+        del state
+        torch.cuda.empty_cache()
+        state, again = steps(eager, init_state(), "eager again")
+        noise = state_diffs(torch, host_eager, state)
+        worse = [p for p, d in diffs.items() if d > noise[p]] + [
+            f"step {i + 1} {k}" for i, (c, e, a) in
+            enumerate(zip(cap_rows, eager_rows, again))
+            for k in ("loss", "grad_norm")
+            if abs(c[k] - e[k]) > abs(a[k] - e[k])]
+        log(f"[train {name}] captured vs eager differ in "
+            f"{sum(d > 0 for d in diffs.values())} leaves, eager vs eager "
+            f"in {sum(d > 0 for d in noise.values())}: "
+            + json.dumps({p: [diffs[p], noise[p]] for p in diffs
+                          if diffs[p] or noise[p]}))
+        if worse:
+            raise AssertionError(f"captured differs from eager beyond two "
+                                 f"eager runs' spread: {worse}")
+        del host_eager
+    del state, host
+    torch.cuda.empty_cache()
+    log(f"[train {name}] captured (donated) and eager: {TRAIN_STEPS} losses "
+        f"and grad norms and the final state ({len(diffs)} leaves) "
+        + ("equal bit for bit" if same else "within two eager runs' "
+           "spread"))
     for key in ("loss", "grad_norm"):
-        rel = abs(rows[0][key] - prow[key]) / abs(prow[key])
-        log(f"[train {name}] step 1 {key}: kernel {rows[0][key]:.6f} vs "
+        rel = abs(cap_rows[0][key] - prow[key]) / abs(prow[key])
+        log(f"[train {name}] step 1 {key}: kernel {cap_rows[0][key]:.6f} vs "
             f"plain {prow[key]:.6f}, rel {rel:.3e} (tol {TRAIN_REL_TOL})")
         if rel > TRAIN_REL_TOL:
             raise AssertionError(f"train step 1 {key}: kernel and plain "
                                  f"disagree")
-    losses = [r["loss"] for r in rows]
+    losses = [r["loss"] for r in cap_rows]
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         raise AssertionError(f"train losses {losses} not finite or not "
                              f"falling")
@@ -874,10 +988,16 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw,
         f"forward + {v['tail']} tail + {n * v['period'] * cfg.remat} "
         f"recomputed (remat), {want_bwd[k]} backward sites on the plain "
         f"vjp" for k, v in sites.items() if v["forward"])
+    med = {label: percentile([r["ms"] for r in rows[1:]], 0.5)
+           for label, rows in (("captured", cap_rows),
+                               ("eager", eager_rows))}
     log(f"[train {name}] {card}: {TRAIN_STEPS} steps, loss {losses[0]:.6f} "
-        f"-> {losses[-1]:.6f}; {per}; median step "
-        f"{percentile([r['ms'] for r in rows], 0.5):.3f} ms, peak "
-        f"{max(r['peak_gb'] for r in rows):.2f} GB")
+        f"-> {losses[-1]:.6f}; {per}; steps 2-{TRAIN_STEPS}: captured median "
+        f"{med['captured']:.3f} ms, peak allocated {cap_mem['peak_gb']:.2f} "
+        f"GB + pool {cap_mem['pool_gb']:.2f} GB, reserved "
+        f"{cap_mem['reserved_gb']:.2f} GB; eager median {med['eager']:.3f} "
+        f"ms, peak {eager_mem['peak_gb']:.2f} GB, reserved "
+        f"{eager_mem['reserved_gb']:.2f} GB")
 
     # small f32 model (remat on, as the full one): loss, every gradient
     # leaf and the updated state, kernel sites vs plain sites
@@ -916,7 +1036,104 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw,
         f"loss, {len(pytree.tree_leaves(sstate.params))} gradient leaves "
         f"and the updated state, kernel vs plain: max|diff| {diff:.3e} "
         f"(tol {SMALL_TOL}) ok")
-    return {"launches_per_step": want_launches, "steps": rows}
+    return {"launches_per_step": want_launches, "steps": cap_rows}
+
+
+def drive_launcher(torch, cfg, counters, card, seed: int) -> None:
+    """Train ``cfg`` through the training launcher (``launch/train.py``):
+    once uninterrupted (``--plan manual``, the plan-free ``jit``), and
+    once with ``--plan toast``, a failure injected and a restart from the
+    latest checkpoint; the second run's final checkpoint must equal the
+    first run's final state bit for bit.
+
+    Args:
+        cfg: the full-width model configuration (``use_pallas`` set).
+        counters: kernel name -> its wrapper module (``launches``).
+        card: the card's name and power limit, for the summary line.
+        seed: the seed of the weights and the data pipeline.
+    """
+    import shutil
+    import tempfile
+
+    from repro_torch import pytree
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.launch import train as launcher
+
+    B, S = TRAIN_SHAPE
+    name = cfg.name
+    common = ["--arch", name, "--batch", str(B), "--seq", str(S),
+              "--steps", str(LAUNCH_STEPS), "--seed", str(seed),
+              "--log-every", "1"]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        for mod in counters.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        # the plan-free jit (no trace); its one checkpoint, the last
+        # step's, is not read
+        (whole,) = launcher.supervise(cfg, launcher.parse_args(
+            common + ["--plan", "manual", "--ckpt-dir", str(tmp / "whole"),
+                      "--ckpt-every", str(LAUNCH_STEPS)]))
+        whole_s = time.perf_counter() - t0
+        shutil.rmtree(tmp / "whole")
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        t0 = time.perf_counter()
+        attempts = launcher.supervise(cfg, launcher.parse_args(
+            common + ["--plan", "toast", "--ckpt-dir", str(tmp / "run"),
+                      "--ckpt-every", str(LAUNCH_CKPT_EVERY), "--fail-at",
+                      str(LAUNCH_FAIL_AT)]))
+        run_s = time.perf_counter() - t0
+        launches = {k: mod.launches for k, mod in counters.items()}
+        runs = attempts + [whole]
+        if len(attempts) != 2 or \
+                attempts[0].error != "RuntimeError: injected node failure" \
+                or attempts[1].start_step != LAUNCH_CKPT_EVERY or \
+                [a.replays for a in runs] != [
+                    LAUNCH_FAIL_AT, LAUNCH_STEPS - LAUNCH_CKPT_EVERY,
+                    LAUNCH_STEPS] or [a.captures for a in runs] != [1] * 3:
+            raise AssertionError(
+                "launcher: " + "; ".join(
+                    f"attempt {a.attempt}: from step {a.start_step}, "
+                    f"{a.captures} captures, {a.replays} replays, error "
+                    f"{a.error}" for a in runs))
+        if not launches["flash_attention"]:
+            raise AssertionError("the launcher launched no attention kernel")
+        t0 = time.perf_counter()
+        step, got = CheckpointManager(tmp / "run").restore(whole.state,
+                                                           device="cpu")
+        read_s = time.perf_counter() - t0
+        diffs = state_diffs(torch, pytree.tree_leaves(got), whole.state)
+        if step != LAUNCH_STEPS or any(diffs.values()):
+            raise AssertionError(
+                f"launcher: final checkpoint step {step}, leaves differing "
+                f"from the uninterrupted run: "
+                + json.dumps({p: d for p, d in diffs.items() if d}))
+        per_step = train_sites(cfg)["flash_attention"]["launches"]
+        saves = "; ".join(
+            f"step {s['step']} {s['bytes'] / 1e9:.3f} GB: host copy "
+            f"{s['snapshot_s']:.3f} s, written {s['write_s']:.3f} s"
+            for a in runs for s in a.saves)
+        log(f"[launcher {name}] {card}: B={B} S={S}, {LAUNCH_STEPS} steps, "
+            f"--plan toast, checkpoint every {LAUNCH_CKPT_EVERY}, failure at "
+            f"step {LAUNCH_FAIL_AT}: attempt 0 ran {attempts[0].replays} "
+            f"steps and failed; attempt 1 resumed from step "
+            f"{attempts[1].start_step} (restore "
+            f"{attempts[1].state_bytes / 1e9:.3f} GB to the card in "
+            f"{attempts[1].restore_s:.3f} s) and ran "
+            f"{attempts[1].replays}; one graph per attempt; {run_s:.1f} s "
+            f"(uninterrupted run, --plan manual: {whole_s:.1f} s); saves: "
+            f"{saves}; "
+            f"disk free {free_gb:.1f} GB")
+        replays = sum(a.replays for a in runs)
+        log(f"[launcher {name}] flash_attention launches "
+            f"{replays * per_step} in {replays} replays x {per_step} "
+            f"recorded, {launches['flash_attention']} in the 3 warm-ups and "
+            f"captures; "
+            f"final checkpoint (step {step}, {len(diffs)} leaves, read to "
+            f"the host in {read_s:.3f} s) equals the uninterrupted run's "
+            f"final state bit for bit")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def time_lru(lru, torch, gen, card, shape, dtype, route) -> dict:
@@ -945,6 +1162,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the train path's weights and batch")
     opts = ap.parse_args(argv)
+    t_start = time.perf_counter()
     # the hybrid's train step holds two train states, its gradients and
     # AdamW's f32 temporaries at once (PERF.md section 5): segments that
     # grow in place keep the allocator from fragmenting between steps
@@ -1068,6 +1286,8 @@ def main(argv=None) -> int:
     train = drive_train(torch, qwen, counters, card, opts.seed, TRAIN_SHAPE,
                         TRAIN_OPT)
     torch.cuda.empty_cache()
+    drive_launcher(torch, qwen, counters, card, opts.seed)
+    torch.cuda.empty_cache()
     n_lru = sum(k == "rglru" for k in hybrid.pattern)
     lru_launches, lru_routes, params = drive_path(
         torch, hybrid, HYBRID_SHAPE, counters, "rg_lru", n_lru, card)
@@ -1129,6 +1349,8 @@ def main(argv=None) -> int:
 
     log(f"[routes] rg_lru launches by route on the {hybrid.name} path: "
         + json.dumps(lru_routes))
+    log(f"[total] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, "
+        f"the build included")
     log(json.dumps({"kernels": [fa_row, lru_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

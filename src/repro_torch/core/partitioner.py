@@ -14,7 +14,9 @@ plan's JSON stays compatible with the reference package's
 decisions read as ``"cuda"``.  Plans execute on one device so far
 (multi-device execution through DTensor is ROADMAP queue 1, item 8); on
 a CUDA device each argument signature runs as a captured CUDA graph, the
-port's counterpart of the reference's ``jax.jit`` (:class:`AppliedPlan`).
+port's counterpart of the reference's ``jax.jit`` (:class:`AppliedPlan`,
+built on ``repro_torch.jit``), with ``donate_argnums`` as the reference's
+``jit_kwargs``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import dataclasses
 import json
 import time
 from collections import Counter, defaultdict
-from typing import Any, Callable
+from typing import Callable
 
 from repro_torch import pytree
 from repro_torch.core.conflicts import ConflictAnalysis, analyze_conflicts
@@ -32,6 +34,7 @@ from repro_torch.core.constraints import (Constraint, ConstraintError,
 from repro_torch.core.cost_model import CostModel, MeshSpec, ShardingState
 from repro_torch.core.ir import Program, extract_program
 from repro_torch.core.nda import NDAResult, run_nda
+from repro_torch.jit import Compiled
 from repro_torch.kernels import registry as kernel_registry
 
 
@@ -203,7 +206,8 @@ class ShardingPlan:
                               "; ".join(result.messages))
 
     def apply(self, fn: Callable, device=None, *,
-              capture: bool | None = None) -> "AppliedPlan":
+              capture: bool | None = None,
+              donate_argnums=()) -> "AppliedPlan":
         """Bind the plan to ``fn`` for execution on one device.
 
         Args:
@@ -214,8 +218,12 @@ class ShardingPlan:
                 graph, the port's ``jax.jit`` (see :class:`AppliedPlan`).
                 ``None`` captures on a CUDA device and runs eagerly on
                 the CPU, where no graph exists; ``False`` runs eagerly
-                (the train steps, which are not captured yet, and the
-                eager side of a parity check).
+                (the eager side of a parity check).
+            donate_argnums: an index or a tuple of indices of the
+                arguments whose leaves are donated, as the reference's
+                ``jit_kwargs`` pass them to ``jax.jit``: each output
+                takes a donated buffer of its shape and dtype, in
+                flattening order (``repro_torch.jit``).
 
         Returns:
             An :class:`AppliedPlan`; call it like ``fn``.
@@ -227,7 +235,7 @@ class ShardingPlan:
                 ``device`` is not given.
             ValueError: for ``capture=True`` on a device other than CUDA.
         """
-        return AppliedPlan(self, fn, device, capture)
+        return AppliedPlan(self, fn, device, capture, donate_argnums)
 
     def as_dict(self) -> dict:
         """JSON-serializable dict capturing the full plan (the inverse of
@@ -349,48 +357,7 @@ class ShardingPlan:
         return cls.from_dict(json.loads(s))
 
 
-@dataclasses.dataclass
-class CapturedStep:
-    """One argument signature's CUDA graph (see :class:`AppliedPlan`).
-
-    Attributes:
-        graph: the ``torch.cuda.CUDAGraph``.
-        inputs: the static input buffers, one per argument leaf.
-        held: per leaf, True when the graph reads the caller's tensor in
-            place (held by the plan), False when each call copies the
-            leaf into a buffer the plan owns.
-        outputs: the graph's output buffers, in flattening order.
-        template: the output tree of the capture (its structure).
-        launches: kernel launches recorded in the graph, as
-            ``kernels.ops.launch_counts`` names them; each replay runs
-            them again, though the wrappers' counters do not move.
-        warmup_launches: kernel launches of the eager warm-up run.
-        seconds: host seconds of the warm-up and the capture.
-        pool_bytes: device bytes the capture reserved (its private pool).
-        replays: replays of this graph.
-    """
-
-    graph: Any
-    inputs: list
-    held: list[bool]
-    outputs: list
-    template: Any
-    launches: dict[str, int]
-    warmup_launches: dict[str, int]
-    seconds: float
-    pool_bytes: int
-    replays: int = 0
-
-    def holds(self, leaves) -> list[bool]:
-        """Per leaf: held, and ``leaves``' tensor is the held one (same
-        address and strides; the plan holds it, so no other tensor can
-        take its address)."""
-        return [h and x.data_ptr() == s.data_ptr() and
-                x.stride() == s.stride()
-                for h, x, s in zip(self.held, leaves, self.inputs)]
-
-
-class AppliedPlan:
+class AppliedPlan(Compiled):
     """The result of :meth:`ShardingPlan.apply`: ``fn`` bound to a plan.
 
     Each run of ``fn`` happens on one device under a kernel-dispatch
@@ -401,34 +368,13 @@ class AppliedPlan:
     As the reference's jitted ``AppliedPlan``, it keeps one entry per
     argument signature: the arguments' treedef and each leaf's shape
     and dtype.  The first call of a signature checks ``fn``'s output
-    leaves against the plan's ``out_specs``.
-
-    *Capture* (the default on a CUDA device), the port's ``jax.jit``:
-    the first call of a signature runs ``fn`` once eagerly on a side
-    stream (which builds the kernels and sets their attributes),
-    captures it as a CUDA graph on static input buffers, replays it and
-    returns that replay's result; every later call replays.  The leaves
-    of the first argument (the parameters, by the steps' convention)
-    are captured in place: the graph reads the caller's tensors, which
-    the plan holds, so no address can be reused under it.  Every other
-    leaf (a cache, a token, a position) is copied on each call into a
-    buffer the plan owns; no caller's tensor is ever written.  A held
-    leaf that arrives as another tensor is moved to the copied side and
-    the signature is captured anew.  Results are copies of the graph's
-    outputs, so a result the caller keeps is never overwritten by the
-    next call, as the reference's fresh arrays are not.  Steps must be
-    functional, as under ``jit``: a step that writes into an input
-    raises.  A capture that fails raises; nothing runs eagerly in a
-    graph's place.  :meth:`release`, or dropping the object, frees the
-    graphs and their memory pools.
-
-    Attributes:
-        captures: graphs captured so far.
-        replays: graph replays so far (first calls included).
+    leaves against the plan's ``out_specs``.  Each entry is captured as
+    a CUDA graph on a CUDA device, with donation as ``jax.jit``'s
+    ``donate_argnums`` (see :class:`repro_torch.jit.Compiled`).
     """
 
     def __init__(self, plan: "ShardingPlan", fn: Callable, device,
-                 capture: bool | None = None) -> None:
+                 capture: bool | None = None, donate_argnums=()) -> None:
         """Bind a plan to a function and a device.
 
         Args:
@@ -436,107 +382,34 @@ class AppliedPlan:
             fn: the function the plan was searched for.
             device: where it runs (``None``: the CUDA card).
             capture: capture CUDA graphs (``None``: on a CUDA device).
+            donate_argnums: the indices of the donated arguments.
 
         Raises:
+            NotImplementedError: when the plan's mesh has more than one
+                device.
             ValueError: for ``capture=True`` on a device other than CUDA.
         """
-        from repro_torch.device import resolve_device
         if plan.mesh.num_devices != 1:
             raise NotImplementedError(
                 f"plan.apply runs on one device; this plan's mesh has "
                 f"{plan.mesh.num_devices} (multi-device execution through "
                 f"DTensor is ROADMAP queue 1, item 8)")
         self.plan = plan
-        self.fn = fn
-        self.device = resolve_device(device)
-        cuda = self.device.type == "cuda"
-        if capture and not cuda:
-            raise ValueError(f"capture=True needs a CUDA device; this "
-                             f"plan runs on {self.device}")
-        self.capture = cuda if capture is None else capture
         self.impls = {r["site"]: r["impl"] for r in plan.kernel_sites}
-        self.captures = 0
-        self.replays = 0
-        # signature -> CapturedStep (capture) or None (eager)
-        self._cache: dict = {}
-        self._stream = None
+        super().__init__(fn, device, capture, donate_argnums)
 
-    @property
-    def graphs(self) -> list[CapturedStep]:
-        """The live graphs, one per captured signature."""
-        return [e for e in self._cache.values() if e is not None]
+    def _flatten(self, args):
+        return pytree.tree_leaves(args), self.plan.input_paths
 
-    def release(self) -> None:
-        """Free every graph, its static buffers and its memory pool
-        (returned to the card by ``torch.cuda.empty_cache()``)."""
-        graphs = self.graphs
-        self._cache.clear()
-        for entry in graphs:
-            entry.inputs.clear()
-            entry.outputs.clear()
-            entry.template = None
-            entry.graph.reset()
-
-    def __call__(self, *args, **kwargs):
-        """Run ``fn`` under the plan's kernel decisions.
-
-        Args:
-            *args: positional arguments, structured as at trace time,
-                every tensor on the plan's device.
-            **kwargs: rejected — the plan's specs cover positional
-                arguments only.
-
-        Returns:
-            ``fn``'s result (under capture: copies of the graph's
-            outputs).
-
-        Raises:
-            ValueError: for keyword arguments, a leaf count other than
-                the plan's inputs, a leaf on another device, an output
-                leaf count other than the plan's outputs, or a step that
-                wrote into an input.
-        """
-        import torch
+    def _check_call(self, kwargs, leaves, paths) -> None:
         if kwargs:
             raise ValueError("plan.apply() functions take positional "
                              "arguments only")
-        leaves = pytree.tree_leaves(args)
         if len(leaves) != len(self.plan.in_specs):
             raise ValueError(
                 f"plan has {len(self.plan.in_specs)} input specs but the "
                 f"call provides {len(leaves)} argument leaves")
-        for path, leaf in zip(self.plan.input_paths, leaves):
-            if isinstance(leaf, torch.Tensor) and \
-                    leaf.device.type != self.device.type:
-                raise ValueError(f"input {path} lies on {leaf.device}, "
-                                 f"the plan runs on {self.device}")
-        key = (pytree.treedef(args), tuple(
-            (tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor)
-            else ((), type(x).__name__) for x in leaves))
-        if not self.capture:
-            return self._run_eager(args, leaves, key)
-        entry = self._cache.get(key)
-        if entry is None:
-            n_held = len(pytree.tree_leaves(args[0])) if args else 0
-            held = [i < n_held for i in range(len(leaves))]
-        else:
-            held = entry.holds(leaves)
-            if held != entry.held:
-                # a held leaf moved: copy it from now on, capture anew
-                self._cache.pop(key)
-                entry.graph.reset()
-                entry = None
-        if entry is None:
-            entry = self._capture(args, leaves, held)
-            self._cache[key] = entry
-        for buf, x, h in zip(entry.inputs, leaves, entry.held):
-            if not h:
-                buf.copy_(x)
-        entry.graph.replay()
-        entry.replays += 1
-        self.replays += 1
-        return pytree.unflatten(entry.template,
-                                [o.clone() for o in entry.outputs])
+        super()._check_call(kwargs, leaves, paths)
 
     def _dispatch(self):
         from repro_torch.models.sharding import (KernelDispatch,
@@ -549,84 +422,6 @@ class AppliedPlan:
             raise ValueError(
                 f"plan has {len(self.plan.out_specs)} output specs but fn "
                 f"returns {n} leaves")
-
-    def _check_functional(self, leaves, versions) -> None:
-        for path, x, v in zip(self.plan.input_paths, leaves, versions):
-            if v is not None and x._version != v:
-                raise ValueError(
-                    f"the step wrote into its input {path}: steps run "
-                    f"by plan.apply must be functional, as under jit")
-
-    def _run_eager(self, args, leaves, key):
-        import torch
-        versions = [x._version if isinstance(x, torch.Tensor) else None
-                    for x in leaves]
-        with self._dispatch():
-            out = self.fn(*args)
-        self._check_functional(leaves, versions)
-        if key not in self._cache:
-            self._check_outputs(out)
-            self._cache[key] = None
-        return out
-
-    def _capture(self, args, leaves, held) -> CapturedStep:
-        """Warm ``fn`` up eagerly on static buffers, then capture it."""
-        import torch
-
-        from repro_torch.kernels.ops import launch_counts
-        for path, x in zip(self.plan.input_paths, leaves):
-            if not isinstance(x, torch.Tensor):
-                raise TypeError(f"input {path} is a {type(x).__name__}: a "
-                                f"captured step takes tensors only (pass "
-                                f"capture=False to run it eagerly)")
-        static = [x if h else x.clone() for x, h in zip(leaves, held)]
-        sargs = pytree.unflatten(args, static)
-        versions = [x._version for x in static]
-        t0 = time.perf_counter()
-        with torch.cuda.device(self.device):
-            # one side stream warms up and captures: the warm-up gives it
-            # its cuBLAS workspace, outside the graph's pool
-            if self._stream is None:
-                self._stream = torch.cuda.Stream()
-            side = self._stream
-            before = launch_counts()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side), self._dispatch():
-                out = self.fn(*sargs)
-            torch.cuda.current_stream().wait_stream(side)
-            self._check_outputs(out)
-            for x, path in zip(*pytree.flatten_with_paths(out)):
-                if not isinstance(x, torch.Tensor):
-                    raise TypeError(f"output {path} is a "
-                                    f"{type(x).__name__}: a captured step "
-                                    f"returns tensors only")
-            del out
-            # torch.cuda.graph empties the allocator's cache as it enters:
-            # empty it first, so that the pool's bytes are read after it
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            warm = launch_counts()
-            reserved = torch.cuda.memory_reserved()
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph, stream=side), self._dispatch():
-                    out = self.fn(*sargs)
-            except RuntimeError as err:
-                name = getattr(self.fn, "__name__", repr(self.fn))
-                err.add_note(f"while capturing {name} as a CUDA graph "
-                             f"(plan.apply; capture=False runs it eagerly)")
-                raise
-            torch.cuda.synchronize()
-            after = launch_counts()
-            pool = torch.cuda.memory_reserved() - reserved
-        self._check_functional(static, versions)
-        self.captures += 1
-        return CapturedStep(
-            graph=graph, inputs=static, held=list(held),
-            outputs=pytree.tree_leaves(out), template=out,
-            launches={k: after[k] - warm[k] for k in after},
-            warmup_launches={k: warm[k] - before[k] for k in warm},
-            seconds=time.perf_counter() - t0, pool_bytes=pool)
 
 
 def _spec_entry(e):

@@ -49,10 +49,12 @@ rg_lru_bwd_calls = 0
 
 
 def launch_counts() -> dict[str, int]:
-    """Each kernel wrapper's launches so far, and the RG-LRU's by route
-    (``"rg_lru.tma"``, ``"rg_lru.generic"``)."""
+    """Each kernel wrapper's launches so far, the RG-LRU's by route
+    (``"rg_lru.tma"``, ``"rg_lru.generic"``), and the backward ops'
+    calls (``"flash_attention_bwd"``, ``"rg_lru_bwd"``: plain vjps)."""
     return {"flash_attention": fa.launches, "rg_lru": lru.launches,
-            **{f"rg_lru.{r}": n for r, n in lru.route_launches.items()}}
+            **{f"rg_lru.{r}": n for r, n in lru.route_launches.items()},
+            "flash_attention_bwd": bwd_calls, "rg_lru_bwd": rg_lru_bwd_calls}
 
 
 def _check_impl(kernel: str, impl: str) -> None:

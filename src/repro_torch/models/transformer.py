@@ -310,7 +310,10 @@ def scan_layers(body, h, xs, *, with_ys=False, remat=False):
 
         def run(c, x):
             from torch.utils.checkpoint import checkpoint
-            return checkpoint(rewound, c, x, use_reentrant=False)
+            # the body draws no random numbers; saving and restoring the
+            # CUDA RNG state would not be capturable in a CUDA graph
+            return checkpoint(rewound, c, x, use_reentrant=False,
+                              preserve_rng_state=False)
     ys = []
     for i in range(n):
         if disp is not None:

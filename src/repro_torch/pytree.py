@@ -35,6 +35,18 @@ def _children(node) -> list[tuple[str, Any]] | None:
     return None
 
 
+def _walk(node, path: str, leaves: list, paths: list) -> None:
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        leaves.append(node)
+        paths.append(path)
+        return
+    for piece, child in kids:
+        _walk(child, path + piece, leaves, paths)
+
+
 def flatten_with_paths(tree) -> tuple[list, list[str]]:
     """Leaves of ``tree`` and their key paths, in flattening order.
 
@@ -45,21 +57,13 @@ def flatten_with_paths(tree) -> tuple[list, list[str]]:
         ``(leaves, paths)`` with paths in the reference's ``keystr``
         spelling.
     """
+    # the recursion is a module function, not a closure: a closure that
+    # calls itself is a reference cycle, and it would keep the leaves
+    # (whole train states, gradients) alive until the garbage collector
+    # runs
     leaves: list = []
     paths: list[str] = []
-
-    def walk(node, path: str) -> None:
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            leaves.append(node)
-            paths.append(path)
-            return
-        for piece, child in kids:
-            walk(child, path + piece)
-
-    walk(tree, "")
+    _walk(tree, "", leaves, paths)
     return leaves, paths
 
 
@@ -80,6 +84,20 @@ def treedef(tree) -> Any:
             tuple(treedef(child) for _, child in kids))
 
 
+def _build(node, it: Iterator):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        built = {k: _build(node[k], it) for k in sorted(node)}
+        return {k: built[k] for k in node}
+    if isinstance(node, (tuple, list)):
+        return _rebuild(node, [_build(c, it) for c in node])
+    try:
+        return next(it)
+    except StopIteration:
+        raise ValueError("too few leaves for the template") from None
+
+
 def unflatten(template, leaves) -> Any:
     """Rebuild ``template``'s structure with ``leaves`` in flatten order.
 
@@ -95,21 +113,7 @@ def unflatten(template, leaves) -> Any:
         ValueError: when the number of leaves does not match.
     """
     it: Iterator = iter(leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            built = {k: build(node[k]) for k in sorted(node)}
-            return {k: built[k] for k in node}
-        if isinstance(node, (tuple, list)):
-            return _rebuild(node, [build(c) for c in node])
-        try:
-            return next(it)
-        except StopIteration:
-            raise ValueError("too few leaves for the template") from None
-
-    out = build(template)
+    out = _build(template, it)
     if next(it, None) is not None:
         raise ValueError("too many leaves for the template")
     return out
@@ -118,6 +122,17 @@ def unflatten(template, leaves) -> Any:
 def tree_map(fn: Callable, tree) -> Any:
     """Apply ``fn`` to every leaf, keeping the structure."""
     return unflatten(tree, [fn(x) for x in tree_leaves(tree)])
+
+
+def _walk_keys(fn: Callable, node, keys: tuple):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _walk_keys(fn, v, keys + (k,)) for k, v in node.items()}
+    if isinstance(node, (tuple, list)):
+        return _rebuild(node, [_walk_keys(fn, c, keys + (i,))
+                               for i, c in enumerate(node)])
+    return fn(keys, node)
 
 
 def tree_map_with_path(fn: Callable, tree) -> Any:
@@ -131,14 +146,4 @@ def tree_map_with_path(fn: Callable, tree) -> Any:
     Returns:
         A tree shaped like ``tree`` holding ``fn``'s results.
     """
-    def walk(node, keys):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: walk(v, keys + (k,)) for k, v in node.items()}
-        if isinstance(node, (tuple, list)):
-            return _rebuild(node, [walk(c, keys + (i,))
-                                   for i, c in enumerate(node)])
-        return fn(keys, node)
-
-    return walk(tree, ())
+    return _walk_keys(fn, tree, ())

@@ -23,7 +23,7 @@ from repro.core.cost_model import MeshSpec as JMeshSpec
 from repro_torch import pytree
 from repro_torch.api import Request, Session
 from repro_torch.core.cost_model import MeshSpec
-from repro_torch.core.partitioner import CapturedStep
+from repro_torch.jit import CapturedStep
 
 TOL = 1e-5
 
@@ -208,3 +208,26 @@ def test_captured_leaves_are_held_only_while_the_same_tensor_comes():
     assert step.holds([w.clone(), c]) == [False, False]
     assert step.holds([w.t().contiguous().t(), c]) == [False, False]
     assert step.holds([w.as_strided((3, 4), (1, 3)), c]) == [False, False]
+
+
+def test_flattening_and_rebuilding_keep_no_leaf_alive():
+    """The pytree helpers build no reference cycle: with the garbage
+    collector off, a flattened leaf is freed as soon as its last holder
+    lets go (a cycle kept whole gradient and state lists alive until a
+    collection, which a captured step's memory pool could not spare)."""
+    import gc
+    import weakref
+    gc.disable()
+    try:
+        x = torch.zeros(3)
+        ref = weakref.ref(x)
+        tree = {"a": x, "b": (torch.ones(2), [None, torch.ones(1)])}
+        leaves, paths = pytree.flatten_with_paths(tree)
+        rebuilt = pytree.unflatten(tree, leaves)
+        mapped = pytree.tree_map_with_path(lambda keys, t: t, tree)
+        assert paths == ["['a']", "['b'][0]", "['b'][1][1]"]
+        assert rebuilt["a"] is x and mapped["b"][1][1] is tree["b"][1][1]
+        del x, tree, leaves, rebuilt, mapped
+        assert ref() is None
+    finally:
+        gc.enable()

@@ -519,3 +519,124 @@ def test_release_returns_the_pool_memory(gen):
     torch.cuda.empty_cache()
     assert applied.graphs == [] and not applied._cache
     assert held - torch.cuda.memory_reserved() >= pool
+
+
+# --- train steps captured with their state donated --------------------------
+
+
+def train_setup(arch, dtype, **fields):
+    """A small remat model's train step, its optimizer and its 1x1 plan
+    (batch 2 x 32)."""
+    import dataclasses
+
+    from repro_torch.api import Request, Session
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.cost_model import MeshSpec
+    from repro_torch.launch import specs
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train import steps as TS
+    cfg = dataclasses.replace(small_config(arch, dtype), remat=True,
+                              **fields)
+    opt = AdamConfig(lr=1e-3, warmup_steps=2, total_steps=4)
+    step = TS.make_train_step(cfg, opt)
+    bspec, _ = specs.batch_specs(cfg, ShapeConfig("t", 32, 2, "train"))
+    plan = Session(step, (TS.train_state_specs(cfg, opt), bspec)).partition(
+        Request(mesh=MeshSpec(("data", "model"), (1, 1))))
+    return cfg, opt, step, plan
+
+
+def train_state(cfg, opt, seed=1):
+    from repro_torch.train import steps as TS
+    return TS.init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), opt)
+
+
+def train_batches(gen, cfg, n):
+    return [{k: torch.randint(0, cfg.vocab_size, (2, 32), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "targets")} for _ in range(n)]
+
+
+@pytest.mark.parametrize("via", ["plan", "jit"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,kernel", [("qwen2_05b", "flash_attention"),
+                                         ("recurrentgemma_2b", "rg_lru")])
+def test_captured_donated_train_steps_equal_eager(gen, arch, kernel, dtype,
+                                                  via):
+    """4 steps through one graph whose state is donated: every metric and
+    the final state equal 4 eager steps exactly, and the state comes back
+    as the caller's own tensors, written in place."""
+    from repro_torch import pytree
+    from repro_torch.jit import jit
+    cfg, opt, step, plan = train_setup(arch, dtype)
+    if via == "plan":
+        captured = plan.apply(step, donate_argnums=0)
+        eager = plan.apply(step, capture=False)
+    else:
+        captured = jit(step, donate_argnums=0)
+        eager = jit(step, capture=False)
+    state, want = train_state(cfg, opt), train_state(cfg, opt)
+    mine = pytree.tree_leaves(state)
+    for batch in train_batches(gen, cfg, 4):
+        state, metrics = captured(state, batch)
+        want, want_metrics = eager(want, batch)
+        for k in ("loss", "ce", "grad_norm", "step"):
+            assert torch.equal(metrics[k], want_metrics[k]), k
+    assert captured.captures == 1 and captured.replays == 4
+    got = pytree.tree_leaves(state)
+    assert all(a is b for a, b in zip(got, mine))
+    for a, b in zip(got, pytree.tree_leaves(want)):
+        assert torch.equal(a, b)
+    (graph,) = captured.graphs
+    for k in (kernel, kernel + "_bwd"):
+        assert graph.launches[k] == graph.warmup_launches[k] > 0
+    assert len(graph.pairs) == len(got)
+
+
+def test_donation_holds_one_train_state_less_and_release_frees_it(gen):
+    """After 4 captured steps, the card holds one train state less with
+    the state donated than without (where each call returns a copy, and
+    the copy passed back is copied into the step's own buffers); and
+    ``release()`` returns the graph's pool."""
+    from repro_torch import pytree
+    cfg, opt, step, plan = train_setup("qwen2_05b", "float32",
+                                       vocab_size=32768, d_model=256)
+    batches = train_batches(gen, cfg, 4)
+
+    def reserved():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    def run(donate):
+        base = reserved()
+        state = train_state(cfg, opt)
+        applied = plan.apply(step, donate_argnums=donate)
+        for batch in batches:
+            state, _ = applied(state, batch)
+        return applied, state, reserved() - base
+
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in pytree.tree_leaves(train_state(cfg, opt)))
+    assert nbytes > 100e6
+    kept, kept_state, kept_bytes = run(())
+    assert kept.captures == 2                  # the returned state moved
+    kept.release()
+    del kept, kept_state
+    donated, state, donated_bytes = run(0)
+    assert donated.captures == 1
+    assert donated_bytes < kept_bytes - nbytes // 2
+    (graph,) = donated.graphs
+    pool_id = tuple(graph.graph.pool())
+
+    def pool_segments():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return [s["total_size"] for s in torch.cuda.memory_snapshot()
+                if tuple(s.get("segment_pool_id", ())) == pool_id]
+
+    held = pool_segments()
+    assert sum(held) > 0, (graph.pool_bytes, held)
+    del graph
+    donated.release()
+    assert donated.graphs == [] and pool_segments() == []
