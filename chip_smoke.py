@@ -3,7 +3,8 @@
 
 Drives the port's main paths through the entry points a user calls:
 partition and serve the ``qwen2_05b`` prefill step with its fused
-attention sites on the hand-written CUDA flash-attention kernel, and the
+attention sites on the hand-written CUDA flash-attention kernel, on the
+card and on a two-device mesh of two ranks sharing it, and the
 ``recurrentgemma_2b`` hybrid prefill step with its RG-LRU scan sites on
 the hand-written CUDA RG-LRU kernel (its TMA-ring route; the generic
 route takes strides TMA cannot describe); for both models the decode
@@ -19,11 +20,23 @@ and a restart.
    its slice shape and at edge shapes (attention: every head dim it is
    built for, in both dtypes; RG-LRU: each case checks which route it
    took);
-3. for each path: trace and analyze the full-width prefill step on
-   ``meta`` tensors (``Session``); search a plan for an 8-card node (2x4
-   mesh) on the host and check its JSON round trip; search the one-card
-   plan, check every kernel site chose ``"cuda"``, and apply it on the
-   card with seeded random weights;
+3. trace and analyze both full-width prefill steps on ``meta`` tensors
+   (``Session``); the mesh phase: search each step's plan for a (data 1,
+   model 2) mesh, hand it as JSON to two ranks (processes of one gloo
+   group, CUDA tensors, both on card 0), which make the same seeded
+   weights, apply the plan eagerly over a ``DeviceMesh`` and answer 2
+   requests per model, their kernel sites on local shards under
+   ``local_map``; print each plan's in-spec summary and sharded sites,
+   each rank's kernel launches (counted from zero for the requests),
+   local kernel shapes and strides, RG-LRU routes, copies and reshapes
+   made whole, the collectives by kind (``CommDebugMode``) and bytes,
+   and the per-request ms of the two ranks time-sharing the card (not a
+   multi-card figure); the gathered last-token logits are held against
+   the one-card captured plan's of step 4 on the same requests;
+   for each path: search a plan for an 8-card node (2x4 mesh) on the
+   host and check its JSON round trip; search the one-card plan, check
+   every kernel site chose ``"cuda"``, and apply it on the card with
+   seeded random weights;
 4. answer 3 requests per path (qwen2_05b: 4 prompts x 2048 tokens;
    recurrentgemma_2b: 4 x 4096, twice its local window) through the
    applied plan, which captures the step as one CUDA graph on its first
@@ -103,6 +116,7 @@ total seconds.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import dataclasses
 import json
@@ -161,6 +175,11 @@ LAUNCH_FAIL_AT = 4
 # step 1 through the kernel vs through the plain version: loss and grad
 # norm, relative (bf16)
 TRAIN_REL_TOL = 2e-2
+# the mesh phase: two ranks share card 0 over gloo on a (data 1, model
+# 2) mesh; requests per model, the group's wall-clock limit (seconds)
+MESH_SHAPE = (1, 2)
+MESH_REQUESTS = 2
+MESH_TIMEOUT = 420.0
 # H100 SXM data sheet (dense bf16 FLOP/s, f32 FLOP/s outside the tensor
 # cores, HBM bytes/s)
 PEAK_BF16_FLOPS = 989e12
@@ -305,16 +324,42 @@ def lru_inputs(torch, gen, shape, dtype, lo=None, hi=None):
     return a.to(dtype), b.to(dtype)
 
 
-def drive_path(torch, cfg, shape, counters, kernel, per_request, card):
-    """Plan and serve one model's prefill path; returns its launches.
+def prefill_session(torch, cfg, shape):
+    """Trace and analyze one model's full-width prefill step on ``meta``
+    tensors (``Session``); logs a ``[session ...]`` line."""
+    from repro_torch.api import Session
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_prefill_step
+
+    B, S = shape
+    batch_spec = {"tokens": torch.empty((B, S), dtype=torch.int32,
+                                        device="meta")}
+    sess = Session(make_prefill_step(cfg), (T.param_specs(cfg), batch_spec))
+    art = sess.artifacts
+    log(f"[session {cfg.name}] B={B} S={S}: {len(art.prog.ops)} ops, "
+        f"{len(art.nda.color_summary())} colors, "
+        f"{len(art.analysis.conflicts)} conflicts, phases "
+        + json.dumps({k: round(v, 4) for k, v in
+                      art.phase_seconds.items()}))
+    return sess
+
+
+def drive_path(torch, cfg, sess, shape, counters, kernel, per_request,
+               card):
+    """Plan and serve one model's prefill path.
 
     Args:
         cfg: the full-width model configuration (``use_pallas`` set).
+        sess: its prefill step's ``Session`` (:func:`prefill_session`).
         shape: prompts x tokens of each request.
         counters: kernel name -> its wrapper module (``launches``).
         kernel: the kernel this path runs.
         per_request: that kernel's launches in one request.
         card: the card's name and power limit, for the time lines.
+
+    Returns:
+        The kernel's launches, the RG-LRU's by route, the weights and the
+        captured plan's last-token logits of each request.
     """
     from repro_torch.api import Request, Session
     from repro_torch.configs import get_config
@@ -326,15 +371,6 @@ def drive_path(torch, cfg, shape, counters, kernel, per_request, card):
     B, S = shape
     name = cfg.name
     step = make_prefill_step(cfg)
-    batch_spec = {"tokens": torch.empty((B, S), dtype=torch.int32,
-                                        device="meta")}
-    sess = Session(step, (T.param_specs(cfg), batch_spec))
-    art = sess.artifacts
-    log(f"[session {name}] B={B} S={S}: {len(art.prog.ops)} ops, "
-        f"{len(art.nda.color_summary())} colors, "
-        f"{len(art.analysis.conflicts)} conflicts, phases "
-        + json.dumps({k: round(v, 4) for k, v in
-                      art.phase_seconds.items()}))
 
     plan8 = sess.partition(Request(mesh=MeshSpec(("data", "model"), (2, 4))))
     if ShardingPlan.from_json(plan8.to_json()).as_dict() != plan8.as_dict():
@@ -479,7 +515,208 @@ def drive_path(torch, cfg, shape, counters, kernel, per_request, card):
     log(f"[small] {small.name} ({small.num_layers} layers) f32 logits "
         f"kernel vs plain: max|diff| {(got - want).abs().max().item():.3e} "
         f"(tol {SMALL_TOL}) ok")
-    return launches[kernel], routes, params
+    return launches[kernel], routes, params, kernel_logits
+
+
+def mesh_rank(rank, jobs, shapes, n_requests):
+    """One of the two ranks that share card 0 in the mesh phase.
+
+    For each model: apply its (1, 2) plan (read from JSON) to the seeded
+    weights, place them once, then answer ``n_requests`` requests, each
+    timed on the host clock with the card synchronized, under
+    ``CommDebugMode`` and the collective tally.  The first request is
+    also the first call (kernels loaded, DTensor's caches filled): a
+    full-width hybrid request takes about a minute here, so no request
+    is spent on a warm-up alone.  Returns, per model, the gathered
+    last-token logits and what the rank counted."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.partitioner import ShardingPlan
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rg_lru as lru
+    from repro_torch.launch.mesh import collective_tally
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, plan_json in jobs.items():
+        cfg = dataclasses.replace(get_config(name), use_pallas=True)
+        B, S = shapes[name]
+        applied = ShardingPlan.from_json(plan_json).apply(
+            make_prefill_step(cfg))
+        t0 = time.perf_counter()
+        params = T.init_params(cfg,
+                               torch.Generator(device="cuda").manual_seed(0))
+        tgen = torch.Generator(device="cuda").manual_seed(1)
+        requests = [{"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                             generator=tgen, device="cuda",
+                                             dtype=torch.int32)}
+                    for _ in range(n_requests)]
+        params = applied.place((params, requests[0]))[0]
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        fa.launches = lru.launches = 0
+        lru.route_launches = dict.fromkeys(lru.ROUTES, 0)
+        ops.local_calls.clear()
+        sharding.made_whole.clear()
+        sharding.local_ops.clear()
+        copies = ops.site_copies
+        torch.cuda.reset_peak_memory_stats()
+        ms, logits = [], []
+        comm_counts, calls, nbytes, comm_s = (collections.Counter() for _ in
+                                              range(4))
+        for req in requests:
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with CommDebugMode() as comm, collective_tally() as tally:
+                y = applied(params, req)
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            comm_counts.update({str(k): v for k, v in
+                                comm.get_comm_counts().items()})
+            calls.update(tally.calls)
+            nbytes.update(tally.bytes)
+            comm_s.update(tally.seconds)
+            logits.append(y.full_tensor().float().cpu())
+        out[name] = {
+            "logits": logits, "ms": ms, "place_s": place_s,
+            "comm_counts": dict(comm_counts), "calls": dict(calls),
+            "bytes": dict(nbytes), "comm_s": dict(comm_s),
+            "launches": {"flash_attention": fa.launches,
+                         "rg_lru": lru.launches},
+            "routes": dict(lru.route_launches),
+            "local_calls": [[k, impl, shapes, strides, n] for
+                            (k, impl, shapes, strides), n in
+                            ops.local_calls.items()],
+            "copies": ops.site_copies - copies,
+            "made_whole": dict(sharding.made_whole),
+            "local_ops": dict(sharding.local_ops),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del params, applied, requests, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def drive_mesh(torch, sessions, shapes, per_request, card) -> dict:
+    """The mesh phase: plan each model's full-width prefill for a (1, 2)
+    mesh and answer requests on two ranks sharing card 0 over gloo.
+
+    Args:
+        sessions: model name -> its prefill ``Session``.
+        shapes: model name -> prompts x tokens of each request.
+        per_request: model name -> (its kernel, launches per request).
+        card: the card's name and power limit, for the time lines.
+
+    Returns:
+        Model name -> the two ranks' results (:func:`mesh_rank`).
+    """
+    from repro_torch.api import Request
+    from repro_torch.core.cost_model import MeshSpec
+    from repro_torch.launch.mesh import run_ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[mesh] before the ranks the parent holds "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    jobs = {}
+    for name, sess in sessions.items():
+        plan = sess.partition(Request(mesh=MeshSpec(("data", "model"),
+                                                    MESH_SHAPE)))
+        specs = collections.Counter(str(tuple(s)) for s in plan.in_specs)
+        sharded = {r["site"]: str(tuple(r["in_specs"][0]))
+                   for r in plan.kernel_sites if r["sharded"]}
+        impls = {r["impl"] for r in plan.kernel_sites}
+        log(f"[mesh plan {name} 1x2] cost={plan.cost:.6f} comm_bytes="
+            f"{plan.breakdown['comm_bytes']:.0f} in_specs "
+            + json.dumps(dict(specs)) + " out_specs "
+            + json.dumps([str(tuple(s)) for s in plan.out_specs])
+            + f"; sharded kernel sites {json.dumps(sharded)}, "
+            f"{len(plan.kernel_sites) - len(sharded)} unsharded")
+        if not sharded or impls != {"cuda"}:
+            raise AssertionError(f"{name}: the 1x2 plan shards no kernel "
+                                 f"site or leaves the kernel ({impls})")
+        jobs[name] = plan.to_json()
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank, 2, jobs, shapes, MESH_REQUESTS,
+                      timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for name in jobs:
+        kernel, n = per_request[name]
+        for rank, res in enumerate(r[name] for r in ranks):
+            want = {k: n * MESH_REQUESTS if k == kernel else 0
+                    for k in res["launches"]}
+            log(f"[mesh {name} rank {rank}] kernel launches "
+                + json.dumps(res["launches"]) + " (rg_lru routes "
+                + json.dumps(res["routes"]) + f"), local copies "
+                f"{res['copies']}, made whole "
+                + json.dumps(res["made_whole"]) + ", local elementwise ops "
+                + json.dumps(res["local_ops"]))
+            for k, impl, shapes_, strides, calls in res["local_calls"]:
+                log(f"[mesh {name} rank {rank}] local {k} ({impl}) x{calls}:"
+                    f" shapes {shapes_} strides {strides}")
+            log(f"[mesh {name} rank {rank}] collectives per "
+                f"{MESH_REQUESTS} requests: CommDebugMode "
+                + json.dumps(res["comm_counts"]) + ", result bytes by kind "
+                + json.dumps(res["bytes"]) + ", host s in them and in "
+                "their waits " + json.dumps(
+                    {k: round(v, 3) for k, v in res["comm_s"].items()}))
+            log(f"[mesh time] {card}: {name} rank {rank} per request "
+                f"{fmt_ms(res['ms'])} (the first is the first call; two "
+                f"ranks time-sharing one H100 over gloo: not a multi-card "
+                f"figure); place {res['place_s']:.3f} s, peak "
+                f"{res['peak_gb']:.2f} GB")
+            if res["launches"] != want:
+                raise AssertionError(f"{name} rank {rank}: kernel launches "
+                                     f"{res['launches']}, expected {want}")
+            # the plans shard the batch and the weights on one axis: as
+            # GSPMD, the port gathers weights and reduces no activation
+            reduced = {k: v for k, v in res["calls"].items()
+                       if k.startswith(("all_reduce", "reduce_scatter"))}
+            if reduced:
+                raise AssertionError(f"{name} rank {rank}: activation "
+                                     f"reductions {reduced}; GSPMD issues "
+                                     f"none for this plan")
+            # every RG-LRU launch on the TMA ring, as on one card; no
+            # local shard copied for a kernel
+            routes = {"tma": want.get("rg_lru", 0), "generic": 0}
+            if res["routes"] != routes or res["copies"]:
+                raise AssertionError(
+                    f"{name} rank {rank}: rg_lru routes {res['routes']} "
+                    f"(expected {routes}), {res['copies']} local copies "
+                    f"(expected 0)")
+            if not all(torch.isfinite(x).all() for x in res["logits"]):
+                raise AssertionError(f"{name} rank {rank}: logits not "
+                                     f"finite")
+        for a, b in zip(ranks[0][name]["logits"], ranks[1][name]["logits"]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: the ranks gathered different "
+                                     f"logits")
+    log(f"[mesh] two ranks, both models: {wall:.1f} s wall, the ranks' "
+        f"start included")
+    return {name: [r[name] for r in ranks] for name in jobs}
+
+
+def check_mesh(torch, name, ranks, kernel_logits) -> None:
+    """Hold the mesh phase's gathered logits against the one-card
+    captured plan's on the same requests."""
+    for i, got in enumerate(ranks[0]["logits"]):
+        want = kernel_logits[i].cpu()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        same = torch.equal(got.argmax(-1), want.argmax(-1))
+        log(f"[mesh {name}] request {i}: 1x2 on two ranks vs 1x1 captured: "
+            f"max|diff|/max|1x1| = {rel:.3e} (tol {LOGITS_REL_TOL}), argmax "
+            f"{'equal' if same else 'differs'}")
+        if rel > LOGITS_REL_TOL or not same:
+            raise AssertionError(f"{name}: mesh and one-card logits disagree")
 
 
 def fmt_ms(xs) -> str:
@@ -1273,10 +1510,21 @@ def main(argv=None) -> int:
     check_lru(lru, torch, packed[:, :, 0], packed[:, :, 1], "strided",
               "tma")
 
-    # -- 3-7: plan and serve each path, prefill then decode; train ----
-    fa_launches, _, params = drive_path(torch, qwen, QWEN_SHAPE, counters,
-                                        "flash_attention", qwen.num_layers,
-                                        card)
+    # -- 3: trace both prefill steps; the mesh phase ------------------------
+    n_lru = sum(k == "rglru" for k in hybrid.pattern)
+    sessions = {qwen.name: prefill_session(torch, qwen, QWEN_SHAPE),
+                hybrid.name: prefill_session(torch, hybrid, HYBRID_SHAPE)}
+    mesh = drive_mesh(torch, sessions,
+                      {qwen.name: QWEN_SHAPE, hybrid.name: HYBRID_SHAPE},
+                      {qwen.name: ("flash_attention", qwen.num_layers),
+                       hybrid.name: ("rg_lru", n_lru)}, card)
+
+    # -- 4-7: plan and serve each path, prefill then decode; train ----
+    fa_launches, _, params, logits = drive_path(
+        torch, qwen, sessions[qwen.name], QWEN_SHAPE, counters,
+        "flash_attention", qwen.num_layers, card)
+    check_mesh(torch, qwen.name, mesh[qwen.name], logits)
+    del logits
     torch.cuda.empty_cache()
     drive_decode(torch, qwen, params, counters, card)
     del params
@@ -1288,9 +1536,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     drive_launcher(torch, qwen, counters, card, opts.seed)
     torch.cuda.empty_cache()
-    n_lru = sum(k == "rglru" for k in hybrid.pattern)
-    lru_launches, lru_routes, params = drive_path(
-        torch, hybrid, HYBRID_SHAPE, counters, "rg_lru", n_lru, card)
+    lru_launches, lru_routes, params, logits = drive_path(
+        torch, hybrid, sessions[hybrid.name], HYBRID_SHAPE, counters,
+        "rg_lru", n_lru, card)
+    check_mesh(torch, hybrid.name, mesh[hybrid.name], logits)
+    del logits, sessions
     torch.cuda.empty_cache()
     drive_decode(torch, hybrid, params, counters, card)
     del params
@@ -1306,7 +1556,9 @@ def main(argv=None) -> int:
     fa_row = time_fa(fa, torch, gen, card, B, S, H, hd, plain=True)
     fa_row.update(launches=fa_launches, max_abs_err=fa_err,
                   launches_train_step=train["launches_per_step"][
-                      "flash_attention"])
+                      "flash_attention"],
+                  launches_mesh=[r["launches"]["flash_attention"]
+                                 for r in mesh[qwen.name]])
     # the head dims of the repo's other configs, at the slice's B, S, H
     for hd_i in (96, 128):
         time_fa(fa, torch, gen, card, B, S, H, hd_i, plain=False)
@@ -1345,7 +1597,8 @@ def main(argv=None) -> int:
         "ms": ring["ms"], "plain_ms": plain_ms,
         "bound_ms": ring["bound_ms"], "bound_by": ring["bound_by"],
         "library_ms": None,
-        "launches_train_step": hybrid_train["launches_per_step"]["rg_lru"]}
+        "launches_train_step": hybrid_train["launches_per_step"]["rg_lru"],
+        "launches_mesh": [r["launches"]["rg_lru"] for r in mesh[hybrid.name]]}
 
     log(f"[routes] rg_lru launches by route on the {hybrid.name} path: "
         + json.dumps(lru_routes))

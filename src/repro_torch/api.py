@@ -21,15 +21,19 @@ set::
   mesh, hardware, backend + config, ``min_dims`` pruning, logical dim
   names, and user constraints, which seed the search root and prune the
   action space so every backend inherits them.
-- ``plan.apply(fn)`` binds a one-device plan to ``fn``.  On the card it
-  captures each argument signature's step as a CUDA graph and replays
-  it, as the reference jits the step per signature;
+- ``plan.apply(fn)`` binds a plan to ``fn``.  For a one-device plan on
+  the card it captures each argument signature's step as a CUDA graph
+  and replays it, as the reference jits the step per signature;
   ``plan.apply(fn, capture=False)`` runs it eagerly, op by op (the train
   steps, and the eager side of a parity check); on the CPU it runs
-  eagerly.
+  eagerly.  A plan of two or more devices runs eagerly over a
+  ``DeviceMesh`` of as many ranks, its inputs and outputs DTensors
+  placed as the plan's specs and its kernel sites under ``local_map``
+  (``core.partitioner.AppliedPlan``).
 
-Not ported yet: the plan store, mesh co-search, ``plan_for_state``, the
-static verifier and learned guidance (ROADMAP queue 1, items 13-16).
+Not ported yet: ``plan_for_state`` and ``auto_partition`` (ROADMAP
+queue 1, item 8b), the plan store, mesh co-search, the static verifier
+and learned guidance (items 13-16).
 """
 
 from __future__ import annotations

@@ -29,8 +29,7 @@ with no ``ml_dtypes``.  (The reference's own ``restore`` cannot read it:
   only after a newer commit succeeds.
 
 Leaves are restored onto one device; restoring onto shardings (the
-reference's elastic re-shard) needs multi-device execution, ROADMAP
-queue 1, item 8.
+reference's elastic re-shard) is ROADMAP queue 1, item 8b.
 """
 
 from __future__ import annotations
@@ -146,7 +145,7 @@ def restore(directory: str | pathlib.Path, step: int, like: Any,
         step: the committed step to read.
         like: a tree with the target structure; each leaf's shape (and
             a tensor leaf's dtype) must match the stored one.
-        shardings: not supported yet (ROADMAP queue 1, item 8).
+        shardings: not supported yet (ROADMAP queue 1, item 8b).
         device: where to place every leaf (``None``: each ``like``
             tensor's own device; the CPU for other leaves).
 
@@ -160,8 +159,8 @@ def restore(directory: str | pathlib.Path, step: int, like: Any,
     """
     if shardings is not None:
         raise NotImplementedError(
-            "restoring onto shardings needs multi-device execution "
-            "(DTensor), which is not ported yet (ROADMAP queue 1, item 8)")
+            "restoring onto shardings is not ported yet (ROADMAP queue 1, "
+            "item 8b)")
     directory = pathlib.Path(directory) / f"step_{step:08d}"
     manifest = json.loads((directory / "manifest.json").read_text())
     by_path = {e["path"]: e for e in manifest["leaves"]}

@@ -11,12 +11,21 @@ The staged public API lives in ``repro_torch.api`` (``Session`` /
 Specs are framework-neutral tuples (:class:`PartitionSpec`) and the
 plan's JSON stays compatible with the reference package's
 ``ShardingPlan.to_json``; a reference plan's ``"pallas"`` kernel
-decisions read as ``"cuda"``.  Plans execute on one device so far
-(multi-device execution through DTensor is ROADMAP queue 1, item 8); on
-a CUDA device each argument signature runs as a captured CUDA graph, the
-port's counterpart of the reference's ``jax.jit`` (:class:`AppliedPlan`,
-built on ``repro_torch.jit``), with ``donate_argnums`` as the reference's
-``jit_kwargs``.
+decisions read as ``"cuda"``.  On one device each argument signature
+runs as a captured CUDA graph on the card, the port's counterpart of the
+reference's ``jax.jit`` (:class:`AppliedPlan`, built on
+``repro_torch.jit``), with ``donate_argnums`` as the reference's
+``jit_kwargs``.  On a mesh of two or more devices the plan runs eagerly
+over a ``DeviceMesh``, one process per device: the inputs become
+DTensors placed as ``in_specs``, DTensor's sharding propagation plays
+GSPMD's part in between (steered to GSPMD's choices where they differ:
+``models.sharding.gather_for``), the fused kernel sites run on local shards
+under ``local_map`` (``kernels.ops``) and the outputs are redistributed
+to ``out_specs``::
+
+    # in each of the 4 ranks of a process group (launch.mesh.run_ranks)
+    applied = plan.apply(step, device="cpu")    # plan.mesh: 2x2
+    logits = applied(params, batch)             # a DTensor
 """
 
 from __future__ import annotations
@@ -44,6 +53,10 @@ class PartitionSpec(tuple):
     def __new__(cls, *entries):
         """Build a spec from its per-dim entries."""
         return super().__new__(cls, entries)
+
+    def __getnewargs__(self):
+        """The entries, for pickle (``__new__`` takes them one by one)."""
+        return tuple(self)
 
     def __repr__(self) -> str:
         """``PartitionSpec('data', None)``."""
@@ -149,6 +162,34 @@ class ShardingPlan:
     logical_axes: list[tuple[str, ...] | None] | None = None
     kernel_sites: list[dict] = dataclasses.field(default_factory=list)
 
+    def torch_in_placements(self, mesh) -> list[tuple]:
+        """``in_specs`` as DTensor placements on ``mesh``.
+
+        Args:
+            mesh: a ``DeviceMesh`` whose dim names are the plan's axes.
+
+        Returns:
+            One tuple of placements per input leaf, in ``input_paths``
+            order.
+        """
+        from repro_torch.launch.mesh import placements_for
+        return [placements_for(s, mesh, len(s)) for s in self.in_specs]
+
+    def torch_out_placements(self, mesh) -> list[tuple] | None:
+        """``out_specs`` as DTensor placements on ``mesh``.
+
+        Args:
+            mesh: a ``DeviceMesh`` whose dim names are the plan's axes.
+
+        Returns:
+            One tuple of placements per output leaf; ``None`` when the
+            plan carries no output specs (pre-output-sharding JSON).
+        """
+        if not self.out_specs:
+            return None
+        from repro_torch.launch.mesh import placements_for
+        return [placements_for(s, mesh, len(s)) for s in self.out_specs]
+
     def spec_for(self, pattern: str) -> PartitionSpec | None:
         """Return the spec of the input matching ``pattern``.
 
@@ -205,20 +246,26 @@ class ShardingPlan:
         raise ConstraintError("plan violates constraints: " +
                               "; ".join(result.messages))
 
-    def apply(self, fn: Callable, device=None, *,
+    def apply(self, fn: Callable, device=None, *, mesh=None,
               capture: bool | None = None,
               donate_argnums=()) -> "AppliedPlan":
-        """Bind the plan to ``fn`` for execution on one device.
+        """Bind the plan to ``fn`` for execution on its mesh.
 
         Args:
             fn: the function the plan was searched for (same signature).
-            device: the device to run on (``None``: the CUDA card;
-                ``"cpu"`` runs the plain path on the CPU).
+            device: the device to run on (``None``: the CUDA card, on a
+                mesh each rank's; ``"cpu"`` runs the plain path on the
+                CPU, on a mesh over a gloo group).
+            mesh: for a plan of two or more devices, the ``DeviceMesh``
+                to run on (``None``: built from the plan's ``MeshSpec``
+                by ``launch.mesh.compat_make_mesh`` over the process
+                group); a one-device plan takes none.
             capture: run each argument signature as a captured CUDA
                 graph, the port's ``jax.jit`` (see :class:`AppliedPlan`).
-                ``None`` captures on a CUDA device and runs eagerly on
-                the CPU, where no graph exists; ``False`` runs eagerly
-                (the eager side of a parity check).
+                ``None`` captures on one CUDA device and runs eagerly on
+                the CPU and on a mesh, where no graph is taken;
+                ``False`` runs eagerly (the eager side of a parity
+                check).
             donate_argnums: an index or a tuple of indices of the
                 arguments whose leaves are donated, as the reference's
                 ``jit_kwargs`` pass them to ``jax.jit``: each output
@@ -229,13 +276,15 @@ class ShardingPlan:
             An :class:`AppliedPlan`; call it like ``fn``.
 
         Raises:
-            NotImplementedError: when the plan's mesh has more than one
-                device (DTensor execution is ROADMAP queue 1, item 8).
             RuntimeError: when no CUDA device is available and
-                ``device`` is not given.
-            ValueError: for ``capture=True`` on a device other than CUDA.
+                ``device`` is not given; for a plan of two or more
+                devices, when no process group of the mesh's size is
+                initialised.
+            ValueError: for ``capture=True`` on a device other than CUDA
+                or on a mesh of two or more devices; for a ``mesh`` that
+                is not the plan's.
         """
-        return AppliedPlan(self, fn, device, capture, donate_argnums)
+        return AppliedPlan(self, fn, device, capture, donate_argnums, mesh)
 
     def as_dict(self) -> dict:
         """JSON-serializable dict capturing the full plan (the inverse of
@@ -360,42 +409,87 @@ class ShardingPlan:
 class AppliedPlan(Compiled):
     """The result of :meth:`ShardingPlan.apply`: ``fn`` bound to a plan.
 
-    Each run of ``fn`` happens on one device under a kernel-dispatch
-    context carrying the plan's per-site kernel decisions, so every
-    fused site executes the implementation the plan chose.  Arguments
-    must already lie on the plan's device.
+    Each run of ``fn`` happens under a kernel-dispatch context carrying
+    the plan's per-site kernel decisions, so every fused site executes
+    the implementation the plan chose.
 
     As the reference's jitted ``AppliedPlan``, it keeps one entry per
-    argument signature: the arguments' treedef and each leaf's shape
-    and dtype.  The first call of a signature checks ``fn``'s output
-    leaves against the plan's ``out_specs``.  Each entry is captured as
-    a CUDA graph on a CUDA device, with donation as ``jax.jit``'s
-    ``donate_argnums`` (see :class:`repro_torch.jit.Compiled`).
+    argument signature: the arguments' treedef and each leaf's shape,
+    dtype and, for a DTensor, placements.  The first call of a signature
+    checks ``fn``'s output leaves against the plan's ``out_specs``.
+
+    *One device.*  Arguments must already lie on the plan's device.
+    Each entry is captured as a CUDA graph on a CUDA device, with
+    donation as ``jax.jit``'s ``donate_argnums`` (see
+    :class:`repro_torch.jit.Compiled`).
+
+    *A mesh of two or more devices.*  Each process of the group holds one
+    ``AppliedPlan`` and calls it on the same arguments, as any SPMD
+    program does.  A call places every input leaf as its ``in_specs``
+    entry (each rank keeps its block of a full tensor, which moves no
+    data; a DTensor is redistributed; :meth:`place` does it ahead of the
+    calls), runs ``fn`` eagerly under a dispatch that
+    also carries the mesh and each sharded site's specs (``kernels.ops``
+    runs the sites under ``local_map``), and redistributes every output
+    leaf to its ``out_specs`` entry.  Donation works as on the CPU, on
+    the placed leaves: a donated DTensor that arrives placed as its
+    ``in_specs`` entry takes the value of the output placed as it is
+    after ``fn`` returns, and is returned for it; one whose output's
+    ``out_specs`` entry differs raises ``ValueError``.  A leaf that the
+    call places itself (a full tensor, a DTensor placed otherwise) is a
+    new tensor, so the caller's buffer is donated only when the leaf
+    arrives placed (:meth:`place`).  Nothing is captured: the card's
+    host has one card, so no multi-card graph can be checked (ROADMAP
+    queue 1, item 8).
+
+    Attributes:
+        mesh: the ``DeviceMesh`` (``None`` for a one-device plan).
     """
 
     def __init__(self, plan: "ShardingPlan", fn: Callable, device,
-                 capture: bool | None = None, donate_argnums=()) -> None:
-        """Bind a plan to a function and a device.
+                 capture: bool | None = None, donate_argnums=(),
+                 mesh=None) -> None:
+        """Bind a plan to a function and a device or mesh.
 
         Args:
             plan: the sharding plan to install.
             fn: the function the plan was searched for.
             device: where it runs (``None``: the CUDA card).
-            capture: capture CUDA graphs (``None``: on a CUDA device).
+            capture: capture CUDA graphs (``None``: on one CUDA device).
             donate_argnums: the indices of the donated arguments.
+            mesh: the ``DeviceMesh`` of a plan of two or more devices
+                (``None``: built from the plan's ``MeshSpec``).
 
         Raises:
-            NotImplementedError: when the plan's mesh has more than one
-                device.
-            ValueError: for ``capture=True`` on a device other than CUDA.
+            RuntimeError: for a plan of two or more devices, when no
+                process group of the mesh's size is initialised.
+            ValueError: for ``capture=True`` on a device other than CUDA
+                or on a mesh; for a ``mesh`` that is not the plan's.
         """
-        if plan.mesh.num_devices != 1:
-            raise NotImplementedError(
-                f"plan.apply runs on one device; this plan's mesh has "
-                f"{plan.mesh.num_devices} (multi-device execution through "
-                f"DTensor is ROADMAP queue 1, item 8)")
         self.plan = plan
         self.impls = {r["site"]: r["impl"] for r in plan.kernel_sites}
+        spec = plan.mesh
+        if spec.num_devices == 1:
+            if mesh is not None:
+                raise ValueError("a one-device plan runs without a mesh")
+        else:
+            if capture:
+                raise ValueError(
+                    f"capture=True: a plan of {spec.num_devices} devices "
+                    f"runs eagerly (no multi-card graph can be checked on "
+                    f"a host with one card; ROADMAP queue 1, item 8)")
+            capture = False
+            if mesh is None:
+                from repro_torch.launch.mesh import compat_make_mesh
+                mesh = compat_make_mesh(spec.sizes, spec.axes, device)
+            if tuple(mesh.shape) != tuple(spec.sizes) or \
+                    tuple(mesh.mesh_dim_names) != tuple(spec.axes):
+                raise ValueError(
+                    f"the mesh {tuple(mesh.mesh_dim_names)} "
+                    f"{tuple(mesh.shape)} is not the plan's "
+                    f"{tuple(spec.axes)} {tuple(spec.sizes)}")
+            device = mesh.device_type if device is None else device
+        self.mesh = mesh
         super().__init__(fn, device, capture, donate_argnums)
 
     def _flatten(self, args):
@@ -414,7 +508,15 @@ class AppliedPlan(Compiled):
     def _dispatch(self):
         from repro_torch.models.sharding import (KernelDispatch,
                                                  kernel_dispatch)
-        return kernel_dispatch(KernelDispatch(impls=dict(self.impls)))
+        specs = {}
+        if self.mesh is not None:
+            specs = {r["site"]: (tuple(r["in_specs"]),
+                                 r["out_specs"][0]
+                                 if len(r["out_specs"]) == 1
+                                 else tuple(r["out_specs"]))
+                     for r in self.plan.kernel_sites if r["sharded"]}
+        return kernel_dispatch(KernelDispatch(
+            impls=dict(self.impls), mesh=self.mesh, specs=specs))
 
     def _check_outputs(self, out) -> None:
         n = len(pytree.tree_leaves(out))
@@ -422,6 +524,59 @@ class AppliedPlan(Compiled):
             raise ValueError(
                 f"plan has {len(self.plan.out_specs)} output specs but fn "
                 f"returns {n} leaves")
+
+    def place(self, args):
+        """``args`` placed on the mesh as the plan's ``in_specs``.
+
+        A call places its arguments itself; placing them once ahead keeps
+        the split of full tensors out of every call, and lets a donating
+        call write the new state into the placed leaves.  No placed leaf
+        shares memory with the caller's tensors (a shard that would be a
+        view of a full tensor is copied out of it), so a donated call
+        writes none of them.
+
+        Args:
+            args: the positional arguments, as ``fn`` takes them.
+
+        Returns:
+            The same tree with every leaf a DTensor (the tree itself for
+            a one-device plan).
+        """
+        if self.mesh is None:
+            return args
+        leaves = pytree.tree_leaves(args)
+        placed = self._place(args, leaves)[1]
+        return pytree.unflatten(args, [
+            p.clone() if p.to_local().untyped_storage().data_ptr() ==
+            x.untyped_storage().data_ptr() else p
+            for p, x in zip(placed, leaves)])
+
+    def _place(self, args, leaves):
+        if self.mesh is None:
+            return args, leaves
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.models.sharding import is_dtensor
+        placed = []
+        for x, want in zip(leaves, self.plan.torch_in_placements(self.mesh)):
+            if not is_dtensor(x):
+                # each rank holds the same full tensor: split it locally
+                x = distribute_tensor(x, self.mesh, want, src_data_rank=None)
+            elif tuple(x.placements) != want:
+                x = x.redistribute(self.mesh, want)
+            placed.append(x)
+        return pytree.unflatten(args, placed), placed
+
+    def _finish(self, out):
+        if self.mesh is None or not self.plan.out_specs:
+            return out
+        placed = []
+        for x, want in zip(pytree.tree_leaves(out),
+                           self.plan.torch_out_placements(self.mesh)):
+            if tuple(x.placements) != want:
+                x = x.redistribute(self.mesh, want)
+            placed.append(x)
+        return pytree.unflatten(out, placed)
 
 
 def _spec_entry(e):

@@ -82,9 +82,11 @@ class CapturedStep:
 
 
 def _aval(x):
+    """A tensor's shape and dtype, and a DTensor's placements, as
+    donation pairs buffers; ``None`` for any other leaf."""
     import torch
     if isinstance(x, torch.Tensor):
-        return tuple(x.shape), x.dtype
+        return tuple(x.shape), x.dtype, getattr(x, "placements", None)
     return None
 
 
@@ -100,7 +102,7 @@ def _donation_pairs(paths, leaves, donated, outs) -> dict[int, int]:
     Returns:
         ``{output index: donated input index}``: each output, in order,
         takes the earliest donated leaf not yet taken with its shape and
-        dtype.
+        dtype (and, for DTensors, its placements).
 
     Raises:
         ValueError: naming every donated leaf that no output takes.
@@ -121,8 +123,9 @@ def _donation_pairs(paths, leaves, donated, outs) -> dict[int, int]:
         names = ", ".join(paths[i] for i in sorted(unpaired))
         raise ValueError(
             f"donated input {names} has no output of the same shape and "
-            f"dtype to take its buffer (donate_argnums): donate only what "
-            f"the step returns anew")
+            f"dtype (and placements, on a mesh) to take its buffer "
+            f"(donate_argnums): donate only what the step returns anew, "
+            f"placed as it came")
     return pairs
 
 
@@ -153,7 +156,13 @@ class Compiled:
 
     *Eager* (the CPU, or ``capture=False``): each call runs ``fn``; a
     donated leaf then takes its output's value after ``fn`` returns, so
-    eager and captured calls return the same tensors.
+    eager and captured calls return the same tensors.  A subclass may
+    place the arguments before the call and the result after it
+    (``_place``, ``_finish``: ``AppliedPlan`` on a mesh of DTensors).
+    A donated DTensor pairs only with an output placed as it is, and a
+    leaf that ``_place`` replaced (a full tensor split, a DTensor
+    redistributed) donates nothing: its output comes back as a new
+    tensor and the caller's is not written.
 
     Attributes:
         captures: graphs captured so far.
@@ -232,6 +241,14 @@ class Compiled:
     def _check_outputs(self, out) -> None:
         pass
 
+    def _place(self, args, leaves) -> tuple[Any, list]:
+        """The arguments and leaves an eager run takes."""
+        return args, leaves
+
+    def _finish(self, out):
+        """An eager run's result, as it is returned."""
+        return out
+
     # -- calls ---------------------------------------------------------------
 
     def __call__(self, *args, **kwargs):
@@ -257,8 +274,10 @@ class Compiled:
         donated = [i in self.donate_argnums
                    for i, a in enumerate(args)
                    for _ in pytree.tree_leaves(a)]
+        # a DTensor keys on its global shape and its placements
         key = (pytree.treedef(args), tuple(
-            (tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor)
+            (tuple(x.shape), x.dtype, getattr(x, "placements", None))
+            if isinstance(x, torch.Tensor)
             else ((), type(x).__name__) for x in leaves))
         if not self.capture:
             return self._run_eager(args, leaves, paths, donated, key)
@@ -297,6 +316,11 @@ class Compiled:
 
     def _run_eager(self, args, leaves, paths, donated, key):
         import torch
+        given = leaves
+        args, leaves = self._place(args, leaves)
+        # a leaf placed anew is not the caller's tensor: none of the
+        # caller's buffers is donated for it
+        donated = [d and x is g for d, x, g in zip(donated, leaves, given)]
         versions = [x._version if isinstance(x, torch.Tensor) else None
                     for x in leaves]
         with self._dispatch():
@@ -304,6 +328,7 @@ class Compiled:
         self._check_functional(paths, leaves, versions)
         if key not in self._cache:
             self._check_outputs(out)
+        out = self._finish(out)
         if not any(donated):
             self._cache[key] = None
             return out

@@ -29,9 +29,25 @@ as the reference's ``_lru_bwd_jit`` (its registry lists only ``"ref"``
 for ``rg_lru_bwd``).  Both keep the forward's inputs as their residuals,
 as the reference's ``custom_vjp``s do, so the forward itself stays the
 kernel on a CUDA tensor.
+
+*On a mesh* (the counterpart of the reference's ``_maybe_shard_map``).
+When a site's inputs are DTensors, the custom op runs on each rank's
+local tensors under ``local_map``: a sharded site with the placements of
+the plan's per-site specs (``KernelDispatch.specs_for``), which shard
+only the kernel's mappable roles, so a blocked role (attention's
+sequence, the RG-LRU's S) is made whole first; an unsharded site, and a
+site with no plan, with every placement ``Replicate`` (a custom op has no
+DTensor sharding rule of its own).  Autograd passes through ``local_map``
+to the backward ops on the local tensors.  The kernel takes a local
+shard in place; one whose last dim is not contiguous, which the kernels
+do not take, is copied first, and each such copy is counted in
+``site_copies``.  ``local_calls`` counts the local calls by kernel,
+impl, local shapes and strides.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -46,6 +62,10 @@ __all__ = ["attention", "rg_lru"]
 # counts)
 bwd_calls = 0
 rg_lru_bwd_calls = 0
+# local shards copied to hand a kernel a contiguous last dim, and the
+# local calls under local_map: (kernel, impl, shapes, strides) -> calls
+site_copies = 0
+local_calls: collections.Counter = collections.Counter()
 
 
 def launch_counts() -> dict[str, int]:
@@ -111,14 +131,59 @@ _flash_attention_op.register_autograd(_fa_backward,
                                       setup_context=_fa_setup_context)
 
 
-def _resolve(kernel: str) -> str:
-    """The impl for the next ``kernel`` site: plan decision or default."""
+def _resolve(kernel: str) -> tuple[str | None, str]:
+    """The next ``kernel`` site's key (``None`` with no dispatch) and its
+    impl: the plan's decision or the registry's default."""
     from repro_torch.models.sharding import get_kernel_dispatch
     disp = get_kernel_dispatch()
-    impl = None
+    site = impl = None
     if disp is not None:
-        impl = disp.impl_for(disp.next_site(kernel))
-    return impl or registry.KERNELS[kernel].default_impl
+        site = disp.next_site(kernel)
+        impl = disp.impl_for(site)
+    return site, impl or registry.KERNELS[kernel].default_impl
+
+
+def _run_site(kernel: str, op, args: tuple, *static):
+    """``op(*args, *static, impl)`` at the next ``kernel`` site: the impl
+    is the plan's decision or the registry's default; on DTensors the op
+    runs under ``local_map`` (see the module docstring)."""
+    from repro_torch.models.sharding import get_kernel_dispatch, is_dtensor
+    disp = get_kernel_dispatch()
+    site, impl = _resolve(kernel)
+    if not any(is_dtensor(x) for x in args):
+        return op(*args, *static, impl)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.launch.mesh import placements_for
+    spec = disp.specs_for(site) if disp is not None else None
+    if spec is None:
+        mesh = next(x for x in args if is_dtensor(x)).device_mesh
+        whole = (Replicate(),) * mesh.ndim
+        in_pl, out_pl = (whole,) * len(args), whole
+    else:
+        mesh, in_specs, out_spec = spec
+        in_pl = tuple(placements_for(s, mesh, x.ndim)
+                      for s, x in zip(in_specs, args))
+        out_pl = placements_for(out_spec, mesh, args[0].ndim)
+
+    def local(*xs):
+        global site_copies
+        if impl == "cuda":
+            ready = []
+            for x in xs:
+                if x.is_cuda and x.stride(-1) != 1:
+                    x = x.contiguous()
+                    site_copies += 1
+                ready.append(x)
+            xs = ready
+        local_calls[(kernel, impl, tuple(tuple(x.shape) for x in xs),
+                     tuple(x.stride() for x in xs))] += 1
+        return op(*xs, *static, impl)
+
+    # one output: a tuple of one placement tuple
+    return local_map(local, out_placements=(out_pl,), in_placements=in_pl,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 def attention(q, k, v, *, causal: bool = True):
@@ -137,8 +202,8 @@ def attention(q, k, v, *, causal: bool = True):
     Returns:
         The attention output, (B,S,H,hd).
     """
-    impl = _resolve("flash_attention")
-    return _flash_attention_op(q, k, v, causal, impl)
+    return _run_site("flash_attention", _flash_attention_op, (q, k, v),
+                     causal)
 
 
 @torch.library.custom_op("repro_torch::rg_lru", mutates_args=())
@@ -193,5 +258,4 @@ def rg_lru(a, b):
     Returns:
         ``h_t = a_t h_{t-1} + b_t`` from h = 0, in a's dtype.
     """
-    impl = _resolve("rg_lru")
-    return _rg_lru_op(a, b, impl)
+    return _run_site("rg_lru", _rg_lru_op, (a, b))

@@ -76,13 +76,13 @@ def toast_decode_rules(cfg, batch: int, max_seq: int, n_dev: int):
 
     Raises:
         NotImplementedError: on two or more devices; running a sharded
-            plan is ROADMAP queue 1, item 8.
+            plan from the launcher is ROADMAP queue 1, item 8b.
     """
     if n_dev < 2:
         return {}, None
     raise NotImplementedError(
-        f"serving on {n_dev} devices needs multi-device plan.apply "
-        f"(DTensor), which is not ported yet (ROADMAP queue 1, item 8)")
+        f"serving on {n_dev} devices needs the multi-device launcher, "
+        f"which is not ported yet (ROADMAP queue 1, item 8b)")
 
 
 @dataclasses.dataclass

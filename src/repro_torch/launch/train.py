@@ -27,8 +27,8 @@ Example (CPU, reduced config)::
         --reduced --steps 30 --batch 8 --seq 64 --plan toast --device cpu
 
 Without ``--device`` it runs on the CUDA card, and raises without one.
-With two or more cards it raises: sharded execution is ROADMAP queue 1,
-item 8.  ``--compress`` is parsed and unused, as in the reference.
+With two or more cards it raises: the multi-device launchers are ROADMAP
+queue 1, item 8b.  ``--compress`` is parsed and unused, as in the reference.
 """
 
 from __future__ import annotations
@@ -63,14 +63,14 @@ def mesh_for(n_dev: int) -> MeshSpec:
         The 1x1 ``("data", "model")`` mesh on one device.
 
     Raises:
-        NotImplementedError: on two or more devices; running a sharded
-            train step is ROADMAP queue 1, item 8.
+        NotImplementedError: on two or more devices; the sharded train
+            launcher is ROADMAP queue 1, item 8b.
     """
     if n_dev < 2:
         return MeshSpec(("data", "model"), (1, 1))
     raise NotImplementedError(
-        f"training on {n_dev} devices needs multi-device plan.apply "
-        f"(DTensor), which is not ported yet (ROADMAP queue 1, item 8)")
+        f"training on {n_dev} devices needs the multi-device launcher, "
+        f"which is not ported yet (ROADMAP queue 1, item 8b)")
 
 
 def toast_plan(cfg: ModelConfig, shape: ShapeConfig, mesh_spec: MeshSpec):

@@ -27,7 +27,8 @@ import torch
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import lru_associative_scan
-from repro_torch.models.sharding import constrain
+from repro_torch.models.sharding import (constrain, pointwise,
+                                        replicate_like, split_dim)
 
 # ---------------------------------------------------------------------------
 # common
@@ -60,9 +61,10 @@ def rope(x, positions, theta):
     """x: (..., S, H, hd); positions: (..., S)."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) *
-                      (math.log(theta) / half))
+    freqs = replicate_like(
+        torch.exp(-torch.arange(0, half, dtype=torch.float32,
+                                device=x.device) * (math.log(theta) / half)),
+        positions)
     ang = positions[..., None].to(torch.float32) * freqs   # (..., S, half)
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
@@ -116,10 +118,9 @@ def _project_qkv(cfg, p, x, positions, kv_positions=None):
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if kv_positions is None:
         kv_positions = positions
-    q = rope(q.reshape(*x.shape[:-1], h, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(*x.shape[:-1], kv, hd), kv_positions,
-             cfg.rope_theta)
-    return q, k, v.reshape(*x.shape[:-1], kv, hd)
+    q = rope(split_dim(q, -1, (h, hd)), positions, cfg.rope_theta)
+    k = rope(split_dim(k, -1, (kv, hd)), kv_positions, cfg.rope_theta)
+    return q, k, split_dim(v, -1, (kv, hd))
 
 
 def attn_core(cfg, q, k, v, mask):
@@ -128,7 +129,7 @@ def attn_core(cfg, q, k, v, mask):
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     g = h // kv
     B, S = q.shape[0], q.shape[1]
-    qg = q.reshape(B, S, kv, g, hd)
+    qg = split_dim(q, 2, (kv, g))
     scores = torch.einsum("bskgh,btkh->bkgst", qg, k).to(torch.float32)
     scores = scores / math.sqrt(hd)
     scores = constrain(scores, ("act_batch", "kv_heads", None, "seq", None))
@@ -170,8 +171,8 @@ def attn_apply(cfg, p, x, positions, *, window=0, is_causal=True):
         out = constrain(out, ("act_batch", "seq", "heads"))
         return x + (out @ p["wo"])
     S = x.shape[1]
-    mask = causal_mask(S, S, window, device=x.device) if is_causal \
-        else None
+    mask = replicate_like(causal_mask(S, S, window, device=x.device), x) \
+        if is_causal else None
     out = attn_core(cfg, q, k, v, mask)
     out = constrain(out, ("act_batch", "seq", "heads"))
     return x + (out @ p["wo"])
@@ -284,7 +285,7 @@ def softplus(x):
     """``jax.nn.softplus``, written out as its ``logaddexp(x, 0)``."""
     amax = torch.clamp_min(x, 0.0)
     delta = x - 0.0
-    return torch.where(delta != delta, x + 0.0,
+    return torch.where(pointwise(torch.ne, delta, delta), x + 0.0,
                        amax + torch.log1p(torch.exp(-delta.abs())))
 
 

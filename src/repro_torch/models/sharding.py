@@ -1,33 +1,250 @@
-"""Logical-axis annotations and the kernel-dispatch state.
+"""Logical-axis sharding bridge and the kernel-dispatch state.
 
 Models annotate activations with *logical dimension names* (``batch``,
-``seq``, ``embed``, ``hidden``, ``heads`` …) through :func:`constrain`.
-In the reference a rules map ``{logical name -> mesh axes}`` (the plan's
-``logical_rules``) turns them into sharding constraints.  The port runs
-plans on one device only, where every placement is the same, so
-:func:`constrain` is a no-op and the rules map comes with multi-device
-execution through DTensor (ROADMAP queue 1, item 8).
+``seq``, ``embed``, ``hidden``, ``heads``, ``experts`` …) through
+:func:`constrain`.  A rules map ``{logical name -> mesh axes}`` — the
+plan's ``logical_rules``, or one written by hand for the expert
+baselines (:data:`MANUAL_RULES`) — turns those annotations into
+placements: under installed rules :func:`constrain` redistributes a
+DTensor to the spec the rules give its dims.  With no rules installed,
+or on a plain tensor, every annotation is a no-op, so the same model
+code runs unsharded on one device and partitioned over a ``DeviceMesh``.
 
-:class:`KernelDispatch` carries a plan's per-site kernel decisions to
-``kernels.ops``.
+This is the port's materialisation of the paper's flow: TOAST picks
+*which* named dimensions to shard; DTensor's sharding propagation does
+the mechanics, as GSPMD does in the reference.  Where DTensor, which
+chooses each op's strategy by itself, would execute a plan otherwise
+than GSPMD does, the models steer it to GSPMD's choice:
+:func:`gather_for` gathers weights before their products, and
+:func:`embedding` looks tokens up in a sharded table as GSPMD does.
+
+:class:`KernelDispatch` carries a plan's per-site kernel decisions, and
+on a mesh each sharded site's specs, to ``kernels.ops``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import threading
+from typing import Any
 
 _STATE = threading.local()
+
+# reshapes of DTensors that DTensor cannot shard, run on the dim made whole
+# first: reshape kind -> times (this process; the mesh runs print it)
+made_whole: collections.Counter = collections.Counter()
+# elementwise ops without a DTensor sharding rule, run on each rank's
+# local tensors: op -> times
+local_ops: collections.Counter = collections.Counter()
+
+
+def set_rules(rules: dict[str, tuple[str, ...]] | None) -> None:
+    """Install ``rules`` for this thread (``None`` or empty: none)."""
+    _STATE.rules = dict(rules) if rules else None
+
+
+def get_rules() -> dict[str, tuple[str, ...]] | None:
+    """This thread's rules map, or ``None``."""
+    return getattr(_STATE, "rules", None)
+
+
+@contextlib.contextmanager
+def logical_rules(rules: dict[str, tuple[str, ...]] | None):
+    """Install ``rules`` for the body of a ``with`` statement."""
+    prev = get_rules()
+    set_rules(rules)
+    try:
+        yield
+    finally:
+        set_rules(prev)
+
+
+def spec_for(names: tuple[str | None, ...]):
+    """The ``PartitionSpec`` the installed rules give ``names``.
+
+    Each dim takes its name's mesh axes, less those an earlier dim took;
+    ``None`` when no rules are installed or no dim takes an axis.
+    """
+    from repro_torch.core.partitioner import PartitionSpec
+    rules = get_rules()
+    if not rules:
+        return None
+    entries = []
+    used: set[str] = set()
+    nontrivial = False
+    for n in names:
+        axes = rules.get(n) if n else None
+        if axes:
+            axes = tuple(a for a in axes if a not in used)
+        if axes:
+            used.update(axes)
+            entries.append(axes[0] if len(axes) == 1 else tuple(axes))
+            nontrivial = True
+        else:
+            entries.append(None)
+    return PartitionSpec(*entries) if nontrivial else None
+
+
+def is_dtensor(x) -> bool:
+    """True for a DTensor (a tensor placed on a ``DeviceMesh``)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
 
 
 def constrain(x, names: tuple[str | None, ...]):
     """Annotate ``x``'s dims with logical names.
 
-    A no-op in the port: plans execute on one device, where every
-    placement is the same (see the module docstring).
+    Under installed rules a DTensor is redistributed to ``spec_for(names)``
+    on its own mesh.  A plain tensor has no mesh and is returned as it
+    is, as is any tensor when no rules are installed.  The reference
+    wraps its constraint in a ``try`` that returns ``x`` on any error,
+    which there covers the case of no active mesh; the port tells that
+    case by the tensor's type, so a rule naming an axis the mesh lacks
+    raises here.
     """
-    return x
+    spec = spec_for(names)
+    if spec is None or not is_dtensor(x):
+        return x
+    from repro_torch.launch.mesh import placements_for
+    want = placements_for(spec, x.device_mesh, x.ndim)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def gather_for(tree, x):
+    """``tree``'s weights placed for products with the activation ``x``,
+    as GSPMD places a plan's weights.
+
+    A mesh dim that shards ``x``'s batch (its leading dim) and a weight
+    of the same products cannot shard both: GSPMD all-gathers the weight
+    over it, layer by layer, and leaves the activations where the plan
+    put them (the reference's compiled HLO for TOAST's 1x2 plans: one
+    all-gather per weight and layer, no collective of an activation;
+    ``tests/test_torch_mesh_comm.py``).  DTensor, which picks each
+    product's strategy by itself, moves the activation onto the weight's
+    dim instead and leaves a pending sum, reduced over whole
+    activations.  So every DTensor leaf is made whole on those mesh dims
+    here, its other placements kept; plain tensors, and any tree when
+    ``x`` is not batch-sharded, pass as they are.
+    """
+    if not is_dtensor(x):
+        return tree
+    # the mesh dims that shard x's leading dim
+    batch = [i for i, p in enumerate(x.placements)
+             if p.is_shard() and p.dim % x.ndim == 0]
+    if not batch:
+        return tree
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch import pytree
+
+    def gather(w):
+        if not is_dtensor(w) or \
+                all(w.placements[i].is_replicate() for i in batch):
+            return w
+        return w.redistribute(w.device_mesh, [
+            Replicate() if i in batch else p
+            for i, p in enumerate(w.placements)])
+    return pytree.tree_map(gather, tree)
+
+
+def embedding(tokens, table):
+    """``F.embedding(tokens, table)``, on DTensors as GSPMD runs it.
+
+    The table stays as it lies: the token ids are made whole on the mesh
+    dims that shard the table (an all-gather of the ids), the lookup runs
+    on the table's shards, and its result is placed on those mesh dims
+    as the tokens were (an all-to-all from the table's feature dim, a
+    reduce-scatter from its vocabulary dim), as the reference's compiled
+    HLO does.  Gathering the table instead would move it whole every
+    call.
+    """
+    import torch.nn.functional as F
+    if not is_dtensor(table):
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import Replicate
+    mesh = table.device_mesh
+    on = [i for i, p in enumerate(table.placements) if not p.is_replicate()]
+    ids = tokens.redistribute(mesh, [
+        Replicate() if i in on else p
+        for i, p in enumerate(tokens.placements)])
+    h = F.embedding(ids, table)
+    return h.redistribute(mesh, [
+        tokens.placements[i] if i in on else p
+        for i, p in enumerate(h.placements)])
+
+
+def replicate_like(t, ref):
+    """``t`` placed beside ``ref``: a plain tensor made on each rank alike
+    (an iota, a mask) becomes a replicated DTensor on ``ref``'s mesh
+    when ``ref`` is a DTensor; otherwise ``t`` itself.
+
+    DTensor refuses an op that mixes the two kinds, and a value every
+    rank computes whole is replicated by construction, so nothing moves.
+    """
+    if not is_dtensor(ref) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def split_dim(t, dim: int, sizes: tuple[int, ...]):
+    """``t`` with dim ``dim`` split into ``sizes`` (one reshape).
+
+    On a DTensor whose ``dim`` is sharded ``F`` ways, DTensor cannot
+    split it when the leading size is above 1 and ``F`` does not divide
+    it: on one mesh dim it refuses ("cannot unflatten unevenly sharded"),
+    on two it computes a wrong local shape.  Such a dim is made whole
+    first, explicitly, and counted in :data:`made_whole`.  A plain tensor
+    is reshaped as it is, so traced programs do not change.
+    """
+    dim %= t.ndim
+    if is_dtensor(t) and sizes[0] > 1:
+        mesh = t.device_mesh
+        on = [i for i, p in enumerate(t.placements)
+              if p.is_shard() and p.dim == dim]
+        ways = 1
+        for i in on:
+            ways *= mesh.size(i)
+        if sizes[0] % ways:
+            from torch.distributed.tensor import Replicate
+            made_whole[f"split of a dim sharded {ways} ways into "
+                       f"{tuple(sizes)}"] += 1
+            placements = [Replicate() if i in on else p
+                          for i, p in enumerate(t.placements)]
+            t = t.redistribute(mesh, placements)
+    return t.reshape(*t.shape[:dim], *sizes, *t.shape[dim + 1:])
+
+
+def pointwise(fn, *args):
+    """``fn(*args)`` for an elementwise ``fn`` of same-shaped tensors.
+
+    On DTensors that DTensor has no sharding rule for ``fn``'s op (in
+    torch 2.11 ``aten.ne.Tensor``, which ``softplus``'s NaN test issues),
+    ``fn`` runs on each rank's local tensors under ``local_map``, every
+    input placed as the first DTensor is (a pending sum made whole
+    first): the placement DTensor's own elementwise rule gives.  Counted
+    in :data:`local_ops`.  Plain tensors take ``fn`` itself, so traced
+    programs do not change.
+    """
+    ref = next((a for a in args if is_dtensor(a)), None)
+    if ref is None:
+        return fn(*args)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    local_ops[fn.__name__] += 1
+    placements = tuple(Replicate() if p.is_partial() else p
+                       for p in ref.placements)
+    return local_map(fn, out_placements=(placements,),
+                     in_placements=tuple(placements if is_dtensor(a) else None
+                                         for a in args),
+                     device_mesh=ref.device_mesh,
+                     redistribute_inputs=True)(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -45,16 +262,24 @@ class KernelDispatch:
     iteration of the eager layer loop runs under the body's site keys
     (``transformer.scan_layers`` rewinds the counters with
     :meth:`mark` / :meth:`rewind`).  ``plan.apply`` installs one of these
-    carrying the searched plan's per-site impl decisions.
+    carrying the searched plan's per-site impl decisions and, on a mesh
+    of two or more devices, the mesh and each sharded site's specs,
+    which ``kernels.ops`` turns into the placements of the site's
+    ``local_map``.
 
     Attributes:
         impls: site key -> impl name ("cuda" | "ref").
         default_impl: impl for sites without an explicit entry
             (``None`` = the registry's default).
+        mesh: the ``DeviceMesh`` the sites' DTensors lie on.
+        specs: sharded site key -> ``(in_specs tuple, out_specs)``
+            ``PartitionSpec``s (mappable roles only).
     """
 
     impls: dict = dataclasses.field(default_factory=dict)
     default_impl: str | None = None
+    mesh: Any = None
+    specs: dict = dataclasses.field(default_factory=dict)
     _counters: dict = dataclasses.field(default_factory=dict)
 
     def next_site(self, kernel: str) -> str:
@@ -78,6 +303,13 @@ class KernelDispatch:
     def impl_for(self, site: str) -> str | None:
         """The impl decision for ``site`` (falls back to the default)."""
         return self.impls.get(site, self.default_impl)
+
+    def specs_for(self, site: str):
+        """``(mesh, in_specs, out_specs)`` for a sharded site, or None."""
+        spec = self.specs.get(site)
+        if spec is None or self.mesh is None:
+            return None
+        return (self.mesh, *spec)
 
 
 def get_kernel_dispatch() -> KernelDispatch | None:
@@ -104,3 +336,32 @@ def kernel_dispatch(disp: KernelDispatch | None, *, reset: bool = True):
     finally:
         _STATE.kernel_dispatch = prev
 
+
+# Expert/manual baseline rules (paper §5.1.1): FSDP + Megatron + sequence
+# parallelism for transformer LMs.
+MANUAL_RULES: dict[str, tuple[str, ...]] = {
+    "batch": ("data",),
+    "act_batch": ("data",),   # activation batch (cache batch is "batch")
+    "seq": ("model",),       # sequence parallelism for activations
+    "hidden": ("model",),    # Megatron MLP sharding
+    "heads": ("model",),     # Megatron attention-head sharding
+    "experts": ("model",),   # expert parallelism
+    "vocab": ("model",),
+    "embed_fsdp": ("data",),  # FSDP parameter sharding axis
+}
+
+MANUAL_RULES_MULTIPOD: dict[str, tuple[str, ...]] = {
+    **MANUAL_RULES,
+    "batch": ("pod", "data"),
+    "act_batch": ("pod", "data"),
+}
+
+# Weight-stationary decode (Pope et al. "Efficiently scaling transformer
+# inference"): keep 2D-sharded weights resident, reshard the tiny per-token
+# activations instead — activations drop the batch axis so their embed dim
+# can take "data" and contract against data-sharded weights locally.
+DECODE_WEIGHT_STATIONARY_RULES: dict[str, tuple[str, ...]] = {
+    **MANUAL_RULES,
+    "act_batch": (),
+    "embed": ("data",),
+}

@@ -34,8 +34,9 @@ import torch
 from repro_torch import pytree
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import (constrain, get_kernel_dispatch,
-                                        kernel_dispatch)
+from repro_torch.models.sharding import (constrain, embedding, gather_for,
+                                        get_kernel_dispatch, kernel_dispatch,
+                                        replicate_like)
 
 _NOT_PORTED = {
     "mlstm": "xLSTM blocks are not ported yet (ROADMAP queue 1, item 11)",
@@ -253,6 +254,7 @@ def param_logical_axes(cfg, params):
 
 def apply_block(cfg, kind, p, x, positions):
     _check_ported(cfg, kind)
+    p = gather_for(p, x)
     if kind == "rglru":
         x = L.rglru_apply(cfg, p["mix"], x)
     else:
@@ -345,7 +347,7 @@ def _run_layers(cfg, params, h, positions):
 
 
 def embed_tokens(cfg, params, tokens):
-    h = torch.nn.functional.embedding(tokens, params["embed"])
+    h = embedding(tokens, params["embed"])
     # the scale rounded to the activations' dtype, as the reference does
     return h * L.round_to(h.dtype, math.sqrt(cfg.d_model))
 
@@ -355,11 +357,11 @@ def forward(cfg, params, tokens):
     h = embed_tokens(cfg, params, tokens)
     h = constrain(h, ("act_batch", "seq", "embed"))
     S = h.shape[1]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device)[None, :]
+    positions = replicate_like(torch.arange(S, dtype=torch.int32,
+                                            device=tokens.device)[None, :], h)
     h = _run_layers(cfg, params, h, positions)
     h = L.rmsnorm(h, params["final_ln"])
-    logits = h @ params["unembed"]
+    logits = h @ gather_for(params["unembed"], h)
     return constrain(logits, ("act_batch", "seq", "vocab"))
 
 

@@ -13,6 +13,10 @@ is held to autograd of the plain attention with the same tolerances,
 and a small f32 model's gradients to its plain path within 1e-4.  The
 RG-LRU kernel trains the same way (the kernel forward, the plain scan's
 vjp back), on both of its routes, and so does a small f32 hybrid.
+Two ranks of one gloo group share the card: gloo's collectives on CUDA
+tensors, DTensor's all-gather through ``launch.mesh``'s route, and
+small f32 models on a (1, 2) mesh against their one-card plan within
+1e-4, their kernel sites on local shards.
 """
 
 import pytest
@@ -640,3 +644,149 @@ def test_donation_holds_one_train_state_less_and_release_frees_it(gen):
     del graph
     donated.release()
     assert donated.graphs == [] and pool_segments() == []
+
+
+# --- two ranks sharing the card over gloo -----------------------------------
+
+COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor",
+               "all_reduce", "all_to_all_single")
+
+
+def probe_rank(rank):
+    """Each collective DTensor issues, on CUDA tensors of card 0, over
+    gloo: ``"ok"`` when its result is right, else the error."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    n = dist.get_world_size()
+    iota = torch.arange(8, dtype=torch.float32, device="cuda")
+    x = iota + 8 * rank                   # this rank's 8 values
+    whole = torch.arange(8 * n, dtype=torch.float32, device="cuda")
+    half = 8 // n
+
+    def run(name):
+        if name == "all_gather_into_tensor":
+            out = torch.empty(8 * n, device="cuda")
+            dist.all_gather_into_tensor(out, x)
+            return out, whole
+        if name == "reduce_scatter_tensor":
+            out = torch.empty(8, device="cuda")
+            dist.reduce_scatter_tensor(out, whole)
+            return out, n * whole.view(n, 8)[rank]
+        if name == "all_reduce":
+            out = x.clone()
+            dist.all_reduce(out)
+            return out, sum(iota + 8 * r for r in range(n))
+        out = torch.empty(8, device="cuda")
+        dist.all_to_all_single(out, x)
+        return out, torch.cat([iota[rank * half:(rank + 1) * half] + 8 * r
+                               for r in range(n)])
+
+    res = {}
+    for name in COLLECTIVES:
+        try:
+            got, want = run(name)
+            torch.cuda.synchronize()
+            res[name] = "ok" if torch.equal(got, want) else \
+                f"wrong result {got.tolist()}"
+        except RuntimeError as err:
+            res[name] = f"{type(err).__name__}: {err}"
+    return res
+
+
+@pytest.fixture(scope="module")
+def probe():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: two ranks share card 0")
+    from repro_torch.launch.mesh import run_ranks
+    return run_ranks(probe_rank, 2, timeout=120)
+
+
+@pytest.mark.parametrize("name", COLLECTIVES)
+def test_gloo_collective_on_cuda_tensors(probe, name):
+    """The collectives DTensor lowers a redistribution to, run by gloo on
+    CUDA tensors (through host copies) with two ranks on one card."""
+    for rank, res in enumerate(probe):
+        assert res[name] == "ok", (rank, res[name])
+
+
+def functional_gather_rank(rank, routed):
+    """DTensor's all-gather op on CUDA tensors of card 0 over gloo, with
+    or without ``launch.mesh.route_gloo_all_gather``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import route_gloo_all_gather
+    torch.cuda.set_device(0)
+    if routed:
+        route_gloo_all_gather()
+    x = torch.arange(4, dtype=torch.float32, device="cuda") + 4 * rank
+    out = torch.ops._c10d_functional.all_gather_into_tensor(
+        x, 2, dist.group.WORLD.group_name)
+    return torch.ops._c10d_functional.wait_tensor(out).cpu()
+
+
+def test_functional_all_gather_on_cuda_takes_the_route(gen):
+    """Through the route the functional all-gather is right; without it
+    the rank dies of a segmentation fault in gloo's coalesced all-gather
+    (torch 2.11): the defect the route avoids, pinned so that a torch
+    that repairs it shows here."""
+    from repro_torch.launch.mesh import run_ranks
+    for got in run_ranks(functional_gather_rank, 2, True, timeout=120):
+        assert torch.equal(got, torch.arange(8, dtype=torch.float32))
+    with pytest.raises(RuntimeError, match="exited with code -11"):
+        run_ranks(functional_gather_rank, 2, False, timeout=120)
+
+
+def small_mesh_rank(rank, arch, plan_json):
+    """The small f32 model's prefill on the (1, 2) plan, on card 0."""
+    from repro_torch.core.partitioner import ShardingPlan
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_prefill_step
+    cfg = small_config(arch, "float32")
+    applied = ShardingPlan.from_json(plan_json).apply(make_prefill_step(cfg))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_params(cfg, g)
+    batch = tokens(g, cfg, 2, 64)
+    before = ops.launch_counts()
+    ops.local_calls.clear()
+    out = applied(params, batch).full_tensor().cpu()
+    after = ops.launch_counts()
+    return {"logits": out,
+            "launches": {k: after[k] - before[k] for k in after},
+            "local_calls": dict(ops.local_calls),
+            "copies": ops.site_copies}
+
+
+@pytest.mark.parametrize("arch,kernel", [("qwen2_05b", "flash_attention"),
+                                         ("recurrentgemma_2b", "rg_lru")])
+def test_small_prefill_on_two_ranks_equals_one_card(gen, arch, kernel):
+    """Two ranks share the card on a (1, 2) mesh: the kernel sites run on
+    local shards under ``local_map`` and the gathered logits equal the
+    one-card plan's within 1e-4."""
+    from repro_torch.api import Request, Session
+    from repro_torch.core.cost_model import MeshSpec
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import transformer as T
+    cfg = small_config(arch, "float32")
+    step, plan1 = prefill_plan(cfg, 2, 64)
+    sess = Session(step, (T.param_specs(cfg), {"tokens": torch.empty(
+        (2, 64), dtype=torch.int32, device="meta")}))
+    plan2 = sess.partition(Request(mesh=MeshSpec(("data", "model"), (1, 2))))
+    sharded = [r for r in plan2.kernel_sites if r["sharded"]]
+    assert sharded and all(r["impl"] == "cuda" for r in plan2.kernel_sites)
+    (fa if kernel == "flash_attention" else lru).build()   # ranks load it
+    ranks = run_ranks(small_mesh_rank, 2, arch, plan2.to_json(), timeout=300)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_params(cfg, g)
+    want = plan1.apply(step)(params, tokens(g, cfg, 2, 64)).cpu()
+    sites = sum(k == ("attn" if kernel == "flash_attention" else "rglru")
+                for k in cfg.pattern[:cfg.num_layers])
+    spec = sharded[0]["in_specs"][0]
+    glob = (2, 64, cfg.num_heads, cfg.resolved_head_dim) \
+        if kernel == "flash_attention" else (2, 64, cfg.d_model * 3 // 2)
+    local = tuple(g // 2 if e is not None else g for g, e in zip(glob, spec))
+    for r in ranks:
+        torch.testing.assert_close(r["logits"], want, rtol=1e-4, atol=1e-4)
+        assert r["launches"][kernel] == sites and r["copies"] == 0
+        assert r["local_calls"]
+        for (k, impl, shapes, _), n in r["local_calls"].items():
+            assert (k, impl, shapes[0]) == (kernel, "cuda", local)
