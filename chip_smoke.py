@@ -12,7 +12,8 @@ step with its KV and recurrent caches, planned with the serving launcher's
 request (the KV cache pinned replicated) and served token by token; for
 both models the train step, through each kernel's autograd, captured with
 its state donated; and the training launcher, with checkpoints, a failure
-and a restart.
+and a restart, on one card and on two ranks sharing it, and the serving
+launcher on those two ranks.
 
 1. print the card's name and power limit; build both kernels from the
    sources in this checkout, in parallel;
@@ -88,6 +89,26 @@ and a restart.
    step 3, each attempt capture one graph, and the final checkpoint
    equal the uninterrupted run's final state bit for bit; the seconds
    and bytes of each save and restore are printed;
+6c. the mesh launcher phase: the one-card uninterrupted run's final
+   state moved to the host, two ranks of one gloo group share card 0
+   and run ``launch/train.py`` at the same width and schedule with
+   ``--plan toast`` on the (data 1, model 2) mesh (the reference's rules
+   route: the state placed by the plan's logical rules, the step eager
+   on DTensors, every attention site on whole q, k, v): per rank the
+   rules, the state's and peak bytes, each step's ms, the collectives
+   per step by kind and bytes, 48 attention launches a step and their
+   local shapes, each save's and the restore's seconds, the step the
+   restart resumed from; the final checkpoint (written by rank 0 from
+   the shards) must be step 6, every loss and grad norm within 2e-2 of
+   the one-card run's, and every leaf within 2e-2 (relative, in norm)
+   beyond the distance from that run of one card's run of the same
+   batches in two microbatches (bf16 rounding that AdamW amplifies in a
+   leaf whose gradient cancels); then
+   both models serve one request of 4 x (16 prompt + 16 generated)
+   tokens through ``launch/serve.py`` on the same ranks (the decode
+   step's plan for (1, 2), the weights and cache replicated), the prompt
+   logits within 2e-2 of the largest and argmax equal to one card's
+   serve of the same prompts;
 7. the same as 6 for the ``recurrentgemma_2b`` train path (after its
    prefill and decode, the ``qwen2_05b`` train states freed): the
    full-width step at B 1 x S 4096 with bf16 moments, whose RG-LRU sites
@@ -180,6 +201,10 @@ TRAIN_REL_TOL = 2e-2
 MESH_SHAPE = (1, 2)
 MESH_REQUESTS = 2
 MESH_TIMEOUT = 420.0
+# the mesh launcher phase: the launcher's schedule on (1, 2), then one
+# request of 4 x (16 prompt + 16 generated) tokens per model
+MESH_SERVE = (4, 16, 16)
+MESH_LAUNCH_TIMEOUT = 600.0
 # H100 SXM data sheet (dense bf16 FLOP/s, f32 FLOP/s outside the tensor
 # cores, HBM bytes/s)
 PEAK_BF16_FLOPS = 989e12
@@ -1276,7 +1301,7 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw,
     return {"launches_per_step": want_launches, "steps": cap_rows}
 
 
-def drive_launcher(torch, cfg, counters, card, seed: int) -> None:
+def drive_launcher(torch, cfg, counters, card, seed: int):
     """Train ``cfg`` through the training launcher (``launch/train.py``):
     once uninterrupted (``--plan manual``, the plan-free ``jit``), and
     once with ``--plan toast``, a failure injected and a restart from the
@@ -1288,6 +1313,10 @@ def drive_launcher(torch, cfg, counters, card, seed: int) -> None:
         counters: kernel name -> its wrapper module (``launches``).
         card: the card's name and power limit, for the summary line.
         seed: the seed of the weights and the data pipeline.
+
+    Returns:
+        The uninterrupted run's :class:`Attempt`, its final state moved
+        to the host (the card's memory is the mesh phase's).
     """
     import shutil
     import tempfile
@@ -1369,6 +1398,266 @@ def drive_launcher(torch, cfg, counters, card, seed: int) -> None:
             f"final checkpoint (step {step}, {len(diffs)} leaves, read to "
             f"the host in {read_s:.3f} s) equals the uninterrupted run's "
             f"final state bit for bit")
+        whole.state = pytree.tree_map(lambda x: x.cpu(), whole.state)
+        return whole
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_launcher_rank(rank, name, train_argv, serve_argv):
+    """One of the two ranks that share card 0 in the mesh launcher phase.
+
+    Trains ``name`` at full width through ``launch/train.py`` on the
+    (1, 2) mesh (``train_argv``: a failure injected and a restart), then
+    serves each model of ``serve_argv`` through ``launch/serve.py`` on
+    the same two ranks.  Returns what the rank counted: each attempt's
+    record (its state dropped), the attention kernel's launches and
+    local shapes, the peak memory, and each model's gathered tokens and
+    prompt logits."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as server
+    from repro_torch.launch import train as launcher
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(name), use_pallas=True)
+    fa.launches = 0
+    ops.local_calls.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    attempts = launcher.supervise(cfg, launcher.parse_args(train_argv))
+    train_s = time.perf_counter() - t0
+    out = {"train_s": train_s, "launches": fa.launches,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "local_calls": [[k, impl, shapes, n] for (k, impl, shapes, _), n
+                           in ops.local_calls.items()],
+           "attempts": [dataclasses.replace(a, state=None)
+                        for a in attempts]}
+    del attempts
+    torch.cuda.empty_cache()
+    out["serve"] = {}
+    for arch, argv in serve_argv.items():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = server.serve(server.parse_args(argv))
+        out["serve"][arch] = {
+            "s": time.perf_counter() - t0,
+            "tokens": res.tokens.full_tensor().cpu(),
+            "prompt_logits": res.prompt_logits.full_tensor().float().cpu(),
+            "prefill_ms": res.prefill_ms, "step_ms": res.step_ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def split_run(torch, cfg, seed: int):
+    """The launcher's uninterrupted run on one card, each batch taken as
+    two microbatches (``accum_steps=2``): the same math as ``whole``,
+    rounded otherwise, as two ranks that split the batch round it.
+    Returns its record, the state on the host."""
+    from repro_torch import pytree
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.jit import jit
+    from repro_torch.launch.train import Attempt
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    B, S = TRAIN_SHAPE
+    run = Attempt(0)
+    state = init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    step = jit(make_train_step(cfg, accum_steps=2), "cuda", capture=False,
+               donate_argnums=0)
+    pipe = Pipeline(cfg, ShapeConfig("cli", S, B, "train"),
+                    DataConfig(seed=seed))
+    try:
+        for _ in range(LAUNCH_STEPS):
+            _, batch = next(pipe)
+            state, metrics = step(state, {k: torch.from_numpy(v).cuda()
+                                          for k, v in batch.items()})
+            run.losses.append((metrics["loss"].item(),
+                               metrics["grad_norm"].item()))
+    finally:
+        pipe.close()
+    run.state = pytree.tree_map(lambda x: x.cpu(), state)
+    return run
+
+
+def drive_mesh_launcher(torch, cfg, hybrid, whole, card, seed: int):
+    """The mesh launcher phase: ``cfg`` trained through ``launch/train.py``
+    on two ranks of one gloo group sharing card 0, ``--plan toast`` on
+    the (1, 2) mesh, a failure at step ``LAUNCH_FAIL_AT`` and a restart;
+    then one request served through ``launch/serve.py`` on the same ranks
+    for ``cfg`` and ``hybrid``.  The final checkpoint is held against the
+    one-card uninterrupted run ``whole`` (its state on the host): the
+    step, each step's loss and grad norm within 2e-2, and each leaf
+    within 2e-2 beyond the distance from ``whole`` of one card's run of
+    the same batches in two microbatches (:func:`split_run`); the served
+    prompt logits against one card's serve of the same prompts.
+
+    Returns:
+        Per rank, the attention kernel's launches per step.
+    """
+    import shutil
+    import tempfile
+
+    from repro_torch import pytree
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.launch import serve as server
+    from repro_torch.launch.mesh import run_ranks
+
+    B, S = TRAIN_SHAPE
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_"))
+    try:
+        train_argv = [
+            "--arch", cfg.name, "--batch", str(B), "--seq", str(S),
+            "--steps", str(LAUNCH_STEPS), "--seed", str(seed),
+            "--log-every", "1", "--plan", "toast", "--ckpt-dir", str(tmp),
+            "--ckpt-every", str(LAUNCH_CKPT_EVERY), "--fail-at",
+            str(LAUNCH_FAIL_AT)]
+        serve_argv = {m.name: ["--arch", m.name, "--batch",
+                               str(MESH_SERVE[0]), "--prompt-len",
+                               str(MESH_SERVE[1]), "--gen",
+                               str(MESH_SERVE[2]), "--seed", str(seed)]
+                      for m in (cfg, hybrid)}
+        split = split_run(torch, cfg, seed)
+        # the one-card serve of the same prompts (the same seeded weights)
+        one = {}
+        for arch, argv in serve_argv.items():
+            res = server.serve(server.parse_args(argv + ["--plan",
+                                                         "manual"]))
+            one[arch] = (res.tokens.cpu(), res.prompt_logits.float().cpu())
+            del res
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"[mesh launcher] before the ranks the parent holds "
+            f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved, "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_launcher_rank, 2, cfg.name, train_argv,
+                          {k: v + ["--plan", "toast"]
+                           for k, v in serve_argv.items()},
+                          timeout=MESH_LAUNCH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        per_step = train_sites(cfg)["flash_attention"]["launches"]
+        ran = LAUNCH_FAIL_AT + LAUNCH_STEPS - LAUNCH_CKPT_EVERY
+        for rank, res in enumerate(ranks):
+            a0, a1 = res["attempts"]
+            if a0.error != "RuntimeError: injected node failure" or \
+                    a1.start_step != LAUNCH_CKPT_EVERY or a1.error or \
+                    len(a0.step_ms) + len(a1.step_ms) != ran:
+                raise AssertionError(
+                    f"mesh launcher rank {rank}: attempts "
+                    + "; ".join(f"from step {a.start_step}, "
+                                f"{len(a.step_ms)} steps, error {a.error}"
+                                for a in res["attempts"]))
+            log(f"[mesh launcher rank {rank}] rules {a1.rules} on "
+                f"{a1.mesh}; state {a1.state_bytes / 1e9:.3f} GB on this "
+                f"rank; peak {res['peak_gb']:.2f} GB (training and saving)")
+            for a in res["attempts"]:
+                steps = len(a.step_ms)
+                calls = {k: v / steps for k, v in
+                         a.collectives["calls"].items()}
+                nbytes = {k: v / steps for k, v in
+                          a.collectives["bytes"].items()}
+                log(f"[mesh launcher rank {rank}] {card}: attempt "
+                    f"{a.attempt} from step {a.start_step}: step ms "
+                    f"{fmt_ms(a.step_ms)} (host clock, card synchronized; "
+                    f"two ranks time-sharing one H100 over gloo: not a "
+                    f"multi-card figure); collectives per step "
+                    + json.dumps(calls) + ", result bytes per step "
+                    + json.dumps(nbytes) + ", host s in them and their "
+                    "waits " + json.dumps({k: round(v, 3) for k, v in
+                                           a.collectives["seconds"].items()}))
+                for sv in a.saves:
+                    log(f"[mesh launcher rank {rank}] save step "
+                        f"{sv['step']}: {sv['bytes'] / 1e9:.3f} GB whole, "
+                        f"{sv['local_bytes'] / 1e9:.3f} GB of shards off "
+                        f"the card, made whole on the host in "
+                        f"{sv['snapshot_s']:.3f} s, written "
+                        + ("-" if sv["write_s"] is None else
+                           f"{sv['write_s']:.3f} s"))
+            log(f"[mesh launcher rank {rank}] restart resumed from step "
+                f"{a1.start_step}, restore onto the shards "
+                f"{a1.restore_s:.3f} s; flash_attention launches "
+                f"{res['launches']} in {ran} steps; local sites "
+                + json.dumps(res["local_calls"]))
+            if res["launches"] != per_step * ran:
+                raise AssertionError(
+                    f"mesh launcher rank {rank}: {res['launches']} "
+                    f"attention launches, expected {per_step} x {ran}")
+        # the final checkpoint against one card's whole-batch run, each
+        # leaf within 2e-2 beyond the distance from that run of one card's
+        # run of the same batches in two microbatches (the same math
+        # rounded otherwise, as the ranks' batch halves are): in bf16,
+        # after 6 AdamW steps, a leaf whose gradient cancels (the key
+        # bias) moves by more than 2e-2 under any such regrouping
+        t0 = time.perf_counter()
+        step, got = CheckpointManager(tmp).restore(whole.state,
+                                                   device="cpu")
+        read_s = time.perf_counter() - t0
+        worst, above = (0.0, "", 0.0), []
+        for a, b, c, path in zip(pytree.tree_leaves(got),
+                                 pytree.tree_leaves(whole.state),
+                                 pytree.tree_leaves(split.state),
+                                 pytree.flatten_with_paths(whole.state)[1]):
+            a, b, c = a.double(), b.double(), c.double()
+            rel = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            floor = ((c - b).norm() / b.norm().clamp_min(1e-30)).item()
+            worst = max(worst, (rel, path, floor))
+            if rel > TRAIN_REL_TOL:
+                above.append(f"{path} {rel:.3e} (floor {floor:.3e})")
+            if rel > floor + TRAIN_REL_TOL:
+                raise AssertionError(
+                    f"mesh launcher: final leaf {path} differs by "
+                    f"{rel:.3e} from one card's run, whose two-microbatch "
+                    f"run differs by {floor:.3e}")
+        mesh_losses = dict(
+            (a.start_step + i + 1, lg) for a in ranks[0]["attempts"]
+            for i, lg in enumerate(a.losses))
+        loss_rel = 0.0
+        for i, (loss, gnorm) in enumerate(whole.losses):
+            m_loss, m_gnorm = mesh_losses[i + 1]
+            loss_rel = max(loss_rel, abs(m_loss - loss) / abs(loss),
+                           abs(m_gnorm - gnorm) / abs(gnorm))
+        if step != LAUNCH_STEPS or loss_rel > TRAIN_REL_TOL:
+            raise AssertionError(f"mesh launcher: final step {step}, "
+                                 f"losses and grad norms {loss_rel:.3e} "
+                                 f"relative from one card's")
+        log(f"[mesh launcher {cfg.name}] final checkpoint step {step} "
+            f"(read in {read_s:.3f} s) vs the one-card uninterrupted run: "
+            f"worst leaf |a-b|/|b| {worst[0]:.3e} ({worst[1]}; one card's "
+            f"two-microbatch run {worst[2]:.3e} from it); above "
+            f"{TRAIN_REL_TOL}: {above or 'none'}; losses and grad norms "
+            f"{loss_rel:.3e} relative (tol {TRAIN_REL_TOL})")
+        for arch, (tokens, logits) in one.items():
+            for rank, res in enumerate(ranks):
+                got = res["serve"][arch]
+                rel = ((got["prompt_logits"] - logits).abs().max() /
+                       logits.abs().max()).item()
+                same = torch.equal(got["prompt_logits"].argmax(-1),
+                                   logits.argmax(-1))
+                agree = (got["tokens"] == tokens).float().mean().item()
+                log(f"[mesh serve {arch} rank {rank}] {card}: 1x2 on two "
+                    f"ranks vs one card: prompt logits max|diff|/max "
+                    f"{rel:.3e} (tol {LOGITS_REL_TOL}), argmax "
+                    f"{'equal' if same else 'differs'}, tokens equal "
+                    f"{agree:.0%}; prefill {got['prefill_ms']:.1f} ms, "
+                    f"decode median {percentile(got['step_ms'], 0.5):.2f} "
+                    f"ms per token (CUDA events on the rank), peak "
+                    f"{got['peak_gb']:.2f} GB, {got['s']:.1f} s with the "
+                    f"search")
+                if rel > LOGITS_REL_TOL or not same:
+                    raise AssertionError(f"{arch}: mesh and one-card "
+                                         f"serve disagree")
+        log(f"[mesh launcher] two ranks: {wall:.1f} s wall, the ranks' "
+            f"start included")
+        return [r["launches"] // ran for r in ranks]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1534,8 +1823,14 @@ def main(argv=None) -> int:
     train = drive_train(torch, qwen, counters, card, opts.seed, TRAIN_SHAPE,
                         TRAIN_OPT)
     torch.cuda.empty_cache()
-    drive_launcher(torch, qwen, counters, card, opts.seed)
+    whole = drive_launcher(torch, qwen, counters, card, opts.seed)
     torch.cuda.empty_cache()
+    log(f"[elapsed] {time.perf_counter() - t_start:.1f} s before the mesh "
+        f"launcher phase")
+    mesh_launch = drive_mesh_launcher(torch, qwen, hybrid, whole, card,
+                                      opts.seed)
+    del whole
+    log(f"[elapsed] {time.perf_counter() - t_start:.1f} s after it")
     lru_launches, lru_routes, params, logits = drive_path(
         torch, hybrid, sessions[hybrid.name], HYBRID_SHAPE, counters,
         "rg_lru", n_lru, card)
@@ -1558,7 +1853,8 @@ def main(argv=None) -> int:
                   launches_train_step=train["launches_per_step"][
                       "flash_attention"],
                   launches_mesh=[r["launches"]["flash_attention"]
-                                 for r in mesh[qwen.name]])
+                                 for r in mesh[qwen.name]],
+                  launches_mesh_train_step=mesh_launch)
     # the head dims of the repo's other configs, at the slice's B, S, H
     for hd_i in (96, 128):
         time_fa(fa, torch, gen, card, B, S, H, hd_i, plain=False)

@@ -31,9 +31,11 @@ set::
   placed as the plan's specs and its kernel sites under ``local_map``
   (``core.partitioner.AppliedPlan``).
 
-Not ported yet: ``plan_for_state`` and ``auto_partition`` (ROADMAP
-queue 1, item 8b), the plan store, mesh co-search, the static verifier
-and learned guidance (items 13-16).
+:meth:`Session.plan_for_state` materializes a plan for a given sharding
+state without a search, and ``core.partitioner.auto_partition`` is the
+one-shot wrapper over ``Session`` and ``Request``.  Not ported yet: the
+plan store, mesh co-search, the static verifier and learned guidance
+(ROADMAP queue 1, items 13-16).
 """
 
 from __future__ import annotations
@@ -241,6 +243,34 @@ class Session:
         if request.constraints:
             plan.check(request.constraints)
         return plan
+
+    def plan_for_state(self, request: Request, state: ShardingState, *,
+                       label: str = "manual") -> ShardingPlan:
+        """Materialize a :class:`ShardingPlan` for an explicit state.
+
+        No search runs: the state is projected onto input and output
+        specs and costed under the request's mesh and hardware, as the
+        reference's ``Session.plan_for_state`` does (the measured
+        execution builds its plan variants so, and a state read from a
+        JSON plan can be replayed against a fresh session).
+
+        Args:
+            request: supplies the mesh, hardware and logical axes the
+                plan is priced and labelled with (its constraints are
+                not enforced: the state is taken as it is).
+            state: the canonical sharding state to materialize.
+            label: recorded as the plan's ``backend`` name.
+
+        Returns:
+            A fully populated ``ShardingPlan`` for ``state``.
+        """
+        cm = self._cost_model(request.mesh, request.hw)
+        return self._build_plan(
+            request, state, cm,
+            cost=cm.paper_cost(state),
+            breakdown=cm.evaluate(state).as_dict(),
+            backend=label, search_seconds=0.0, evaluations=0,
+            eval_stats={})
 
     def _build_plan(self, request: Request, state: ShardingState, cm,
                     *, cost: float, breakdown: dict, backend: str,

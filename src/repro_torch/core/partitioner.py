@@ -778,3 +778,79 @@ def _logical_rules(nda: NDAResult, prog: Program, state: ShardingState,
             name = votes[col].most_common(1)[0][0]
             rules[name] = tuple(axes)
     return rules
+
+
+def auto_partition(fn: Callable, args: tuple, mesh: MeshSpec, *,
+                   kwargs: dict | None = None,
+                   hw=None,
+                   mcts=None,
+                   backend="mcts",
+                   search_config=None,
+                   portfolio=None,
+                   plan_store=None,
+                   min_dims: int | None = None,
+                   logical_axes=None,
+                   constraints=(),
+                   artifacts: ToastArtifacts | None = None) -> "ShardingPlan":
+    """Run the full TOAST pipeline on ``fn(*args, **kwargs)``.
+
+    The one-shot wrapper over the staged API, as the reference's: it
+    builds a ``repro_torch.api.Session`` (trace, NDA, conflicts) and a
+    ``Request``, and returns ``session.partition(request)``.  Several
+    partitions of one function are cheaper through an explicit
+    ``Session``.
+
+    Args:
+        fn: the function to partition (traced on ``meta`` tensors, never
+            run).
+        args: example arguments (``meta`` tensors suffice).
+        mesh: the logical device mesh to shard over.
+        kwargs: keyword arguments of ``fn``.
+        hw: hardware constants (``None``: the H100 defaults).
+        mcts: an ``MCTSConfig`` used when the backend is MCTS and no
+            ``search_config`` is given.
+        backend: "mcts" (default), "beam", "greedy", or a
+            ``SearchBackend``.
+        search_config: the backend's config.
+        portfolio: the portfolio runner; not ported (raises).
+        plan_store: a plan store; not ported (raises).
+        min_dims: action-space pruning threshold (``None``: the
+            default).
+        logical_axes: per-input logical dim names; enables
+            ``plan.logical_rules``.
+        constraints: ``Pin`` / ``Replicate`` / ``Forbid`` constraints.
+        artifacts: analysis artifacts to reuse (:func:`analyze`).
+
+    Returns:
+        The :class:`ShardingPlan`.
+
+    Raises:
+        NotImplementedError: for ``portfolio`` or ``plan_store``: the
+            portfolio runner and the plan store are ROADMAP queue 1,
+            item 13.
+    """
+    from repro_torch.api import Request, Session
+    from repro_torch.core.actions import DEFAULT_MIN_DIMS
+    from repro_torch.core.cost_model import HardwareSpec
+    from repro_torch.core.search import get_backend
+    if portfolio is not None and portfolio is not False:
+        raise NotImplementedError(
+            "auto_partition(portfolio=...): the portfolio runner is not "
+            "ported yet (ROADMAP queue 1, item 13: core/portfolio.py)")
+    if plan_store is not None:
+        raise NotImplementedError(
+            "auto_partition(plan_store=...): the plan store is not ported "
+            "yet (ROADMAP queue 1, item 13: ckpt/plan_store.py)")
+    if search_config is None and mcts is not None:
+        engine = get_backend(backend)
+        if engine.name == "mcts":
+            search_config = mcts
+        backend = engine        # resolved once; reused by the session
+    request = Request(mesh=mesh, hw=HardwareSpec() if hw is None else hw,
+                      backend=backend, search_config=search_config,
+                      min_dims=DEFAULT_MIN_DIMS if min_dims is None
+                      else min_dims,
+                      logical_axes=logical_axes,
+                      constraints=tuple(constraints))
+    return Session(fn, args, kwargs=kwargs,
+                   artifacts=artifacts).partition(request)

@@ -281,6 +281,11 @@ class Compiled:
             else ((), type(x).__name__) for x in leaves))
         if not self.capture:
             return self._run_eager(args, leaves, paths, donated, key)
+        if any(getattr(x, "placements", None) is not None for x in leaves):
+            raise ValueError(
+                "a step on DTensors runs eagerly (capture=False): no "
+                "multi-card graph can be checked on a host with one card "
+                "(ROADMAP queue 1, item 8)")
         entry = self._cache.get(key)
         if entry is None:
             n_first = len(pytree.tree_leaves(args[0])) if args else 0

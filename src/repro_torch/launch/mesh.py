@@ -24,6 +24,7 @@ the data-centre network.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 import queue
@@ -123,6 +124,117 @@ def mesh_context(mesh):
     """A context manager installing ``mesh`` as the ambient mesh (a
     ``DeviceMesh`` is its own context manager)."""
     return mesh
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A ``PartitionSpec`` on a mesh: the port's
+    ``jax.sharding.NamedSharding``.
+
+    Attributes:
+        mesh: the ``DeviceMesh``.
+        spec: one entry per tensor dim (a mesh axis, a tuple of axes, or
+            ``None``).
+    """
+
+    mesh: Any
+    spec: Any
+
+    def placements(self, ndim: int) -> tuple:
+        """The DTensor placements of a tensor of rank ``ndim``
+        (:func:`placements_for`)."""
+        return placements_for(self.spec, self.mesh, ndim)
+
+
+def distribute(x, sharding: NamedSharding):
+    """``x``, the same whole tensor on every rank, as a DTensor placed as
+    ``sharding`` says: each rank keeps its block (no collective), copied
+    out of ``x`` where it would be a view of it, so that writing into the
+    DTensor (a donated step) never writes ``x``."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    placements = sharding.placements(x.ndim)
+    d = distribute_tensor(x, sharding.mesh, placements, src_data_rank=None)
+    local = d.to_local()
+    if local.untyped_storage().data_ptr() != x.untyped_storage().data_ptr():
+        return d
+    return DTensor.from_local(local.clone(), sharding.mesh, placements,
+                              run_check=False, shape=d.shape,
+                              stride=d.stride())
+
+
+def init_from_env() -> int:
+    """Join the process group that ``torchrun`` describes, on gloo.
+
+    ``torchrun`` sets ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
+    ``MASTER_ADDR`` and ``MASTER_PORT`` in every rank; with them this
+    process joins a gloo group of ``WORLD_SIZE`` ranks (CPU tensors, and
+    CUDA tensors through host copies), unless a group is already
+    initialised (:func:`run_ranks` starts one).  Without them it leaves
+    the process alone: one device.
+
+    Returns:
+        The size of the process group (1 without one).
+    """
+    import torch.distributed as dist
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dist.init_process_group("gloo", init_method="env://")
+    return group_size()
+
+
+def group_size() -> int:
+    """The size of the initialised process group, else 1."""
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def group_rank() -> int:
+    """This process's rank in the initialised process group, else 0."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def print0(*args) -> None:
+    """``print`` on rank 0 only (in every process without a group)."""
+    if group_rank() == 0:
+        print(*args, flush=True)
+
+
+def from_rank0(fn: Callable) -> Any:
+    """``fn()`` computed on rank 0 and sent to every rank of the group
+    (``fn()`` itself without a group): a search whose result every rank
+    must share, as the reference's single controller computes it once."""
+    import torch.distributed as dist
+    if group_size() < 2:
+        return fn()
+    box = [fn() if group_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def build_mesh(spec: MeshSpec, device=None):
+    """The ``DeviceMesh`` of ``spec`` over the process group, as the
+    reference's launcher builds its mesh: each axis trimmed to what is
+    left of the group's devices (``repro/launch/train.py``'s
+    ``build_mesh``).
+
+    Args:
+        spec: the mesh the plan or rules were made for.
+        device: as :func:`compat_make_mesh`.
+
+    Returns:
+        The ``DeviceMesh``.
+
+    Raises:
+        RuntimeError: when the trimmed sizes do not multiply to the
+            group's size (:func:`compat_make_mesh`).
+    """
+    sizes = []
+    remaining = group_size()
+    for s in spec.sizes:
+        s = min(s, remaining)
+        sizes.append(s)
+        remaining //= s
+    return compat_make_mesh(tuple(sizes), spec.axes, device)
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):

@@ -12,6 +12,15 @@ which on the card captures the decode step as one CUDA graph (the
 prompt's steps and the generating steps share its signature) and
 replays it for every token.
 
+On a process group of two or more ranks (``torchrun``, or
+:func:`repro_torch.launch.mesh.run_ranks`) ``--plan toast`` serves as
+the reference's launcher does on a mesh: the decode step is planned for
+the ``(data, model)`` mesh of ``(max(1, n // 2), min(2, n))`` devices,
+and runs eagerly on DTensors under the plan's logical rules, whose
+``constrain`` hooks place the activations; the parameters, the cache and
+the prompts are replicated on the mesh, as the reference's jit receives
+them unplaced.  Only rank 0 prints.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_05b \\
         --reduced --batch 4 --prompt-len 16 --gen 16 --plan toast \\
         --device cpu
@@ -24,13 +33,17 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from contextlib import nullcontext
 
 import torch
 
+from repro_torch import pytree
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.cost_model import MeshSpec
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as M
+from repro_torch.models import sharding
 from repro_torch.models import transformer as T
 from repro_torch.train.steps import make_decode_step
 
@@ -61,28 +74,44 @@ def decode_session(cfg, batch: int, max_seq: int):
     return Session(fn, args), names
 
 
-def toast_decode_rules(cfg, batch: int, max_seq: int, n_dev: int):
+def decode_plan(cfg, batch: int, max_seq: int, n_dev: int):
+    """The decode step's plan for the launcher's mesh of ``n_dev``
+    devices, ``(data, model)`` of ``(max(1, n_dev // 2), min(2, n_dev))``
+    as the reference's, searched with :func:`decode_request`."""
+    sess, names = decode_session(cfg, batch, max_seq)
+    return sess.partition(decode_request(cfg, names, MeshSpec(
+        ("data", "model"), (max(1, n_dev // 2), min(2, n_dev)))))
+
+
+def toast_decode_rules(cfg, batch: int, max_seq: int, n_dev: int,
+                       device=None):
     """The decode step's logical rules for ``n_dev`` devices.
 
     Args:
         cfg: model config (reduced or full).
         batch: decode batch size.
         max_seq: cache depth (prompt + generated tokens).
-        n_dev: the number of devices the step runs on.
+        n_dev: the number of devices the step runs on (the process
+            group's size).
+        device: the mesh's device type (``None``: the CUDA cards).
 
     Returns:
-        ``({}, None)`` on one device, as the reference does: every
-        placement is the same there.
-
-    Raises:
-        NotImplementedError: on two or more devices; running a sharded
-            plan from the launcher is ROADMAP queue 1, item 8b.
+        ``(rules, mesh)``: ``({}, None)`` on one device, as the
+        reference does (every placement is the same there); on two or
+        more, the plan's logical rules (:func:`decode_plan`) and the
+        ``DeviceMesh`` over the process group they apply on.
     """
     if n_dev < 2:
         return {}, None
-    raise NotImplementedError(
-        f"serving on {n_dev} devices needs the multi-device launcher, "
-        f"which is not ported yet (ROADMAP queue 1, item 8b)")
+
+    def search():
+        plan = decode_plan(cfg, batch, max_seq, n_dev)
+        M.print0(f"[toast] cost={plan.cost:.4f} rules={plan.logical_rules} "
+                 f"search={plan.search_seconds:.1f}s")
+        return dict(plan.logical_rules), plan.mesh
+    # searched on rank 0, as the reference's one controller searches
+    rules, spec = M.from_rank0(search)
+    return rules, M.build_mesh(spec, device)
 
 
 @dataclasses.dataclass
@@ -110,7 +139,9 @@ def serve_loop(decode, params, cache, prompts, gen: int) -> ServeResult:
 
     The loop never waits on the device: positions are made on the device
     once, and each greedy token stays there.  On a CUDA device the times
-    are CUDA-event times, else host times.
+    are CUDA-event times (on a mesh, this rank's card), else host times.
+    On a mesh the prompts are DTensors; the positions are replicated
+    beside them, and the tokens stay DTensors.
 
     Args:
         decode: ``decode(params, cache, token, pos) -> (logits, cache)``.
@@ -124,7 +155,8 @@ def serve_loop(decode, params, cache, prompts, gen: int) -> ServeResult:
     """
     dev = prompts.device
     P = prompts.shape[1]
-    positions = torch.arange(P + gen, dtype=torch.int32, device=dev)
+    positions = sharding.replicate_like(
+        torch.arange(P + gen, dtype=torch.int32, device=dev), prompts)
     cuda = dev.type == "cuda"
 
     def mark():
@@ -158,7 +190,8 @@ def serve_loop(decode, params, cache, prompts, gen: int) -> ServeResult:
         step_ms=[ms(a, b) for a, b in zip(marks, marks[1:])])
 
 
-def main(argv=None) -> None:
+def parse_args(argv=None) -> argparse.Namespace:
+    """The reference serving launcher's command line, with ``--device``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2_05b")
     ap.add_argument("--reduced", action="store_true")
@@ -171,9 +204,21 @@ def main(argv=None) -> None:
                     default="manual")
     ap.add_argument("--device", default=None,
                     help="where to run (default: the CUDA card)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def main(argv=None) -> None:
+    serve(parse_args(argv))
+
+
+def serve(args) -> ServeResult:
+    """Serve one batch of seeded prompts as :func:`main` does.
+
+    Returns:
+        The :class:`ServeResult` (on a mesh its tensors are DTensors).
+    """
     dev = resolve_device(args.device)
+    n_dev = M.init_from_env()
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -186,26 +231,41 @@ def main(argv=None) -> None:
     cache = T.init_cache(cfg, B, max_seq, device=dev)
 
     dec = make_decode_step(cfg)
+    rules, mesh = {}, None
     if args.plan == "toast":
-        n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
-        toast_decode_rules(cfg, B, max_seq, n_dev)
-        sess, names = decode_session(cfg, B, max_seq)
-        plan = sess.partition(decode_request(
-            cfg, names, MeshSpec(("data", "model"), (1, 1))))
-        print(f"[toast] cost={plan.cost:.4f} rules={plan.logical_rules} "
-              f"search={plan.search_seconds:.1f}s")
-        dec = plan.apply(dec, device=dev)
-    res = serve_loop(dec, params, cache, prompts, G)
-    out = res.tokens.cpu().numpy()
+        rules, mesh = toast_decode_rules(cfg, B, max_seq, n_dev, dev)
+        if mesh is None:
+            sess, names = decode_session(cfg, B, max_seq)
+            plan = sess.partition(decode_request(
+                cfg, names, MeshSpec(("data", "model"), (1, 1))))
+            M.print0(f"[toast] cost={plan.cost:.4f} "
+                     f"rules={plan.logical_rules} "
+                     f"search={plan.search_seconds:.1f}s")
+            dec = plan.apply(dec, device=dev)
+        else:
+            # replicated, as the reference's jit receives them unplaced
+            params, cache, prompts = pytree.tree_map(
+                lambda x: M.distribute(x, M.NamedSharding(mesh, ())),
+                (params, cache, prompts))
+    with M.mesh_context(mesh) if mesh is not None else nullcontext(), \
+            sharding.logical_rules(rules or None):
+        res = serve_loop(dec, params, cache, prompts, G)
+    tokens = res.tokens.full_tensor() if mesh is not None else res.tokens
+    out = tokens.cpu().numpy()
     per_token = sum(res.step_ms) / max(len(res.step_ms), 1)
-    print(f"prefill: {res.prefill_ms:.1f}ms  decode: {per_token:.2f}"
-          f"ms/token")
-    if args.plan == "toast":
-        print(f"[toast] captures={dec.captures} replays={dec.replays} "
-              f"({'CUDA graph' if dec.capture else 'eager'})")
+    M.print0(f"prefill: {res.prefill_ms:.1f}ms  decode: {per_token:.2f}"
+             f"ms/token")
+    if args.plan == "toast" and mesh is None:
+        M.print0(f"[toast] captures={dec.captures} replays={dec.replays} "
+                 f"({'CUDA graph' if dec.capture else 'eager'})")
+    elif mesh is not None:
+        M.print0(f"[toast] {'x'.join(map(str, mesh.shape))} mesh of "
+                 f"{n_dev} ranks, eager on DTensors")
+    shown = prompts.full_tensor() if mesh is not None else prompts
     for b in range(B):
-        print(f"request {b}: prompt={prompts[b].cpu().numpy()[:8]}... "
-              f"generated={out[b][:12]}...")
+        M.print0(f"request {b}: prompt={shown[b].cpu().numpy()[:8]}... "
+                 f"generated={out[b][:12]}...")
+    return res
 
 
 if __name__ == "__main__":

@@ -177,3 +177,21 @@ def specs_from_rules(tree, names_tree, rules: dict[str, tuple[str, ...]],
 
     return pytree.unflatten(tree, [one(x, n) for x, n in
                                    zip(leaves, name_leaves)])
+
+
+def shardings_from_rules(tree, names_tree, rules: dict[str, tuple[str, ...]],
+                         mesh):
+    """A :class:`~repro_torch.launch.mesh.NamedSharding` for every leaf of
+    ``tree`` on ``mesh``: the spec :func:`specs_from_rules` gives it, the
+    axis sizes the mesh's.
+
+    Returns:
+        ``tree`` with a ``NamedSharding`` at each leaf (a leaf to
+        ``pytree``, unlike a ``PartitionSpec``, which is a tuple).
+    """
+    from repro_torch.launch.mesh import NamedSharding
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return pytree.unflatten(tree, [
+        NamedSharding(mesh, specs_from_rules(x, names, rules, sizes))
+        for x, names in zip(pytree.tree_leaves(tree),
+                            flatten_logical_axes(names_tree))])

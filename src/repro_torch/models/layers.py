@@ -27,8 +27,9 @@ import torch
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import lru_associative_scan
-from repro_torch.models.sharding import (constrain, pointwise,
-                                        replicate_like, split_dim)
+from repro_torch.models.sharding import (constrain, einsum, index_copy,
+                                        matmul, pointwise, replicate_like,
+                                        split_dim)
 
 # ---------------------------------------------------------------------------
 # common
@@ -111,9 +112,9 @@ def attn_param_shapes(cfg) -> dict:
 
 def _project_qkv(cfg, p, x, positions, kv_positions=None):
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    q = matmul(x, p["wq"])
+    k = matmul(x, p["wk"])
+    v = matmul(x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if kv_positions is None:
@@ -130,7 +131,7 @@ def attn_core(cfg, q, k, v, mask):
     g = h // kv
     B, S = q.shape[0], q.shape[1]
     qg = split_dim(q, 2, (kv, g))
-    scores = torch.einsum("bskgh,btkh->bkgst", qg, k).to(torch.float32)
+    scores = einsum("bskgh,btkh->bkgst", qg, k).to(torch.float32)
     scores = scores / math.sqrt(hd)
     scores = constrain(scores, ("act_batch", "kv_heads", None, "seq", None))
     if mask is not None:
@@ -140,7 +141,7 @@ def attn_core(cfg, q, k, v, mask):
             mask.expand(1, 1, 1, *mask.shape)
         scores = torch.where(m, scores, -1e30)
     probs = softmax(scores).to(v.dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    out = einsum("bkgst,btkh->bskgh", probs, v)
     return out.reshape(B, S, h * hd)
 
 
@@ -169,13 +170,13 @@ def attn_apply(cfg, p, x, positions, *, window=0, is_causal=True):
         out = kernel_ops.attention(q, kf, vf, causal=is_causal)
         out = out.reshape(*out.shape[:2], -1)
         out = constrain(out, ("act_batch", "seq", "heads"))
-        return x + (out @ p["wo"])
+        return x + matmul(out, p["wo"])
     S = x.shape[1]
     mask = replicate_like(causal_mask(S, S, window, device=x.device), x) \
         if is_causal else None
     out = attn_core(cfg, q, k, v, mask)
     out = constrain(out, ("act_batch", "seq", "heads"))
-    return x + (out @ p["wo"])
+    return x + matmul(out, p["wo"])
 
 
 def attn_init_cache(cfg, batch, max_seq, window=0, device=None):
@@ -214,14 +215,14 @@ def attn_decode(cfg, p, x, cache, pos, *, window=0, enc_out=None):
     # the slot as a one-element index: the tracer lowers index_copy to
     # the reference's dynamic_update_slice at this scalar
     idx = (pos % T).to(torch.int64)[None]
-    k = cache["k"].index_copy(1, idx, k_new)
-    v = cache["v"].index_copy(1, idx, v_new)
-    slot_pos = cache["slot_pos"].index_copy(0, idx, pos[None])
+    k = index_copy(cache["k"], 1, idx, k_new)
+    v = index_copy(cache["v"], 1, idx, v_new)
+    slot_pos = index_copy(cache["slot_pos"], 0, idx, pos[None])
     valid = (slot_pos >= 0) & (slot_pos <= pos)
     if window:
         valid = valid & ((pos - slot_pos) < window)
     out = attn_core(cfg, q, k, v, valid.expand(1, 1, T))
-    return x + (out @ p["wo"]), {"k": k, "v": v, "slot_pos": slot_pos}
+    return x + matmul(out, p["wo"]), {"k": k, "v": v, "slot_pos": slot_pos}
 
 
 # ---------------------------------------------------------------------------
@@ -239,11 +240,11 @@ def mlp_param_shapes(cfg) -> dict:
 def mlp_apply(cfg, p, x):
     """SwiGLU MLP block (pre-norm residual)."""
     h = rmsnorm(x, p["ln"])
-    u = h @ p["wi"]
+    u = matmul(h, p["wi"])
     u = constrain(u, ("act_batch", "seq", "hidden"))
-    gate = h @ p["wg"]
+    gate = matmul(h, p["wg"])
     u = gate * torch.sigmoid(gate) * u
-    return x + (u @ p["wo"])
+    return x + matmul(u, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -318,7 +319,7 @@ def _rglru_gates(p, u):
 def rglru_apply(cfg, p, x):
     """Griffin RG-LRU block (pre-norm residual), full sequence."""
     h = rmsnorm(x, p["ln"])
-    u = h @ p["wx"]
+    u = matmul(h, p["wx"])
     u, _ = _causal_conv4(u, p["conv_w"], p["conv_b"])
     u = constrain(u, ("act_batch", "seq", "rnn"))
     a, bterm = _rglru_gates(p, u)
@@ -327,8 +328,8 @@ def rglru_apply(cfg, p, x):
         hseq = kernel_ops.rg_lru(a, bterm)
     else:
         _, hseq = lru_associative_scan(a, bterm)
-    y = gelu(h @ p["wy"]) * hseq.to(x.dtype)
-    return x + (y @ p["wo"])
+    y = gelu(matmul(h, p["wy"])) * hseq.to(x.dtype)
+    return x + matmul(y, p["wo"])
 
 
 def rglru_init_cache(cfg, batch, device=None):
@@ -343,10 +344,10 @@ def rglru_init_cache(cfg, batch, device=None):
 def rglru_decode(cfg, p, x, cache, pos):
     """One-token RG-LRU decode: one step ``h = a*h + b``. x: (B,1,D)."""
     h = rmsnorm(x, p["ln"])
-    u = h @ p["wx"]                                         # (B,1,r)
+    u = matmul(h, p["wx"])                                   # (B,1,r)
     u, conv_state = _causal_conv4(u, p["conv_w"], p["conv_b"],
                                   cache["conv"])
     a, bterm = _rglru_gates(p, u)
     hnew = a[:, 0] * cache["h"] + bterm[:, 0]               # (B,r)
-    y = gelu(h @ p["wy"]) * hnew[:, None].to(x.dtype)
-    return x + (y @ p["wo"]), {"h": hnew, "conv": conv_state}
+    y = gelu(matmul(h, p["wy"])) * hnew[:, None].to(x.dtype)
+    return x + matmul(y, p["wo"]), {"h": hnew, "conv": conv_state}

@@ -38,6 +38,10 @@ made_whole: collections.Counter = collections.Counter()
 # elementwise ops without a DTensor sharding rule, run on each rank's
 # local tensors: op -> times
 local_ops: collections.Counter = collections.Counter()
+# ops that torch 2.11's DTensor rules cannot place, run on each rank's
+# shards (einsums, cache writes) or on an input made whole on the mesh
+# dims the rule refuses (products): op -> times
+per_shard: collections.Counter = collections.Counter()
 
 
 def set_rules(rules: dict[str, tuple[str, ...]] | None) -> None:
@@ -151,6 +155,22 @@ def gather_for(tree, x):
     return pytree.tree_map(gather, tree)
 
 
+def placed_like(t, ref):
+    """``t`` placed as ``ref`` is: a gradient as its parameter.
+
+    DTensor's backward leaves a weight's gradient where the products put
+    it, often as a pending sum over the mesh dims that split the
+    activations; every optimizer op on it would then reduce it whole
+    again.  GSPMD reduces each gradient once, onto its parameter's
+    sharding (a reduce-scatter for a sharded weight); so does this.
+    Plain tensors pass as they are, so traced programs do not change.
+    """
+    if not is_dtensor(t) or not is_dtensor(ref) or \
+            tuple(t.placements) == tuple(ref.placements):
+        return t
+    return t.redistribute(ref.device_mesh, ref.placements)
+
+
 def embedding(tokens, table):
     """``F.embedding(tokens, table)``, on DTensors as GSPMD runs it.
 
@@ -245,6 +265,105 @@ def pointwise(fn, *args):
                                          for a in args),
                      device_mesh=ref.device_mesh,
                      redistribute_inputs=True)(*args)
+
+
+def matmul(x, w):
+    """``x @ w`` of a (B, S, D) activation and a (D, F) weight.
+
+    DTensor in torch 2.11 lowers ``x @ w`` to a matrix product over a
+    view that flattens (B, S), and refuses the view when S is sharded
+    (the sequence under ``MANUAL_RULES``), in the forward or, for the
+    gradient arriving at the product, in the backward.  On DTensors the
+    product is therefore a batched one, ``x`` against ``w`` broadcast
+    over the batch, which flattens nothing; counted in
+    :data:`per_shard`.  Plain tensors take ``@`` itself, so traced
+    programs do not change.
+    """
+    if not is_dtensor(x) or x.ndim != 3:
+        return x @ w
+    import torch
+    per_shard["matmul"] += 1
+    return torch.bmm(x, w.expand(x.shape[0], *w.shape))
+
+
+def einsum(equation: str, *operands):
+    """``torch.einsum(equation, *operands)``, on DTensors per shard.
+
+    DTensor in torch 2.11 lowers an einsum through reshapes that flatten
+    its batch dims, and refuses to flatten one whose inner dim is
+    sharded (the attention's ``bkgst,btkh->bskgh`` with its kv heads
+    sharded, in decode).  On DTensors the einsum therefore runs on each
+    rank's local tensors under ``local_map``: on each mesh dim, a letter
+    that the first sharded operand shards there stays sharded when every
+    operand and the output have it (a batch letter: each rank's block is
+    computed alone, and so are its gradients) and the mesh dim divides
+    it; any other shard or pending sum is made whole.  Counted in
+    :data:`per_shard`.  Plain tensors take ``torch.einsum`` itself, so
+    traced programs do not change.
+    """
+    import torch
+    ref = next((x for x in operands if is_dtensor(x)), None)
+    if ref is None:
+        return torch.einsum(equation, *operands)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    from torch.distributed.tensor.placement_types import _StridedShard
+    ins, out = equation.replace(" ", "").split("->")
+    ins = ins.split(",")
+    mesh = ref.device_mesh
+    in_pl = [[Replicate()] * mesh.ndim for _ in operands]
+    out_pl = [Replicate()] * mesh.ndim
+    for i in range(mesh.ndim):
+        letter = None
+        for x, spec in zip(operands, ins):
+            p = x.placements[i] if is_dtensor(x) else Replicate()
+            if p.is_shard() and not isinstance(p, _StridedShard):
+                letter = spec[p.dim % len(spec)]
+                break
+        if letter is None or letter not in out or any(
+                letter not in spec or x.shape[spec.index(letter)] %
+                mesh.size(i) for x, spec in zip(operands, ins)):
+            continue
+        for pl, spec in zip(in_pl, ins):
+            pl[i] = Shard(spec.index(letter))
+        out_pl[i] = Shard(out.index(letter))
+    per_shard["einsum"] += 1
+    operands = [replicate_like(x, ref) for x in operands]
+    return local_map(lambda *xs: torch.einsum(equation, *xs),
+                     out_placements=(tuple(out_pl),),
+                     in_placements=tuple(tuple(p) for p in in_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(*operands)
+
+
+def index_copy(t, dim: int, index, src):
+    """``t.index_copy(dim, index, src)``: a decode step's cache write.
+
+    DTensor in torch 2.11 has no sharding rule for ``aten.index_copy``
+    (its decomposition's ``index_put`` rule fails), so on DTensors the
+    copy runs on each rank's local tensors under ``local_map``: ``t``
+    and ``src`` placed as ``t`` is, less any shard of ``dim`` (made
+    whole) or pending sum, and the index replicated.  Counted in
+    :data:`per_shard`.  Plain tensors take ``index_copy`` itself, so
+    traced programs do not change.
+    """
+    ref = t if is_dtensor(t) else src if is_dtensor(src) else None
+    if ref is None:
+        return t.index_copy(dim, index, src)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ref.device_mesh
+    dim %= t.ndim
+    per_shard["index_copy"] += 1
+    placements = tuple(
+        Replicate() if p.is_partial() or (p.is_shard() and p.dim == dim)
+        else p for p in ref.placements)
+    whole = (Replicate(),) * mesh.ndim
+    t, index, src = (replicate_like(x, ref) for x in (t, index, src))
+    return local_map(lambda a, i, b: a.index_copy(dim, i, b),
+                     out_placements=(placements,),
+                     in_placements=(placements, whole, placements),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         t, index, src)
 
 
 # ---------------------------------------------------------------------------

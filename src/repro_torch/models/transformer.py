@@ -35,8 +35,9 @@ from repro_torch import pytree
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import (constrain, embedding, gather_for,
-                                        get_kernel_dispatch, kernel_dispatch,
-                                        replicate_like)
+                                        get_kernel_dispatch, get_rules,
+                                        kernel_dispatch, logical_rules,
+                                        matmul, replicate_like)
 
 _NOT_PORTED = {
     "mlstm": "xLSTM blocks are not ported yet (ROADMAP queue 1, item 11)",
@@ -292,6 +293,7 @@ def scan_layers(body, h, xs, *, with_ys=False, remat=False):
     n = pytree.tree_leaves(xs)[0].shape[0]
     disp = get_kernel_dispatch()
     mark = disp.mark() if disp is not None else None
+    rules = get_rules()
     run = step
     if remat and torch.is_grad_enabled():
         # the body rewinds to marks[0] in the forward pass; after the
@@ -302,8 +304,9 @@ def scan_layers(body, h, xs, *, with_ys=False, remat=False):
 
         def rewound(c, x):
             # the recomputation runs on autograd's thread (its own for
-            # CUDA tensors): install the forward's dispatch there
-            with kernel_dispatch(disp, reset=False):
+            # CUDA tensors): install the forward's dispatch and logical
+            # rules there
+            with kernel_dispatch(disp, reset=False), logical_rules(rules):
                 if disp is not None:
                     if marks[-1] is None:
                         marks[-1] = disp.mark()
@@ -361,7 +364,7 @@ def forward(cfg, params, tokens):
                                             device=tokens.device)[None, :], h)
     h = _run_layers(cfg, params, h, positions)
     h = L.rmsnorm(h, params["final_ln"])
-    logits = h @ gather_for(params["unembed"], h)
+    logits = matmul(h, gather_for(params["unembed"], h))
     return constrain(logits, ("act_batch", "seq", "vocab"))
 
 
@@ -462,5 +465,5 @@ def decode_step(cfg, params, cache, token, pos):
         h, c2 = decode_block(cfg, kind, p, h, c, pos)
         new_tail.append(c2)
     h = L.rmsnorm(h, params["final_ln"])
-    logits = h @ params["unembed"]
+    logits = matmul(h, params["unembed"])
     return logits, {"layers": new_layer_cache, "tail": tuple(new_tail)}

@@ -27,6 +27,7 @@ import torch
 from repro_torch import pytree
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.models.sharding import placed_like
 from repro_torch.optim import adam
 
 
@@ -156,6 +157,7 @@ def value_and_grad(loss_fn, remat: bool = False):
             live = [p.detach().requires_grad_() for p in leaves]
             loss, aux = loss_fn(pytree.unflatten(params, live), batch)
             grads = torch.autograd.grad(loss, live)
+        grads = [placed_like(g, p) for g, p in zip(grads, leaves)]
         return loss.detach(), aux.detach(), pytree.unflatten(params, grads)
     return run
 

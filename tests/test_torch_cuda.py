@@ -790,3 +790,87 @@ def test_small_prefill_on_two_ranks_equals_one_card(gen, arch, kernel):
         assert r["local_calls"]
         for (k, impl, shapes, _), n in r["local_calls"].items():
             assert (k, impl, shapes[0]) == (kernel, "cuda", local)
+
+
+# --- the launchers on two ranks sharing the card -----------------------------
+
+
+def launcher_argv(ckpt_dir, *extra):
+    return ["--arch", "qwen2_05b", "--steps", "4", "--batch", "2", "--seq",
+            "64", "--ckpt-dir", str(ckpt_dir), "--ckpt-every", "2", *extra]
+
+
+def small_train_config():
+    import dataclasses
+    return dataclasses.replace(small_config("qwen2_05b", "float32"),
+                               remat=True)
+
+
+def mesh_launcher_rank(rank, ckpt_dir):
+    """The small model through the launcher on (1, 2), a failure at step
+    3 and a restart; then a capture asked of a step on DTensors."""
+    from repro_torch import pytree
+    from repro_torch.jit import jit
+    from repro_torch.launch import train as launcher
+    fa.launches = 0
+    attempts = launcher.supervise(small_train_config(), launcher.parse_args(
+        launcher_argv(ckpt_dir, "--fail-at", "3")))
+    state = attempts[-1].state
+    try:
+        jit(lambda s: s, "cuda", capture=True)(state)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return {"starts": [a.start_step for a in attempts],
+            "launches": fa.launches, "refused": refused,
+            "state": [x.full_tensor().cpu()
+                      for x in pytree.tree_leaves(state)]}
+
+
+def test_the_launcher_restarts_on_two_ranks_as_one_card(gen, tmp_path):
+    """The train launcher on two ranks sharing the card (CUDA tensors over
+    gloo; autograd's backward, and remat's recomputation, on its own
+    thread under the forward's rules): a restart from step 2, every
+    attention site on the kernel, the final state within 1e-4 of one
+    card's uninterrupted run; a step on DTensors refuses a capture."""
+    from repro_torch import pytree
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import run_ranks
+    fa.build()
+    (one,) = launcher.supervise(small_train_config(), launcher.parse_args(
+        launcher_argv(tmp_path / "one")))
+    ranks = run_ranks(mesh_launcher_rank, 2, tmp_path / "two", timeout=300)
+    cfg = small_train_config()
+    # 3 + 2 steps, each the forward's sites and their recomputation
+    sites = 2 * sum(k == "attn" for k in cfg.pattern[:cfg.num_layers])
+    for r in ranks:
+        assert r["starts"] == [0, 2] and r["launches"] == 5 * sites
+        assert "eagerly" in r["refused"]
+        for a, b in zip(r["state"], pytree.tree_leaves(one.state)):
+            torch.testing.assert_close(a, b.cpu(), rtol=1e-4, atol=1e-4)
+
+
+def mesh_serve_rank(rank, arch):
+    from repro_torch.launch import serve as server
+    res = server.serve(server.parse_args(
+        ["--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "4",
+         "--gen", "4", "--plan", "toast"]))
+    return res.tokens.full_tensor().cpu(), \
+        res.prompt_logits.full_tensor().cpu()
+
+
+@pytest.mark.parametrize("arch", ["qwen2_05b", "recurrentgemma_2b"])
+def test_two_ranks_serve_as_one_card(gen, arch):
+    """The serving launcher on two ranks sharing the card: the decode
+    step's cache writes and attention einsums run per shard (torch 2.11's
+    DTensor has no rule for them); tokens equal one card's, prompt logits
+    within 1e-4."""
+    from repro_torch.launch import serve as server
+    from repro_torch.launch.mesh import run_ranks
+    want = server.serve(server.parse_args(
+        ["--arch", arch, "--reduced", "--batch", "2", "--prompt-len", "4",
+         "--gen", "4", "--plan", "manual"]))
+    for tokens_, logits in run_ranks(mesh_serve_rank, 2, arch, timeout=300):
+        assert torch.equal(tokens_, want.tokens.cpu())
+        torch.testing.assert_close(logits, want.prompt_logits.cpu(),
+                                   rtol=1e-4, atol=1e-4)

@@ -437,8 +437,12 @@ class TestServe:
     def test_rules_on_one_device_and_more(self):
         cfg = get_config("qwen2_05b").reduced()
         assert serve.toast_decode_rules(cfg, 4, 32, 1) == ({}, None)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            serve.toast_decode_rules(cfg, 4, 32, 2)
+        # two devices: the (1, 2) plan's rules, on a mesh over the process
+        # group, which a lone process lacks (served on ranks in
+        # tests/test_torch_serve_mesh.py)
+        assert serve.decode_plan(cfg, 4, 32, 2).mesh.sizes == (1, 2)
+        with pytest.raises(RuntimeError, match="initialised process group"):
+            serve.toast_decode_rules(cfg, 4, 32, 2, "cpu")
 
     def test_the_request_pins_the_kv_cache(self):
         dense = get_config("qwen2_05b").reduced()

@@ -247,11 +247,17 @@ def test_the_toast_plan_runs_on_the_cpu(tmp_path, capsys):
                for x in pytree.tree_leaves(run.state))
 
 
-def test_two_or_more_devices_raise_citing_item_8():
-    assert launcher.mesh_for(1) == MeshSpec(("data", "model"), (1, 1))
-    for n in (2, 4):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            launcher.mesh_for(n)
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_mesh_for_sizes_the_mesh_as_the_reference(n):
+    """The reference's ``run_once`` sizes its mesh ``(max(1, n // 2),
+    min(2, n))`` and ``build_mesh`` trims it to the devices; the port's
+    ``mesh_for`` gives the same ``MeshSpec`` (the reference's fields)."""
+    from repro.core.cost_model import MeshSpec as JMeshSpec
+    want = JMeshSpec(("data", "model"), (max(1, n // 2), min(2, n)))
+    got = launcher.mesh_for(n)
+    assert (got.axes, got.sizes, got.dcn_axes) == \
+        (want.axes, want.sizes, want.dcn_axes)
+    assert got.num_devices == want.num_devices == (1 if n == 1 else n)
 
 
 def test_without_a_card_the_launcher_raises(tmp_path):

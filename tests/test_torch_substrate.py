@@ -181,12 +181,13 @@ class TestCheckpoint:
         _, restored = mgr.restore(self._tree())
         assert torch.equal(restored["a"], self._tree(1)["a"])
 
-    def test_restore_onto_shardings_is_not_ported(self, tmp_path):
-        """The reference re-shards onto any mesh; the port runs on one
-        device so far."""
+    def test_restore_onto_shardings_takes_one_per_leaf(self, tmp_path):
+        """``shardings`` mirrors ``like``: one ``NamedSharding`` per leaf
+        (restoring onto meshes is tested on gloo ranks,
+        ``tests/test_torch_launch_mesh*.py``)."""
         save(tmp_path, 1, self._tree(2))
         mgr = CheckpointManager(tmp_path)
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(ValueError, match="0 shardings for 2 leaves"):
             mgr.restore(self._tree(), shardings={"a": None})
 
     def test_shape_mismatch_rejected(self, tmp_path):
