@@ -13,7 +13,10 @@ request (the KV cache pinned replicated) and served token by token; for
 both models the train step, through each kernel's autograd, captured with
 its state donated; and the training launcher, with checkpoints, a failure
 and a restart, on one card and on two ranks sharing it, and the serving
-launcher on those two ranks.
+launcher on those two ranks; and the mixture-of-experts models
+``mixtral_8x22b`` and ``arctic_480b`` at full width (cut in depth to what
+the card holds, their plans searched at full depth), prefill and decode,
+arctic's attention sites on the CUDA flash-attention kernel.
 
 1. print the card's name and power limit; build both kernels from the
    sources in this checkout, in parallel;
@@ -116,14 +119,37 @@ launcher on those two ranks.
    and 16 times recomputed, all on the TMA ring, with 18 plain-vjp
    backwards; its small f32 model has two periods and the tail (8
    layers);
+7b. the MoE models, ``mixtral_8x22b`` and then ``arctic_480b``, each
+   at full width with random bf16 weights from the seed, cut to 8 and 2
+   layers (what one card holds; each freed before the next): search the
+   2x4 plans of the full-depth prefill and decode steps on ``meta``
+   tensors (time to a plan, colors, conflicts, the expert weights'
+   specs); apply the 1x1 plans of the cut model's own prefill and
+   decode steps, traced and searched on ``meta`` tensors too (arctic's attention sites on the CUDA kernel, mixtral's windowed
+   attention on the einsum path); answer 3 requests of 4 x 2048 tokens
+   captured and eager in turns, the logits equal bit for bit, each
+   request's ms, peak and reserved GB and the graph pool; print the
+   routed tokens each request's rows dropped to capacity per layer; hold
+   arctic's attention sites at the model's own q, k, v against the plain
+   attention (2e-2, bf16) and its last-token logits against the plain
+   sites' (2e-2 of the largest logit), printing per layer how many
+   capacity selections the two runs made differently; then the decode
+   path as in 5, holding decode's logits after the prompt against
+   prefill's only for rows whose prefill dropped no routed token;
 8. time each kernel at its slice shape beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` (a
-   yardstick only: the port never calls it); time the attention kernel
+   yardstick only: the port never calls it), and at ``arctic_480b``'s
+   shape (4, 2048, 56, 128); time the attention kernel
    and SDPA at head dims 96 and 128 too, at the slice's B, S and H, and
    at hd 64 without the causal mask and at four times the length; time
    the RG-LRU ring in bf16 and at one batch row too, and its generic
    route at the slice shape; and at the hybrid train step's shape, the
    RG-LRU kernel and its plain backward.
+
+The decode, train and MoE steps are traced and their plans searched in
+one worker process (``meta`` tensors, no card) while the card runs the
+earlier phases; each phase takes its plans as JSON.  The MoE phases
+report the full-depth steps' plans and run the cut steps' plans.
 
 Run from the root of a checkout: ``python3 chip_smoke.py [--seed N]``
 (the seed of the train path's weights and batch, 0 by default).  Needs one
@@ -142,6 +168,7 @@ import concurrent.futures
 import dataclasses
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -205,6 +232,12 @@ MESH_TIMEOUT = 420.0
 # request of 4 x (16 prompt + 16 generated) tokens per model
 MESH_SERVE = (4, 16, 16)
 MESH_LAUNCH_TIMEOUT = 600.0
+# the MoE models at full width, cut in depth to what one card holds
+# (mixtral_8x22b: 5.008 GB a layer in bf16; arctic_480b: 27.22 GB a
+# layer), served at the qwen2_05b path's traffic; their plans are
+# searched for the full depth
+MOE_DEPTH = {"mixtral_8x22b": 8, "arctic_480b": 2}
+MOE_SHAPE = (4, 2048)
 # H100 SXM data sheet (dense bf16 FLOP/s, f32 FLOP/s outside the tensor
 # cores, HBM bytes/s)
 PEAK_BF16_FLOPS = 989e12
@@ -347,6 +380,92 @@ def lru_inputs(torch, gen, shape, dtype, lo=None, hi=None):
         a = lo + (hi - lo) * torch.rand(shape, generator=gen, device="cuda")
     b = 0.1 * torch.randn(shape, generator=gen, device="cuda")
     return a.to(dtype), b.to(dtype)
+
+
+def plan_job(kind: str, name: str, depth: int | None = None,
+             shape=None, opt_kw=None) -> dict:
+    """Host work of one phase, run in the worker process beside the
+    card's phases (no card is touched): trace ``name``'s ``kind`` step
+    on ``meta`` tensors (``Session``) and search its 2x4 and 1x1 plans.
+
+    ``kind`` is ``"prefill"`` (B x S of ``MOE_SHAPE``), ``"decode"`` (B
+    of ``DECODE_SHAPE``, cache ``DECODE_MAX_SEQ``, the serving launcher's
+    requests; with it the 1x1 plan of the prefill step on the decode
+    path's prompts) or ``"train"`` (``shape``, AdamW of ``opt_kw``).
+    ``depth`` cuts the layers (``None``: the config's).  Returns the
+    session's figures, each plan's JSON and what was checked on it.
+    """
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import torch
+    from repro_torch.api import Request, Session
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.cost_model import MeshSpec
+    from repro_torch.core.partitioner import ShardingPlan
+    from repro_torch.launch import serve, specs
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train import steps as TS
+
+    def meta_tokens(B, S):
+        return {"tokens": torch.empty((B, S), dtype=torch.int32,
+                                      device="meta")}
+
+    cfg = dataclasses.replace(get_config(name), use_pallas=True)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    mesh8 = MeshSpec(("data", "model"), (2, 4))
+    mesh1 = MeshSpec(("data", "model"), (1, 1))
+    t0 = time.perf_counter()
+    if kind == "train":
+        opt = AdamConfig(**opt_kw)
+        bspec, _ = specs.batch_specs(cfg, ShapeConfig("train", shape[1],
+                                                      shape[0], "train"))
+        sess = Session(TS.make_train_step(cfg, opt),
+                       (TS.train_state_specs(cfg, opt), bspec))
+        reqs = {"2x4": Request(mesh=mesh8), "1x1": Request(mesh=mesh1)}
+    elif kind == "prefill":
+        sess = Session(TS.make_prefill_step(cfg),
+                       (T.param_specs(cfg), meta_tokens(*MOE_SHAPE)))
+        reqs = {"2x4": Request(mesh=mesh8), "1x1": Request(mesh=mesh1)}
+    else:
+        sess, names = serve.decode_session(cfg, DECODE_SHAPE[0],
+                                           DECODE_MAX_SEQ)
+        reqs = {"2x4": serve.decode_request(cfg, names, mesh8),
+                "1x1": serve.decode_request(cfg, names, mesh1)}
+    art = sess.artifacts
+    prog = art.prog
+    out = {"stats": {
+        "ops": len(prog.ops), "colors": len(art.nda.color_summary()),
+        "conflicts": len(art.analysis.conflicts),
+        "phases": {k: round(v, 4) for k, v in art.phase_seconds.items()},
+        "fingerprint": sess.fingerprint[:16],
+        "trips": sorted(set(prog.trip_counts.values())),
+        "kernel_ops": [op.prim for op in prog.ops
+                       if op.prim.startswith("kernel:")]},
+        "plans": {}, "constraints": {}}
+    for label, req in reqs.items():
+        plan = sess.partition(req)
+        plan.check(req.constraints)
+        if ShardingPlan.from_json(plan.to_json()).as_dict() != \
+                plan.as_dict():
+            raise AssertionError(f"{name} {kind} {label} plan JSON does "
+                                 f"not round-trip")
+        out["plans"][label] = plan.to_json()
+        out["constraints"][label] = [c.target for c in req.constraints]
+    out["seconds"] = time.perf_counter() - t0
+    if kind == "decode":
+        psess = Session(TS.make_prefill_step(cfg),
+                        (T.param_specs(cfg), meta_tokens(*DECODE_SHAPE)))
+        out["plans"]["prefill 1x1"] = psess.partition(
+            Request(mesh=mesh1)).to_json()
+    return out
+
+
+def plan_of(job: dict, label: str):
+    """The ``ShardingPlan`` of a :func:`plan_job` result."""
+    from repro_torch.core.partitioner import ShardingPlan
+    return ShardingPlan.from_json(job["plans"][label])
 
 
 def prefill_session(torch, cfg, shape):
@@ -809,7 +928,7 @@ def tree_bytes(tree) -> int:
                for x in pytree.tree_leaves(tree))
 
 
-def drive_decode(torch, cfg, params, counters, card) -> None:
+def drive_decode(torch, cfg, params, counters, card, job) -> None:
     """Plan and serve one model's decode path with ``params``.
 
     Args:
@@ -817,12 +936,11 @@ def drive_decode(torch, cfg, params, counters, card) -> None:
         params: its parameters on the card (those of the prefill path).
         counters: kernel name -> its wrapper module (``launches``).
         card: the card's name and power limit, for the time lines.
+        job: the :func:`plan_job` result of its decode step (the session
+            traced and the plans searched in the worker process).
     """
     from repro_torch import pytree
-    from repro_torch.api import Request, Session
     from repro_torch.configs import get_config
-    from repro_torch.core.cost_model import MeshSpec
-    from repro_torch.core.partitioner import ShardingPlan
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     from repro_torch.models.sharding import KernelDispatch, kernel_dispatch
@@ -830,25 +948,18 @@ def drive_decode(torch, cfg, params, counters, card) -> None:
 
     B, P = DECODE_SHAPE
     name = cfg.name
-    sess, names = serve.decode_session(cfg, B, DECODE_MAX_SEQ)
-    art = sess.artifacts
-    log(f"[decode session {name}] B={B} cache={DECODE_MAX_SEQ}: "
-        f"{len(art.prog.ops)} ops, {len(art.nda.color_summary())} colors, "
-        f"{len(art.analysis.conflicts)} conflicts, phases "
-        + json.dumps({k: round(v, 4) for k, v in art.phase_seconds.items()}))
-
-    req8 = serve.decode_request(cfg, names, MeshSpec(("data", "model"),
-                                                     (2, 4)))
-    plan8 = sess.partition(req8)
-    plan8.check(req8.constraints)
-    if ShardingPlan.from_json(plan8.to_json()).as_dict() != plan8.as_dict():
-        raise AssertionError("decode 2x4 plan JSON does not round-trip")
+    st = job["stats"]
+    log(f"[decode session {name}] {cfg.num_layers} layers, B={B} "
+        f"cache={DECODE_MAX_SEQ}: "
+        f"{st['ops']} ops, {st['colors']} colors, {st['conflicts']} "
+        f"conflicts, phases " + json.dumps(st["phases"]) + " (worker "
+        "process)")
+    plan8 = plan_of(job, "2x4")
     log(f"[decode partition {name} 2x4] cost={plan8.cost:.6f} constraints="
-        f"{[c.target for c in req8.constraints]} satisfied, rules="
+        f"{job['constraints']['2x4']} satisfied, rules="
         f"{json.dumps(plan8.logical_rules)} search="
         f"{plan8.search_seconds:.3f} s json round-trip ok")
-    plan1 = sess.partition(serve.decode_request(
-        cfg, names, MeshSpec(("data", "model"), (1, 1))))
+    plan1 = plan_of(job, "1x1")
     if plan1.kernel_sites:
         raise AssertionError(f"decode 1x1 plan has kernel sites "
                              f"{plan1.kernel_sites}")
@@ -859,11 +970,10 @@ def drive_decode(torch, cfg, params, counters, card) -> None:
 
     # the prefill step on the same prompts, through its 1x1 plan
     pstep = make_prefill_step(cfg)
-    psess = Session(pstep, (T.param_specs(cfg), {"tokens": torch.empty(
-        (B, P), dtype=torch.int32, device="meta")}))
-    pplan = psess.partition(Request(mesh=MeshSpec(("data", "model"),
-                                                  (1, 1))))
-    if {r["impl"] for r in pplan.kernel_sites} != {"cuda"}:
+    pplan = plan_of(job, "prefill 1x1")
+    has_sites = any(sum(n) for n in T.kernel_sites(cfg).values())
+    if {r["impl"] for r in pplan.kernel_sites} != \
+            ({"cuda"} if has_sites else set()):
         raise AssertionError(f"prefill 1x1 plan sites {pplan.kernel_sites}")
     prefill = pplan.apply(pstep)
 
@@ -942,11 +1052,41 @@ def drive_decode(torch, cfg, params, counters, card) -> None:
     for i, (pr, res) in enumerate(zip(prompts, results["captured"])):
         want = prefill(params, {"tokens": pr}).float()
         got = res.prompt_logits[:, 0].float()
+        rows = list(range(B))
+        if cfg.num_experts:
+            # decode routes one token at a time (C = 1) and drops none;
+            # prefill drops tokens beyond capacity: hold only the rows
+            # whose prompt lost no routed token in any layer, and every
+            # row against the prefill whose capacity is the whole prompt
+            with MoESelections() as sel:
+                pplan.apply(pstep, capture=False)(params, {"tokens": pr})
+            drops = sel.drops()
+            rows = [b for b in range(B) if not drops[:, b].any()]
+            whole = dataclasses.replace(
+                cfg, moe_capacity_factor=cfg.num_experts /
+                cfg.experts_per_token)
+            with kernel_dispatch(KernelDispatch(default_impl="cuda")):
+                nodrop = make_prefill_step(whole)(
+                    params, {"tokens": pr}).float()
+            rel = ((got - nodrop).abs().max() / nodrop.abs().max()).item()
+            agree = (got.argmax(-1) == nodrop.argmax(-1)).sum().item()
+            log(f"[decode {name}] request {i}: prefill of the prompt "
+                f"dropped routed tokens per layer and row "
+                f"{drops.tolist()}; rows held against it {rows}; against "
+                f"the prefill at capacity {P} (none dropped): "
+                f"max|decode-prefill|/max|prefill| = {rel:.3e} (tol "
+                f"{LOGITS_REL_TOL}), argmax agree {agree}/{B}")
+            if rel > LOGITS_REL_TOL:
+                raise AssertionError("decode and the no-drop prefill "
+                                     "logits disagree")
+            if not rows:
+                continue
+        got, want = got[rows], want[rows]
         rel = ((got - want).abs().max() / want.abs().max()).item()
         agree = (got.argmax(-1) == want.argmax(-1)).sum().item()
         log(f"[decode {name}] request {i}: last prompt token, "
             f"max|decode-prefill|/max|prefill| = {rel:.3e} (tol "
-            f"{LOGITS_REL_TOL}), argmax agree {agree}/{B}")
+            f"{LOGITS_REL_TOL}), argmax agree {agree}/{len(rows)}")
         if rel > LOGITS_REL_TOL:
             raise AssertionError("decode and prefill logits disagree")
     if prefill.captures != 1 or prefill.replays != REQUESTS:
@@ -992,7 +1132,7 @@ def drive_decode(torch, cfg, params, counters, card) -> None:
     with kernel_dispatch(KernelDispatch(default_impl="cuda")):
         want = T.forward(small, sp, toks)
     ran = [k for k, mod in counters.items() if mod.launches > before[k]]
-    if not ran:
+    if not ran and any(sum(n) for n in T.kernel_sites(small).values()):
         raise AssertionError("the small forward launched no kernel")
     step = make_decode_step(small)
     cache = T.init_cache(small, 2, S)
@@ -1012,6 +1152,258 @@ def drive_decode(torch, cfg, params, counters, card) -> None:
         f"(tol {SMALL_TOL}) ok")
 
 
+class MoESelections:
+    """Records the capacity selections of the MoE layers an eager run
+    makes (``layers.top_k`` wrapped while the context is open).
+
+    Each MoE layer calls ``top_k`` twice, the router's top k and then
+    the capacity selection over its tokens, so the calls alternate.
+    """
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self.calls, self._top_k = [], L.top_k
+
+        def recorded(x, k):
+            out = self._top_k(x, k)
+            self.calls.append((x, *out))
+            return out
+
+        L.top_k = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        L.top_k = self._top_k
+
+    def selected(self) -> list:
+        """Per layer, the (B, E, C) tokens each expert of each row took."""
+        return [idx for _, _, idx in self.calls[1::2]]
+
+    def drops(self):
+        """(layers, B): the routed (token, expert) pairs of each row that
+        found no room, per layer (batch dispatch)."""
+        import torch
+        return torch.stack([(x > 0).sum((-1, -2)) - (w > 0).sum((-1, -2))
+                            for x, w, _ in self.calls[1::2]]).cpu()
+
+
+def moved(a, b, tokens: int) -> int:
+    """Of two (B, E, C) capacity selections over ``tokens`` tokens, the
+    tokens that one run's experts took and the other's did not."""
+    import torch
+    def mask(idx):
+        return torch.zeros((*idx.shape[:-1], tokens), dtype=torch.bool,
+                           device=idx.device).scatter_(-1, idx, True)
+    return int((mask(a) & ~mask(b)).sum())
+
+
+def drive_moe(torch, name, counters, card, full_jobs, jobs) -> dict:
+    """Plan and serve one MoE model: the full-depth plans, then prefill
+    and decode of the model cut to ``MOE_DEPTH[name]`` layers at full
+    width through the 1x1 plans of the cut model's own steps; returns
+    its attention launches in the captured prefill requests (replays
+    times the launches the capture recorded) and the arctic-shape
+    sites' errors.
+
+    Args:
+        name: ``mixtral_8x22b`` or ``arctic_480b``.
+        counters: kernel name -> its wrapper module (``launches``).
+        card: the card's name and power limit, for the time lines.
+        full_jobs: the :func:`plan_job` results of its full-depth
+            prefill and decode steps, by kind (their 2x4 plans are
+            reported).
+        jobs: the same for the cut model (their 1x1 plans run it).
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_prefill_step
+
+    t_start = time.perf_counter()
+    full = dataclasses.replace(get_config(name), use_pallas=True)
+    B, S = MOE_SHAPE
+    for kind, job in full_jobs.items():
+        plan = plan_of(job, "2x4")
+        specs = {p.rsplit("[", 1)[1].strip("]'"): tuple(s) for p, s in
+                 zip(plan.input_paths, plan.in_specs)
+                 if "['ffn']" in p and p.endswith(
+                     ("['wi']", "['wgate']", "['wo']", "['wg']"))}
+        st = job["stats"]
+        log(f"[moe plan {name} {kind} 2x4] {full.num_layers} layers: "
+            f"{job['seconds']:.3f} s to the plans in the worker process "
+            f"(trace {st['phases']['trace']:.3f} s, search "
+            f"{plan.search_seconds:.3f} s), {st['ops']} ops, "
+            f"{st['colors']} colors, {st['conflicts']} conflicts, cost "
+            f"{plan.cost:.6f}, expert weights {json.dumps(specs)}, rules "
+            f"{json.dumps(plan.logical_rules)}, json round-trip ok")
+
+    cfg = dataclasses.replace(full, num_layers=MOE_DEPTH[name])
+    per_request = sum(T.kernel_sites(cfg)["flash_attention"]) * \
+        cfg.num_layers
+    plan1 = plan_of(jobs["prefill"], "1x1")
+    sites = {r["site"]: r["impl"] for r in plan1.kernel_sites}
+    if sites != ({"flash_attention:0": "cuda"} if per_request else {}):
+        raise AssertionError(f"{name} 1x1 plan kernel sites chose {sites}")
+    st = jobs["prefill"]["stats"]
+    log(f"[partition {name} 1x1] the {cfg.num_layers}-layer prefill step "
+        f"traced in the worker process ({st['ops']} ops, trip counts "
+        f"{st['trips']}, {jobs['prefill']['seconds']:.3f} s to its "
+        f"plans): cost={plan1.cost:.6f} sites={json.dumps(sites)}")
+    step = make_prefill_step(cfg)
+    applied = plan1.apply(step)
+    eager = plan1.apply(step, capture=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[moe {name}] {cfg.num_layers} of {full.num_layers} layers at "
+        f"full width: {tree_bytes(params) / 1e9:.3f} GB of bf16 weights "
+        f"made in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
+    tgen = torch.Generator(device="cuda").manual_seed(1)
+    requests = [{"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                         generator=tgen, device="cuda",
+                                         dtype=torch.int32)}
+                for _ in range(REQUESTS)]
+    eager(params, requests[0])              # warm-up, not counted
+    graph = capture_once(torch, applied, f"{name} prefill B={B} S={S}",
+                         params, requests[0])
+    if graph.launches["flash_attention"] != per_request or \
+            graph.launches["rg_lru"]:
+        raise AssertionError(f"{name}: the graph recorded launches "
+                             f"{graph.launches}; expected {per_request} "
+                             f"flash_attention")
+
+    for mod in counters.values():
+        mod.launches = 0
+    replays = applied.replays
+    outs = {"captured": [], "eager": []}
+    times = {"captured": [], "eager": []}
+    for i, req in enumerate(requests):
+        order = ("captured", "eager") if i % 2 == 0 else ("eager", "captured")
+        for label in order:
+            fn = applied if label == "captured" else eager
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits = fn(params, req)
+            end.record()
+            torch.cuda.synchronize()
+            if logits.shape != (B, cfg.vocab_size) or \
+                    not torch.isfinite(logits).all():
+                raise AssertionError(f"{name} {label} request {i}: logits "
+                                     f"not finite or misshapen")
+            times[label].append(start.elapsed_time(end))
+            outs[label].append(logits.float())
+            log(f"[serve {name} {label}] request {i}: next tokens "
+                f"{logits.float().argmax(-1).tolist()} prefill "
+                f"{times[label][-1]:.3f} ms, peak "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, reserved "
+                f"{torch.cuda.memory_reserved() / 1e9:.2f} GB")
+    launches = graph_launches(counters, applied, replays)
+    captured = (applied.replays - replays) * \
+        graph.launches["flash_attention"]
+    want = {"flash_attention": 2 * per_request * REQUESTS, "rg_lru": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"{name}: kernel launches {launches}, expected "
+                             f"{want}")
+    if applied.captures != 1 or applied.replays - replays != REQUESTS:
+        raise AssertionError(f"{name}: {applied.captures} captures, "
+                             f"{applied.replays - replays} replays")
+    for i, (a, b) in enumerate(zip(outs["captured"], outs["eager"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} request {i}: captured and eager "
+                                 f"logits differ, max|diff| "
+                                 f"{(a - b).abs().max().item():.3e}")
+        log(f"[serve {name}] request {i}: captured logits equal eager bit "
+            f"for bit")
+    log(f"[moe {name}] kernel launches on the prefill path: "
+        f"{json.dumps({k: launches[k] for k in want})} = {per_request} x "
+        f"{REQUESTS} captured + {per_request} x {REQUESTS} eager")
+    log(f"[prefill time] {card}: {name} ({cfg.num_layers} layers) B={B} "
+        f"S={S} per request, captured {fmt_ms(times['captured'])} (median "
+        f"{percentile(times['captured'], 0.5):.3f}), eager "
+        f"{fmt_ms(times['eager'])} (median "
+        f"{percentile(times['eager'], 0.5):.3f}); capture "
+        f"{graph.seconds:.3f} s, graph pool {graph.pool_bytes / 1e9:.3f} GB")
+    del graph
+    applied.release()
+    del applied
+
+    # the routed tokens each request lost to capacity, and for arctic
+    # the attention sites at the model's own q, k, v and the logits
+    # through the plain version
+    kernel_run, site_errs = [], []
+    sites_qkv = []
+    real_attention = ops.attention
+
+    def recorded(q, k, v, *, causal=True):
+        sites_qkv.append((q, k, v, causal))
+        return real_attention(q, k, v, causal=causal)
+
+    for i, req in enumerate(requests):
+        ops.attention = recorded if i == 0 else real_attention
+        try:
+            with MoESelections() as sel:
+                logits = eager(params, req).float()
+        finally:
+            ops.attention = real_attention
+        if not torch.equal(logits, outs["eager"][i]):
+            raise AssertionError(f"{name} request {i}: a recorded eager run "
+                                 f"differs from the eager run")
+        kernel_run.append(sel.selected())
+        log(f"[moe {name}] request {i}: routed tokens dropped per layer and "
+            f"row {sel.drops().tolist()} (capacity "
+            f"{sel.calls[1][2].shape[-1]} of {S} a row and expert)")
+    for j, (q, k, v, causal) in enumerate(sites_qkv):
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want_o = fa.reference(q, k, v, causal=causal)
+        err = (got.float() - want_o.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want_o.float(),
+                                   rtol=FA_TOL["bfloat16"],
+                                   atol=FA_TOL["bfloat16"])
+        site_errs.append(err)
+        log(f"[kernel] flash_attention at {name}'s layer {j} site, its own "
+            f"q {tuple(q.shape)} k {tuple(k.shape)} bf16 (GQA "
+            f"{cfg.num_heads // cfg.num_kv_heads}): max|err|={err:.3e} "
+            f"(tol {FA_TOL['bfloat16']}) ok")
+    del sites_qkv
+    if per_request:
+        plain = dataclasses.replace(
+            plan1, kernel_sites=[{**r, "impl": "ref"}
+                                 for r in plan1.kernel_sites]).apply(
+                                     step, capture=False)
+        before = {k: mod.launches for k, mod in counters.items()}
+        for i, req in enumerate(requests):
+            with MoESelections() as sel:
+                b = plain(params, req).float()
+            a = outs["captured"][i]
+            flips = [moved(x, y, S) for x, y in
+                     zip(kernel_run[i], sel.selected())]
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            agree = (a.argmax(-1) == b.argmax(-1)).sum().item()
+            log(f"[serve {name}] request {i}: max|kernel-plain|/max|plain| "
+                f"= {rel:.3e} (tol {LOGITS_REL_TOL}), argmax agree "
+                f"{agree}/{B}; tokens in one run's capacity selection "
+                f"and not the other's, per layer: {flips} of "
+                f"{kernel_run[i][0].numel()} selected")
+            if rel > LOGITS_REL_TOL:
+                raise AssertionError("kernel and plain logits disagree")
+        if {k: mod.launches for k, mod in counters.items()} != before:
+            raise AssertionError("the plain path launched a kernel")
+    del eager, outs
+    torch.cuda.empty_cache()
+
+    drive_decode(torch, cfg, params, counters, card, jobs["decode"])
+    del params
+    torch.cuda.empty_cache()
+    log(f"[elapsed] {name} MoE phase {time.perf_counter() - t_start:.1f} s")
+    return {"launches": captured, "site_errs": site_errs}
+
+
 def train_sites(cfg) -> dict:
     """Per kernel: its forward sites in the scanned period, in the tail,
     and its launches in one train step (the scanned ones again when
@@ -1023,12 +1415,14 @@ def train_sites(cfg) -> dict:
             for k, (p, t) in T.kernel_sites(cfg).items()}
 
 
-def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw,
+def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
                 small_layers=None) -> dict:
     """Plan and run the train step of ``cfg``; returns its launches.
 
     Args:
         cfg: the full-width model configuration (``use_pallas`` set).
+        job: the :func:`plan_job` result of its train step (the session
+            traced and the plans searched in the worker process).
         counters: kernel name -> its wrapper module (``launches``).
         card: the card's name and power limit, for the step lines.
         seed: the seed of the weights and the batch.
@@ -1041,7 +1435,6 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw,
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.core.cost_model import MeshSpec
-    from repro_torch.core.partitioner import ShardingPlan
     from repro_torch import pytree
     from repro_torch.kernels import ops
     from repro_torch.launch import specs
@@ -1056,29 +1449,21 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw,
     ran = [k for k, v in sites.items() if v["forward"]]
     opt = AdamConfig(**opt_kw)
     step = TS.make_train_step(cfg, opt)
-    bspec, _ = specs.batch_specs(cfg, ShapeConfig("train", S, B, "train"))
-    sess = Session(step, (TS.train_state_specs(cfg, opt), bspec))
-    art = sess.artifacts
-    prog = art.prog
-    trips = sorted(set(prog.trip_counts.values()))
-    kinds = [op.prim for op in prog.ops if op.prim.startswith("kernel:")]
+    st = job["stats"]
+    trips = st["trips"]
     log(f"[train session {name}] B={B} S={S} remat={cfg.remat}: "
-        f"{len(prog.ops)} ops, fingerprint {sess.fingerprint[:16]}, "
-        f"trip counts {trips}, "
-        f"{len(art.nda.color_summary())} colors, "
-        f"{len(art.analysis.conflicts)} conflicts, kernel ops {kinds}, "
-        f"phases " + json.dumps({k: round(v, 4) for k, v in
-                                 art.phase_seconds.items()}))
+        f"{st['ops']} ops, fingerprint {st['fingerprint']}, "
+        f"trip counts {trips}, {st['colors']} colors, "
+        f"{st['conflicts']} conflicts, kernel ops {st['kernel_ops']}, "
+        f"phases " + json.dumps(st["phases"]) + " (worker process)")
     if trips != [1, T.n_scan_blocks(cfg)]:
         raise AssertionError(f"train program trip counts {trips}")
-    plan8 = sess.partition(Request(mesh=MeshSpec(("data", "model"), (2, 4))))
-    if ShardingPlan.from_json(plan8.to_json()).as_dict() != plan8.as_dict():
-        raise AssertionError("train 2x4 plan JSON does not round-trip")
+    plan8 = plan_of(job, "2x4")
     log(f"[train partition {name} 2x4] cost={plan8.cost:.6f} "
         f"kernel_sites={len(plan8.kernel_sites)} "
         f"search={plan8.search_seconds:.3f} s "
         f"evaluations={plan8.evaluations} json round-trip ok")
-    plan1 = sess.partition(Request(mesh=MeshSpec(("data", "model"), (1, 1))))
+    plan1 = plan_of(job, "1x1")
     got_sites = {r["site"]: r["impl"] for r in plan1.kernel_sites}
     # the period's sites, the tail's, then the period's recomputed
     want_sites = {f"{k}:{i}": "cuda" for k, v in sites.items()
@@ -1706,7 +2091,34 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(REPO / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the decode, train and MoE phases' traces and searches run in one
+    # worker process (meta tensors only) while the card works, in the
+    # order the phases need them
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        jobs = {}
+        for name, train in (("qwen2_05b", (TRAIN_SHAPE, TRAIN_OPT)),
+                            ("recurrentgemma_2b",
+                             (HYBRID_TRAIN_SHAPE, HYBRID_TRAIN_OPT))):
+            jobs["decode", name] = pool.submit(plan_job, "decode", name)
+            jobs["train", name] = pool.submit(plan_job, "train", name, None,
+                                              *train)
+        for name in MOE_DEPTH:
+            for kind in ("prefill", "decode"):
+                jobs[kind, name] = pool.submit(plan_job, kind, name)
+        for name, depth in MOE_DEPTH.items():
+            for kind in ("prefill", "decode"):
+                jobs[kind, name, depth] = pool.submit(plan_job, kind, name,
+                                                      depth)
+        return run_phases(torch, opts, t_start, jobs)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
 
+
+def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
+    """Every phase of the run, in order (see the module docstring);
+    ``jobs``: (kind, model) -> the future of its :func:`plan_job`."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import registry
@@ -1815,13 +2227,14 @@ def main(argv=None) -> int:
     check_mesh(torch, qwen.name, mesh[qwen.name], logits)
     del logits
     torch.cuda.empty_cache()
-    drive_decode(torch, qwen, params, counters, card)
+    drive_decode(torch, qwen, params, counters, card,
+                 jobs["decode", qwen.name].result())
     del params
     torch.cuda.empty_cache()
     log(f"[graphs released] before the train path: "
         f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
     train = drive_train(torch, qwen, counters, card, opts.seed, TRAIN_SHAPE,
-                        TRAIN_OPT)
+                        TRAIN_OPT, jobs["train", qwen.name].result())
     torch.cuda.empty_cache()
     whole = drive_launcher(torch, qwen, counters, card, opts.seed)
     torch.cuda.empty_cache()
@@ -1837,15 +2250,30 @@ def main(argv=None) -> int:
     check_mesh(torch, hybrid.name, mesh[hybrid.name], logits)
     del logits, sessions
     torch.cuda.empty_cache()
-    drive_decode(torch, hybrid, params, counters, card)
+    drive_decode(torch, hybrid, params, counters, card,
+                 jobs["decode", hybrid.name].result())
     del params
     torch.cuda.empty_cache()
     log(f"[graphs released] before the train path: "
         f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
     hybrid_train = drive_train(torch, hybrid, counters, card, opts.seed,
                                HYBRID_TRAIN_SHAPE, HYBRID_TRAIN_OPT,
+                               jobs["train", hybrid.name].result(),
                                HYBRID_SMALL_LAYERS)
     torch.cuda.empty_cache()
+
+    # -- 7b: the MoE models, one at a time ---------------------------------
+    moe = {}
+    for name in MOE_DEPTH:
+        log(f"[graphs released] before the {name} phase: "
+            f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
+        kinds = ("prefill", "decode")
+        moe[name] = drive_moe(
+            torch, name, counters, card,
+            {kind: jobs[kind, name].result() for kind in kinds},
+            {kind: jobs[kind, name, MOE_DEPTH[name]].result()
+             for kind in kinds})
+        torch.cuda.empty_cache()
 
     # -- 8: each kernel's time at its slice shape ----------------------------
     fa_row = time_fa(fa, torch, gen, card, B, S, H, hd, plain=True)
@@ -1855,6 +2283,16 @@ def main(argv=None) -> int:
                   launches_mesh=[r["launches"]["flash_attention"]
                                  for r in mesh[qwen.name]],
                   launches_mesh_train_step=mesh_launch)
+    # arctic_480b's sites: (4, 2048, 56, 128)
+    arctic = get_config("arctic_480b")
+    arctic_row = time_fa(fa, torch, gen, card, *MOE_SHAPE, arctic.num_heads,
+                         arctic.resolved_head_dim, plain=True)
+    fa_row["launches_moe"] = {k: v["launches"] for k, v in moe.items()}
+    fa_row["arctic_shape"] = {
+        "shape": [*MOE_SHAPE, arctic.num_heads, arctic.resolved_head_dim],
+        "max_abs_err": max(moe["arctic_480b"]["site_errs"]),
+        **{k: arctic_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}}
     # the head dims of the repo's other configs, at the slice's B, S, H
     for hd_i in (96, 128):
         time_fa(fa, torch, gen, card, B, S, H, hd_i, plain=False)

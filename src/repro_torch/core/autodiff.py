@@ -46,9 +46,11 @@ when a gradient would flow through it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+from typing import Any
 
 import numpy as np
+
+from repro_torch.core.ir import ScatterDimensionNumbers
 
 # prims whose results carry no tangent (integer / boolean results, or
 # the gradient explicitly stopped)
@@ -57,16 +59,6 @@ _NO_TANGENT = frozenset({
     "is_finite", "stop_gradient", "sign", "rem",
 })
 _FLOAT = frozenset({"float16", "bfloat16", "float32", "float64"})
-
-
-class ScatterDimensionNumbers(NamedTuple):
-    """The scatter dimension numbers ``core.nda``'s scatter rule reads."""
-
-    update_window_dims: tuple[int, ...]
-    inserted_window_dims: tuple[int, ...]
-    scatter_dims_to_operand_dims: tuple[int, ...]
-    operand_batching_dims: tuple[int, ...] = ()
-    scatter_indices_batching_dims: tuple[int, ...] = ()
 
 
 @dataclasses.dataclass

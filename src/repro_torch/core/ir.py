@@ -28,6 +28,13 @@ unchanged on the result:
   index is a scalar made one-element (``slot[None]``) is the reference's
   ``dynamic_update_slice`` at that scalar (the decode caches' ring
   write), so the one-element index itself is never emitted.
+- ``repro_torch::top_k`` is the reference's ``top_k`` prim.  A
+  ``gather`` or ``scatter_add`` whose operand or index is an ``expand``
+  (``layers.take_along_axis``, ``layers.scatter_add_rows``) is lowered
+  as ``jnp.take_along_axis`` and the ``vmap``'d ``.at[].add`` lower
+  them: one ``gather`` / ``scatter-add`` of the unexpanded tensors,
+  their size-1 dims squeezed or taken as window dims, the others
+  batching dims, so the expansion itself is never emitted.
 - The fused kernel ops (``repro_torch::flash_attention``,
   ``repro_torch::rg_lru``) are each recorded as one ``kernel:<name>``
   op; their impl argument is dropped, so the program does not depend on
@@ -148,6 +155,16 @@ class GatherDimensionNumbers(NamedTuple):
     start_indices_batching_dims: tuple[int, ...] = ()
 
 
+class ScatterDimensionNumbers(NamedTuple):
+    """The scatter dimension numbers ``core.nda``'s scatter rule reads."""
+
+    update_window_dims: tuple[int, ...]
+    inserted_window_dims: tuple[int, ...]
+    scatter_dims_to_operand_dims: tuple[int, ...]
+    operand_batching_dims: tuple[int, ...] = ()
+    scatter_indices_batching_dims: tuple[int, ...] = ()
+
+
 class UnsupportedOpError(NotImplementedError):
     """An exported node the tracer has no lowering for."""
 
@@ -180,6 +197,16 @@ class _Unsqueezed:
 
 
 @dataclasses.dataclass(frozen=True)
+class _Expanded:
+    """An ``expand`` of ``vid`` to ``shape`` whose every user takes it as
+    a ``gather`` operand or index, or a ``scatter_add`` index: not
+    emitted, the user broadcasts as the reference's indexing does."""
+
+    vid: int
+    shape: tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
 class _SlotIndex:
     """A scalar made one-element (``slot[None]``) whose every user takes
     it as ``index_copy``'s index: the scalar ``vid`` is the start of the
@@ -205,9 +232,13 @@ _LAZY_ARGS = frozenset({"slice_scatter", "unsqueeze", "index_copy"})
 _FILLS = frozenset({"zeros", "new_zeros", "zeros_like", "full", "ones"})
 # nodes that compute nothing the analysis can see
 _IGNORED = {"_assert_tensor_metadata"}
-# the train step's gradient node (``train.steps``); every other op of the
-# namespace is a fused kernel
+# the train step's gradient node (``train.steps``) and ``lax.top_k``
+# (``models.layers``); every other op of the namespace is a fused kernel
 _GRAD_OP = "grad"
+_TOP_K_OP = "top_k"
+# the users that take an expand's operand unexpanded: (op, argument)
+_EXPAND_USERS = frozenset({("gather", 0), ("gather", 2),
+                           ("scatter_add", 2)})
 
 _KERNEL_NAMESPACE = "repro_torch"
 
@@ -362,6 +393,8 @@ class _Extractor:
         if namespace == _KERNEL_NAMESPACE:
             if packet == _GRAD_OP:
                 return self._grad(node, args)
+            if packet == _TOP_K_OP:
+                return self._top_k(node, args)
             return self._kernel(node, packet, args)
         if namespace != "aten" or packet is None:
             raise UnsupportedOpError(f"no IR lowering for {target}")
@@ -585,6 +618,11 @@ class _Extractor:
 
     def _aten_expand(self, node, args, kwargs):
         shape, _ = _meta(node)
+        users = list(node.users)
+        if users and all(
+                (_packet(u), i) in _EXPAND_USERS
+                for u in users for i, a in enumerate(u.args) if a is node):
+            return _Expanded(args[0].vid, shape)
         return _Ref(self._bcast_to(args[0].vid, shape))
 
     def _slice(self, vid, dim, start, end, step):
@@ -800,37 +838,123 @@ class _Extractor:
                        "slice_sizes": (1, self._type(table).shape[1])},
             [table, idx1], shape, dtype))
 
+    def _broadcast_base(self, node, x, dim: int, shape) -> tuple[int, tuple]:
+        """A gather / scatter argument as its unexpanded value and shape.
+
+        The argument as the op sees it (expanded or not) must be
+        ``shape`` on every dim but ``dim``, and its unexpanded value
+        broadcast to it: torch would otherwise read a prefix of a dim,
+        which no ``jnp`` indexing does.
+        """
+        vid = x.vid
+        base = self._type(vid).shape
+        full = x.shape if isinstance(x, _Expanded) else base
+        if len(base) != len(shape) or len(full) != len(shape):
+            raise UnsupportedOpError(f"{node.target} of mixed ranks")
+        for i, (b, f, n) in enumerate(zip(base, full, shape)):
+            if i != dim and (f != n or b not in (1, n)):
+                raise UnsupportedOpError(
+                    f"{node.target}: dim {i} of size {b} (expanded {f}) "
+                    f"does not broadcast to {n}")
+        return vid, base
+
     def _aten_gather(self, node, args, kwargs):
-        # reference lowering of jnp.take_along_axis: the index vector dim
-        # appended; every other dim a batching dim of both sides, but a
-        # dim of size 1, which the gather takes whole (an offset dim) and
-        # the index drops
-        src, dim, idx = args[0].vid, args[1], args[2].vid
-        st, it = self._type(src), self._type(idx)
-        dim = _norm_dim(dim, st.rank)
-        if it.rank != st.rank or any(
-                it.shape[i] != st.shape[i] for i in range(st.rank)
-                if i != dim):
-            raise UnsupportedOpError(f"{node.target} with an index that "
-                                     f"broadcasts")
+        # reference lowering of jnp.take_along_axis(arr, idx, dim) on the
+        # unexpanded operands: per dim but ``dim``, an index of size 1
+        # takes the operand's dim whole (an offset dim), an operand of
+        # size 1 is squeezed (the dim comes from the index), else both
+        # are batching dims; the index gets its vector dim appended
+        src, dim, idx = args[0], args[1], args[2]
         shape, dtype = _meta(node)
-        kept = [i for i in range(st.rank) if i == dim or it.shape[i] != 1]
-        ishape = tuple(it.shape[i] for i in kept) + (1,)
-        idx1 = self._emit("reshape", {"new_sizes": ishape,
-                                      "dimensions": None},
-                          [idx], ishape, it.dtype)
-        whole = tuple(i for i in range(st.rank)
-                      if i != dim and it.shape[i] == 1)
-        batch = tuple(i for i in range(st.rank)
-                      if i != dim and i not in whole)
+        rank = len(shape)
+        dim = _norm_dim(dim, rank)
+        src, arr_shape = self._broadcast_base(node, src, dim, shape)
+        idx, idx_shape = self._broadcast_base(node, idx, dim, shape)
+        offset, collapsed, start_map, obatch, ibatch = [], [], [], [], []
+        slice_sizes, squeeze = [], []
+        new_i = j = 0
+        for i in range(rank):
+            if i == dim:
+                slice_sizes.append(1)
+                start_map.append(new_i)
+                collapsed.append(new_i)
+                new_i += 1
+                j += 1
+            elif idx_shape[i] == 1:
+                offset.append(i)
+                slice_sizes.append(arr_shape[i])
+                new_i += 1
+            elif arr_shape[i] == 1:
+                squeeze.append(i)
+                j += 1
+            else:
+                slice_sizes.append(1)
+                obatch.append(new_i)
+                ibatch.append(j)
+                new_i += 1
+                j += 1
+        kept = [i for i in range(rank) if i == dim or idx_shape[i] != 1]
+        ishape = tuple(shape[i] for i in kept) + (1,)
+        if ishape != idx_shape:
+            it = self._type(idx)
+            idx = self._emit("reshape", {"new_sizes": ishape,
+                                         "dimensions": None},
+                             [idx], ishape, it.dtype)
+        if squeeze:
+            st = self._type(src)
+            src = self._emit("squeeze", {"dimensions": tuple(squeeze)},
+                             [src], tuple(n for i, n in enumerate(st.shape)
+                                          if i not in squeeze), st.dtype)
         dn = GatherDimensionNumbers(
-            offset_dims=whole, collapsed_slice_dims=(dim,),
-            start_index_map=(dim,), operand_batching_dims=batch,
-            start_indices_batching_dims=tuple(kept.index(i) for i in batch))
+            offset_dims=tuple(offset), collapsed_slice_dims=tuple(collapsed),
+            start_index_map=tuple(start_map),
+            operand_batching_dims=tuple(obatch),
+            start_indices_batching_dims=tuple(ibatch))
         return _Ref(self._emit(
             "gather", {"dimension_numbers": dn,
-                       "slice_sizes": (1,) * st.rank},
-            [src, idx1], shape, dtype))
+                       "slice_sizes": tuple(slice_sizes)},
+            [src, idx], shape, dtype))
+
+    def _aten_scatter_add(self, node, args, kwargs):
+        # reference lowering of ``base.at[idx].add(upd)`` along ``dim``
+        # under vmap over the dims before it: per dim but ``dim``, an
+        # index of size 1 is a window dim of the update (the operand's
+        # dim whole), any other a batching dim; the index drops its
+        # window dims and gets its vector dim appended
+        base, dim, idx, upd = args
+        shape, dtype = _meta(node)
+        rank = len(shape)
+        dim = _norm_dim(dim, rank)
+        ut = self._type(upd.vid)
+        if ut.rank != rank or any(ut.shape[i] != shape[i]
+                                  for i in range(rank) if i != dim):
+            raise UnsupportedOpError(f"{node.target} of an update that "
+                                     f"does not span the operand")
+        full = idx.shape if isinstance(idx, _Expanded) else \
+            self._type(idx.vid).shape
+        if tuple(full) != ut.shape:
+            raise UnsupportedOpError(f"{node.target} of an update shaped "
+                                     f"unlike its index")
+        idx, idx_shape = self._broadcast_base(node, idx, dim, ut.shape)
+        window = [i for i in range(rank) if i != dim and idx_shape[i] == 1]
+        scatter = [i for i in range(rank) if i not in window]
+        batch = [i for i in scatter if i != dim]
+        ishape = tuple(idx_shape[i] for i in scatter) + (1,)
+        if ishape != idx_shape:
+            idx = self._emit("reshape", {"new_sizes": ishape,
+                                         "dimensions": None},
+                             [idx], ishape, self._type(idx).dtype)
+        dn = ScatterDimensionNumbers(
+            update_window_dims=tuple(window), inserted_window_dims=(dim,),
+            scatter_dims_to_operand_dims=(dim,),
+            operand_batching_dims=tuple(batch),
+            scatter_indices_batching_dims=tuple(scatter.index(i)
+                                                for i in batch))
+        return _Ref(self._emit(
+            "scatter-add", {"dimension_numbers": dn,
+                            "indices_are_sorted": False,
+                            "unique_indices": False},
+            [self._convert(base.vid, dtype), idx, upd.vid], shape, dtype))
 
     # -- fused kernels and loops ---------------------------------------------
 
@@ -856,6 +980,17 @@ class _Extractor:
                 for v in node.meta["val"]]
         self.prog.add_op(Op(spec.prim, params, [a.vid for a in args[:n]],
                             vids), self.trip)
+        return tuple(_Ref(v) for v in vids)
+
+    def _top_k(self, node, args):
+        # lax.top_k along the last dim: values and indices
+        x, k = args
+        rank = self._type(x.vid).rank
+        vids = [self.prog.new_value(tuple(int(d) for d in v.shape),
+                                    dtype_name(v.dtype))
+                for v in node.meta["val"]]
+        self.prog.add_op(Op("top_k", {"k": int(k), "axis": rank - 1},
+                            [x.vid], vids), self.trip)
         return tuple(_Ref(v) for v in vids)
 
     def _grad(self, node, args):

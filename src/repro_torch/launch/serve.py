@@ -222,6 +222,7 @@ def serve(args) -> ServeResult:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    T.check_devices(cfg, n_dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=dev)
     B, P, G = args.batch, args.prompt_len, args.gen

@@ -70,6 +70,7 @@ from repro_torch.data.pipeline import DataConfig, Pipeline
 from repro_torch.device import resolve_device
 from repro_torch.jit import jit
 from repro_torch.launch import mesh as M
+from repro_torch.models import transformer as T
 from repro_torch.train.steps import (init_train_state, make_train_step,
                                      train_state_specs)
 
@@ -372,10 +373,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    M.init_from_env()
+    n_dev = M.init_from_env()
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    T.check_devices(cfg, n_dev)
     supervise(cfg, args)
 
 

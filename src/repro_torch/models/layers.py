@@ -1,13 +1,15 @@
-"""Model building blocks in PyTorch: the dense decoder's and the hybrid's
-parts.
+"""Model building blocks in PyTorch: the dense decoder's, the hybrid's
+and the mixture-of-experts models' parts.
 
 Ported so far: RMSNorm, RoPE, GQA attention (full, sliding-window and
 non-causal masking; the einsum path and the fused-kernel path; the
-one-token decode form over a ring-buffer KV cache), the SwiGLU MLP and
+one-token decode form over a ring-buffer KV cache), the SwiGLU MLP, the
+MoE block (top-k router, capacity-bounded gather / scatter-add dispatch
+in the global, batch and local modes, Arctic's dense residual path) and
 the Griffin RG-LRU block (full sequence, on the associative-scan path
 or the fused-kernel path; the one-token decode form over its recurrent
-and conv state).  The other block kinds of the reference (MoE, xLSTM,
-cross-attention, the GELU MLP) are ROADMAP queue 1, items 10-11.
+and conv state).  The other block kinds of the reference (xLSTM,
+cross-attention, the GELU MLP) are ROADMAP queue 1, item 11.
 
 Functions take plain tensors and parameter dicts in the reference's
 pytree layout.  They are written as the same reduce / elementwise steps
@@ -28,8 +30,8 @@ import torch
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import lru_associative_scan
 from repro_torch.models.sharding import (constrain, einsum, index_copy,
-                                        matmul, pointwise, replicate_like,
-                                        split_dim)
+                                        is_dtensor, matmul, pointwise,
+                                        replicate_like, split_dim)
 
 # ---------------------------------------------------------------------------
 # common
@@ -245,6 +247,211 @@ def mlp_apply(cfg, p, x):
     gate = matmul(h, p["wg"])
     u = gate * torch.sigmoid(gate) * u
     return x + matmul(u, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+
+MOE_ON_MESH = ("MoE blocks on a mesh of 2 or more devices are not ported "
+               "yet (ROADMAP queue 1, item 10b)")
+
+
+@torch.library.custom_op("repro_torch::top_k", mutates_args=())
+def _top_k_op(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    # a stable descending sort keeps equal values in index order
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k].contiguous(), indices[..., :k].contiguous()
+
+
+@_top_k_op.register_fake
+def _(x, k):
+    shape = (*x.shape[:-1], k)
+    return x.new_empty(shape), x.new_empty(shape, dtype=torch.int64)
+
+
+def top_k(x, k: int):
+    """``lax.top_k``: the ``k`` largest values along the last dim and
+    their (int64) indices, largest first and, among equal values, the
+    lower index first, on every device (``torch.topk`` promises no tie
+    order).  One op, ``repro_torch::top_k``, which the tracer lowers to
+    the reference's ``top_k`` prim."""
+    return _top_k_op(x, k)
+
+
+def take_along_axis(arr, idx, axis: int):
+    """``jnp.take_along_axis``: ``arr`` and ``idx`` of one rank broadcast
+    against each other on every dim but ``axis``.  Both are expanded and
+    gathered; the tracer lowers the gather of the two expansions to the
+    reference's one gather of the unexpanded operands."""
+    axis = axis % arr.ndim
+    shape = [i if a == 1 else a for a, i in zip(arr.shape, idx.shape)]
+    arr_shape, idx_shape = list(shape), list(shape)
+    arr_shape[axis], idx_shape[axis] = arr.shape[axis], idx.shape[axis]
+    return torch.gather(arr.expand(arr_shape), axis, idx.expand(idx_shape))
+
+
+def scatter_add_rows(base, dim: int, idx, upd):
+    """``base.at[..., idx, ...].add(upd)`` along ``dim``, under ``vmap``
+    over the dims before it: the reference's per-row combine.
+
+    base: (*lead, N, d); idx: (*lead, n) int; upd: (*lead, n, d).  The
+    index is expanded over ``d`` for ``scatter_add``; the tracer lowers
+    the two to the reference's one ``scatter-add`` of the unexpanded
+    index (batching dims ``lead``, window dim ``d``).
+    """
+    return base.scatter_add(dim, idx[..., None].expand(upd.shape), upd)
+
+
+def moe_param_shapes(cfg) -> dict:
+    """Shapes and init kinds of one MoE block's parameters: the router
+    ``wg`` (d, E), the experts' SwiGLU weights stacked (E, d, f) /
+    (E, f, d), and with ``moe_dense_residual`` a dense SwiGLU beside
+    them."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    p = {"ln": ((d,), "ones"), "wg": ((d, e), "dense"),
+         "wi": ((e, d, f), "dense"), "wgate": ((e, d, f), "dense"),
+         "wo": ((e, f, d), "dense")}
+    if cfg.moe_dense_residual:
+        p["dense_wi"] = ((d, f), "dense")
+        p["dense_wg"] = ((d, f), "dense")
+        p["dense_wo"] = ((f, d), "dense")
+    return p
+
+
+def moe_apply(cfg, p, x, capacity_factor=None):
+    """Top-k routing with per-expert capacity (gather / scatter-add
+    dispatch), pre-norm residual.
+
+    Tokens beyond an expert's capacity are dropped (Switch-style), as in
+    the reference; ``capacity_factor`` defaults from the config.  The
+    dispatch mode is ``cfg.moe_dispatch``: ``"global"`` routes one pool
+    of B*S tokens, ``"batch"`` each batch row, ``"local"`` each of
+    ``cfg.moe_local_pools`` sequence pools of each row.  Every shape is
+    static (no data-dependent sizes), so the block captures in a CUDA
+    graph.
+
+    Raises:
+        NotImplementedError: on DTensors (a mesh of 2 or more devices).
+    """
+    if is_dtensor(x):
+        raise NotImplementedError(MOE_ON_MESH)
+    capacity_factor = capacity_factor or cfg.moe_capacity_factor
+    h = rmsnorm(x, p["ln"])
+    if cfg.moe_dispatch == "local":
+        y = _moe_dispatch_local(cfg, p, h, capacity_factor,
+                                cfg.moe_local_pools)
+    elif cfg.moe_dispatch == "batch":
+        y = _moe_dispatch_batch(cfg, p, h, capacity_factor)
+    else:
+        y = _moe_dispatch_global(cfg, p, h, capacity_factor)
+    if cfg.moe_dense_residual:
+        gate = matmul(h, p["dense_wg"])
+        u = gate * torch.sigmoid(gate) * matmul(h, p["dense_wi"])
+        y = y + matmul(u, p["dense_wo"])
+    return x + y
+
+
+def _router(cfg, p, h):
+    """Top-k routing weights as a dense (..., E) float32 matrix: the
+    softmax of the router's logits, its top k renormalized, zero
+    elsewhere."""
+    e, k = cfg.num_experts, cfg.experts_per_token
+    logits = matmul(h, p["wg"]).to(torch.float32)
+    probs = softmax(logits)
+    topw, topi = top_k(probs, k)
+    topw = topw / topw.sum(-1, keepdim=True)
+    W = torch.zeros(probs.shape, dtype=torch.float32, device=h.device)
+    for j in range(k):
+        # jax.nn.one_hot: the index against an iota of the experts
+        hot = (topi[..., j][..., None] ==
+               torch.arange(e, device=h.device)).to(torch.float32)
+        W = W + hot * topw[..., j:j + 1]
+    return W
+
+
+def _expert_ffn(p, xe):
+    """xe: (..., E, C, d) with stacked expert weights (E, d, f)."""
+    lead = "bp"[:xe.ndim - 3]
+    gate = einsum(f"{lead}ecd,edf->{lead}ecf", xe, p["wgate"])
+    he = gate * torch.sigmoid(gate) * \
+        einsum(f"{lead}ecd,edf->{lead}ecf", xe, p["wi"])
+    he = constrain(he, ("act_batch", "experts", None, "hidden")[-he.ndim:])
+    return einsum(f"{lead}ecf,efd->{lead}ecd", he, p["wo"])
+
+
+def _clip(n, lo, hi):
+    """``max(lo, min(n, hi))`` by comparisons: inside the layer scan's
+    body, which ``torch.export`` traces with dynamo, shapes are symbolic
+    ints, and dynamo (torch 2.13) gives ``max(1, n)`` of one as 1."""
+    if n > hi:
+        n = hi
+    if n < lo:
+        n = lo
+    return n
+
+
+def capacity(cfg, tokens: int, capacity_factor: float) -> int:
+    """Each expert's capacity in a pool of ``tokens`` tokens."""
+    e, k = cfg.num_experts, cfg.experts_per_token
+    return _clip(int(math.ceil(k * tokens / e * capacity_factor)), 1,
+                 tokens)
+
+
+def _moe_dispatch_global(cfg, p, h, capacity_factor):
+    B, S, d = h.shape
+    e = cfg.num_experts
+    xf = h.reshape(B * S, d)
+    T = B * S
+    W = _router(cfg, p, xf)                                     # (T, E)
+    C = capacity(cfg, T, capacity_factor)
+    wsel, tsel = top_k(W.t(), C)                                # (E, C)
+    xe = torch.nn.functional.embedding(tsel.reshape(-1), xf).reshape(
+        e, C, d)
+    xe = constrain(xe, ("experts", None, None))
+    ye = _expert_ffn(p, xe) * wsel[..., None].to(h.dtype)
+    y = torch.zeros((T, d), dtype=h.dtype, device=h.device)
+    return scatter_add_rows(y, 0, tsel.reshape(-1), ye.reshape(e * C, d)
+                            ).reshape(B, S, d)
+
+
+def _moe_dispatch_batch(cfg, p, h, capacity_factor):
+    B, S, d = h.shape
+    e = cfg.num_experts
+    W = _router(cfg, p, h)                                      # (B, S, E)
+    C = capacity(cfg, S, capacity_factor)
+    wsel, tsel = top_k(W.permute(0, 2, 1), C)                   # (B, E, C)
+    xe = take_along_axis(h[:, None], tsel[..., None], 2)        # (B,E,C,d)
+    xe = constrain(xe, ("act_batch", "experts", None, None))
+    ye = _expert_ffn(p, xe) * wsel[..., None].to(h.dtype)
+    ye = constrain(ye, ("act_batch", "experts", None, None))
+    idx, upd = tsel.reshape(B, e * C), ye.reshape(B, e * C, d)
+    # the reference's vmap'd combine: one zero (S, d) per row
+    base = torch.zeros((S, d), dtype=h.dtype, device=h.device).expand(
+        B, S, d)
+    return scatter_add_rows(base, 1, idx, upd)
+
+
+def _moe_dispatch_local(cfg, p, h, capacity_factor, pools):
+    """Route within (batch row x sequence pool); capacity per pool."""
+    B, S, d = h.shape
+    e = cfg.num_experts
+    pools = _clip(pools or 1, 1, S)
+    Sl = S // pools
+    hp = h.reshape(B, pools, Sl, d)
+    hp = constrain(hp, ("act_batch", "seq", None, None))
+    W = _router(cfg, p, hp)                                  # (B,P,Sl,E)
+    C = capacity(cfg, Sl, capacity_factor)
+    wsel, tsel = top_k(W.permute(0, 1, 3, 2), C)             # (B,P,E,C)
+    xe = take_along_axis(hp[:, :, None], tsel[..., None], 3)  # (B,P,E,C,d)
+    xe = constrain(xe, ("act_batch", "seq", "experts", None, None))
+    ye = _expert_ffn(p, xe) * wsel[..., None].to(h.dtype)
+    idx, upd = tsel.reshape(B, pools, e * C), ye.reshape(B, pools, e * C, d)
+    # vmap(vmap(combine)): one zero (Sl, d) per pool, per row
+    base = torch.zeros((Sl, d), dtype=h.dtype, device=h.device).expand(
+        pools, Sl, d).expand(B, pools, Sl, d)
+    return scatter_add_rows(base, 2, idx, upd).reshape(B, S, d)
 
 
 # ---------------------------------------------------------------------------

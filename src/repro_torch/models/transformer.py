@@ -21,7 +21,9 @@ enabled, eager) checkpoints each layer body, as the reference's
 ``jax.checkpoint``; the forward values do not change.
 
 Ported block kinds: ``attn``, ``local`` and ``rglru``, with the dense
-MLP.  The others raise and name their ROADMAP item.
+MLP, and with the MoE block after attention in a model with experts
+(``mixtral_8x22b``, ``arctic_480b``).  The others raise and name their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -75,12 +77,26 @@ def kernel_sites(cfg) -> dict[str, tuple[int, int]]:
             for k in ("flash_attention", "rg_lru")}
 
 
+def check_devices(cfg, n_devices: int) -> None:
+    """Raise for a model the port cannot run on ``n_devices`` devices.
+
+    Both launchers call it before anything is made.  The training
+    launcher is refused by ``make_train_step`` anyway; the serving
+    launcher would otherwise make its weights and trace its decode plan
+    before ``moe_apply`` refused the DTensors, and with ``--plan
+    manual`` (no mesh, each rank serving whole) nothing else refuses it.
+    ROADMAP item 10b lifts this guard together with those two.
+
+    Raises:
+        NotImplementedError: for an MoE model on 2 or more devices.
+    """
+    if cfg.num_experts and n_devices >= 2:
+        raise NotImplementedError(L.MOE_ON_MESH)
+
+
 def _check_ported(cfg, kind: str) -> None:
     if kind in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[kind])
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE blocks are not ported yet (ROADMAP queue 1, item 10)")
     if cfg.is_encoder_decoder or cfg.frontend or cfg.mlp != "swiglu":
         raise NotImplementedError(
             "encoder-decoder, modality-frontend and GELU-MLP models are "
@@ -92,13 +108,25 @@ def _check_ported(cfg, kind: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _is_moe(cfg, kind) -> bool:
+    """Whether a ``kind`` layer's feed-forward is the MoE block."""
+    return bool(cfg.num_experts) and kind in ("attn", "local")
+
+
 def _block_shapes(cfg, kind) -> dict:
     _check_ported(cfg, kind)
     p = {"mix": L.rglru_param_shapes(cfg) if kind == "rglru" else
          L.attn_param_shapes(cfg)}
     if cfg.d_ff > 0:
-        p["ffn"] = L.mlp_param_shapes(cfg)
+        p["ffn"] = L.moe_param_shapes(cfg) if _is_moe(cfg, kind) else \
+            L.mlp_param_shapes(cfg)
     return p
+
+
+def _ffn(cfg, kind, p, x):
+    if _is_moe(cfg, kind):
+        return L.moe_apply(cfg, p, x)
+    return L.mlp_apply(cfg, p, x)
 
 
 def _param_shapes(cfg) -> dict:
@@ -135,6 +163,10 @@ def _map_shapes(fn, tree):
 
 # std of the normal init kinds that do not scale with fan-in
 _INIT_STD = {"embed": 1.0, "gate": 1.0, "conv": 0.5}
+# a normal leaf of more elements is drawn slice by slice along its
+# leading dim, so that the float32 draw of a full-width expert stack
+# (arctic_480b: 8.9 B elements a layer pair) never exists whole
+_DRAW_CHUNK = 1 << 30
 
 
 def init_params(cfg, generator: torch.Generator, device=None):
@@ -144,7 +176,8 @@ def init_params(cfg, generator: torch.Generator, device=None):
     and the RG-LRU gate weights std 1, its conv weights std 0.5), the
     RG-LRU ``lam`` uniform in [4, 6), norms one, biases zero, as in the
     reference; the numbers differ from the reference's, which draws from
-    ``jax.random``.
+    ``jax.random``.  A leaf of more than 2**30 elements is drawn slice by
+    slice along its leading dim.
 
     Args:
         cfg: the model configuration.
@@ -167,6 +200,14 @@ def init_params(cfg, generator: torch.Generator, device=None):
                            device=dev)
             return (u * 2 + 4).to(cfg.dtype)
         scale = _INIT_STD.get(kind) or 1.0 / math.sqrt(L.dense_fan_in(shape))
+        return draw(shape, scale)
+
+    def draw(shape, scale):
+        if math.prod(shape) > _DRAW_CHUNK and len(shape) > 1:
+            out = torch.empty(shape, dtype=cfg.dtype, device=dev)
+            for i in range(shape[0]):
+                out[i] = draw(shape[1:], scale)
+            return out
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=dev)
         return (w * scale).to(cfg.dtype)
@@ -209,13 +250,16 @@ def params_from_numpy(tree, device=None):
 def param_logical_axes(cfg, params):
     """Logical dim names for every param leaf (for TOAST's logical
     projection).  Disambiguates key collisions (attention ``wo`` vs MLP
-    ``wo``) by the parent block key, and a mix ``wo`` whose rows are the
-    RNN width (RG-LRU) from an attention one."""
+    ``wo``) by the parent block key, a mix ``wo`` whose rows are the RNN
+    width (RG-LRU) from an attention one, and the MoE router ``wg`` by
+    its expert-count columns; ``experts`` names the expert-count dim of
+    the stacked expert weights only."""
 
     def names(keys, leaf):
         key = keys[-1]
         parent = next((k for k in reversed(keys[:-1])
                        if k in ("mix", "ffn", "cross")), "")
+        e = cfg.num_experts
         base = None
         if key == "embed":
             base = ("vocab", "embed")
@@ -234,16 +278,27 @@ def param_logical_axes(cfg, params):
         elif key == "wo" and parent == "mix":
             base = ("rnn", "embed") if leaf.shape[-2] == L.rnn_width(cfg) \
                 else ("heads", "embed")
-        elif key in ("wi", "wg"):
+        elif key == "wg" and e and leaf.shape[-1] == e:
+            base = ("embed", "experts")                  # MoE router
+        elif key in ("wi", "wg", "wgate", "dense_wi", "dense_wg"):
             base = ("embed", "hidden")
-        elif key == "wo":
+        elif key in ("wo", "dense_wo"):
             base = ("hidden", "embed")
         if base is None:
             return (None,) * leaf.ndim
         extra = leaf.ndim - len(base)
         if extra < 0:
             return tuple(base[-leaf.ndim:])
-        return (None,) * extra + base
+        # MoE expert stacking: "experts" on the expert-count dim, the
+        # first of the leading dims of that size (after the layer dim
+        # when there are two)
+        prefix = [None] * extra
+        if e and key in ("wi", "wgate", "wo") and parent == "ffn":
+            for i in range(extra):
+                if leaf.shape[i] == e and (extra == 1 or i > 0):
+                    prefix[i] = "experts"
+                    break
+        return tuple(prefix) + base
 
     return pytree.tree_map_with_path(names, params)
 
@@ -262,7 +317,7 @@ def apply_block(cfg, kind, p, x, positions):
         window = cfg.sliding_window if kind == "attn" else cfg.local_window
         x = L.attn_apply(cfg, p["mix"], x, positions, window=window)
     if "ffn" in p:
-        x = L.mlp_apply(cfg, p["ffn"], x)
+        x = _ffn(cfg, kind, p["ffn"], x)
     return x
 
 
@@ -425,7 +480,7 @@ def decode_block(cfg, kind, p, x, cache, pos):
         x, cache = L.attn_decode(cfg, p["mix"], x, cache, pos,
                                  window=window)
     if "ffn" in p:
-        x = L.mlp_apply(cfg, p["ffn"], x)
+        x = _ffn(cfg, kind, p["ffn"], x)
     return x, cache
 
 

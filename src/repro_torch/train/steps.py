@@ -181,8 +181,11 @@ def make_train_step(cfg, opt_cfg: adam.AdamConfig | None = None,
 
     Raises:
         NotImplementedError: for the ``"dots"`` remat policy, which the
-            port does not have.
+            port does not have, and for an MoE model.
     """
+    if cfg.num_experts:
+        raise NotImplementedError("training MoE models is not ported yet "
+                                  "(ROADMAP queue 1, item 10b)")
     if cfg.remat and cfg.remat_policy != "full":
         raise NotImplementedError(
             f"remat policy {cfg.remat_policy!r}: the port checkpoints "

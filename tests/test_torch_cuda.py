@@ -79,6 +79,16 @@ def test_slice_shape(gen):
     assert_fa_close(*qkv(gen, 4, 2048, 2048, 14, 64, torch.bfloat16), True)
 
 
+def test_arctic_shape(gen):
+    """arctic_480b prefill: (4, 2048, 56, 128) bf16 causal, its k and v
+    the 7-way GQA repeat of 8 heads, as its attention block makes them."""
+    from repro_torch.models.layers import repeat_heads
+    _, k, v = qkv(gen, 4, 2048, 2048, 8, 128, torch.bfloat16)
+    q = torch.randn((4, 2048, 56, 128), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    assert_fa_close(q, repeat_heads(k, 7), repeat_heads(v, 7), True)
+
+
 @pytest.mark.parametrize("hd", [64, 96, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_packed_strided_views(gen, dtype, hd):
@@ -435,6 +445,73 @@ def test_captured_decode_equals_eager_for_16_steps(gen, arch):
     for a, b in zip(pytree.tree_leaves(got.cache),
                     pytree.tree_leaves(want.cache)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "arctic_480b"])
+def test_captured_moe_prefill_and_decode_equal_eager(gen, arch):
+    """A small bf16 MoE model (batch dispatch, capacity factor 1.0, so
+    tokens drop) inside a graph: prefill replays equal eager exactly
+    (arctic's attention sites on the kernel), and so does decode, 8
+    prompt tokens and 8 greedy tokens."""
+    import dataclasses
+
+    from repro_torch import pytree
+    from repro_torch.core.cost_model import MeshSpec
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_decode_step
+    cfg = dataclasses.replace(small_config(arch, "bfloat16"),
+                              moe_capacity_factor=1.0)
+    step, plan = prefill_plan(cfg, 2, 64)
+    params = T.init_params(cfg, gen)
+    captured = plan.apply(step)
+    eager = plan.apply(step, capture=False)
+    for _ in range(3):
+        batch = tokens(gen, cfg, 2, 64)
+        assert torch.equal(captured(params, batch), eager(params, batch))
+    (graph,) = captured.graphs
+    sites = cfg.num_layers if arch == "arctic_480b" else 0
+    assert graph.launches["flash_attention"] == sites
+    B, P, G, max_seq = 2, 8, 8, 32
+    sess, names = serve.decode_session(cfg, B, max_seq)
+    dplan = sess.partition(serve.decode_request(
+        cfg, names, MeshSpec(("data", "model"), (1, 1))))
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    dec = dplan.apply(make_decode_step(cfg))
+    got = serve.serve_loop(dec, params, T.init_cache(cfg, B, max_seq),
+                           prompts, G)
+    want = serve.serve_loop(dplan.apply(make_decode_step(cfg),
+                                        capture=False),
+                            params, T.init_cache(cfg, B, max_seq), prompts, G)
+    assert dec.captures == 1 and dec.replays == P + G - 1
+    assert torch.equal(got.tokens, want.tokens)
+    for a, b in zip(pytree.tree_leaves(got.cache),
+                    pytree.tree_leaves(want.cache)):
+        assert torch.equal(a, b)
+
+
+def test_top_k_breaks_ties_as_on_the_cpu(gen):
+    """``layers.top_k`` on the card: values from a set of 4 (rows full of
+    ties) and a capacity selection of exact zeros give the indices the
+    CPU gives, lower index first among equals, inside a graph too."""
+    from repro_torch.models.layers import top_k
+    x = torch.randint(0, 4, (8, 128, 2048), generator=gen,
+                      device="cuda").float()
+    x[:, :, ::7] = 0.5
+    for k in (2, 640, 2048):
+        values, indices = top_k(x, k)
+        cpu_values, cpu_indices = top_k(x.cpu(), k)
+        assert torch.equal(values.cpu(), cpu_values)
+        assert torch.equal(indices.cpu(), cpu_indices)
+    graph = torch.cuda.CUDAGraph()
+    out = top_k(x, 640)                        # warm-up on the stream
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        out = top_k(x, 640)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[1].cpu(), top_k(x.cpu(), 640)[1])
 
 
 def test_a_kept_result_is_not_overwritten_by_the_next_call(gen):

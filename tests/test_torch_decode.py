@@ -193,8 +193,8 @@ class TestInitCache:
         with pytest.raises(NotImplementedError, match="item 11"):
             T.init_cache(get_config("xlstm_350m").reduced(), 1, 8,
                          device="cpu")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            T.init_cache(get_config("mixtral_8x22b").reduced(), 1, 8,
+        with pytest.raises(NotImplementedError, match="item 11"):
+            T.init_cache(get_config("whisper_small").reduced(), 1, 8,
                          device="cpu")
 
     def test_no_card_no_cache(self):
