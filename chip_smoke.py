@@ -16,7 +16,8 @@ and a restart, on one card and on two ranks sharing it, and the serving
 launcher on those two ranks; and the mixture-of-experts models
 ``mixtral_8x22b`` and ``arctic_480b`` at full width (cut in depth to what
 the card holds, their plans searched at full depth), prefill and decode,
-arctic's attention sites on the CUDA flash-attention kernel.
+arctic's attention sites on the CUDA flash-attention kernel, on one card
+and on two ranks sharing it.
 
 1. print the card's name and power limit; build both kernels from the
    sources in this checkout, in parallel;
@@ -136,6 +137,25 @@ arctic's attention sites on the CUDA flash-attention kernel.
    capacity selections the two runs made differently; then the decode
    path as in 5, holding decode's logits after the prompt against
    prefill's only for rows whose prefill dropped no routed token;
+7c. the MoE models on two ranks of one gloo group sharing card 0, each
+   cut to what two ranks holding its weights fit (``mixtral_8x22b`` 4
+   layers, ``arctic_480b`` 1): the cut prefill step's (1, 2) plan and the
+   serving launcher's decode plan for two devices searched on ``meta``
+   tensors in the worker process (the plan's expert-weight specs and
+   conflicts printed); one card first answers 2 requests of 4 x 2048
+   through the 1x1 plan and serves one request of 4 x (16 prompt + 16
+   generated) tokens through ``serve_loop``; then the ranks answer the
+   same requests through ``plan.apply`` of the (1, 2) plan (weights
+   placed leaf by leaf) and serve the same request through the
+   launcher's route (``serve.serve_replicated``: weights, cache and
+   prompts replicated, the decode plan's rules); per rank the
+   collectives by kind and bytes, ms per request and per token, peak GB,
+   arctic's attention launches and local shapes; the gathered logits
+   within 2e-2 of the largest of one card's, the capacity selections
+   that differ counted per layer, the served prompt logits within 2e-2
+   and their argmax equal but in a row whose one-card top two logits
+   lie within twice the largest difference (a tie, printed with its
+   margin), and no expert stack gathered whole;
 8. time each kernel at its slice shape beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` (a
    yardstick only: the port never calls it), and at ``arctic_480b``'s
@@ -238,6 +258,15 @@ MESH_LAUNCH_TIMEOUT = 600.0
 # searched for the full depth
 MOE_DEPTH = {"mixtral_8x22b": 8, "arctic_480b": 2}
 MOE_SHAPE = (4, 2048)
+# the MoE mesh phase: two ranks share card 0 on a (data 1, model 2) mesh,
+# each model cut to what two ranks holding its weights whole fit (the
+# serving route replicates them): mixtral_8x22b 4 x 5.008 + 0.81 GB,
+# arctic_480b 1 x 27.22 + 0.92 GB, twice; requests of MOE_SHAPE per
+# model, then one MESH_SERVE request through the serving route; the
+# group's wall-clock limit (seconds)
+MOE_MESH_DEPTH = {"mixtral_8x22b": 4, "arctic_480b": 1}
+MOE_MESH_REQUESTS = 2
+MOE_MESH_TIMEOUT = 600.0
 # H100 SXM data sheet (dense bf16 FLOP/s, f32 FLOP/s outside the tensor
 # cores, HBM bytes/s)
 PEAK_BF16_FLOPS = 989e12
@@ -391,7 +420,12 @@ def plan_job(kind: str, name: str, depth: int | None = None,
     ``kind`` is ``"prefill"`` (B x S of ``MOE_SHAPE``), ``"decode"`` (B
     of ``DECODE_SHAPE``, cache ``DECODE_MAX_SEQ``, the serving launcher's
     requests; with it the 1x1 plan of the prefill step on the decode
-    path's prompts) or ``"train"`` (``shape``, AdamW of ``opt_kw``).
+    path's prompts), ``"train"`` (``shape``, AdamW of ``opt_kw``) or
+    ``"mesh"`` (the MoE mesh phase: the prefill step at ``MOE_SHAPE``
+    planned for (1, 2) with the default ``Request``, as the mesh phase
+    plans its models, and for 1x1; with it the serving launcher's decode
+    plan for two devices at ``MESH_SERVE``, whose rules the launcher's
+    ``toast_decode_rules`` searches).
     ``depth`` cuts the layers (``None``: the config's).  Returns the
     session's figures, each plan's JSON and what was checked on it.
     """
@@ -424,10 +458,14 @@ def plan_job(kind: str, name: str, depth: int | None = None,
         sess = Session(TS.make_train_step(cfg, opt),
                        (TS.train_state_specs(cfg, opt), bspec))
         reqs = {"2x4": Request(mesh=mesh8), "1x1": Request(mesh=mesh1)}
-    elif kind == "prefill":
+    elif kind in ("prefill", "mesh"):
         sess = Session(TS.make_prefill_step(cfg),
                        (T.param_specs(cfg), meta_tokens(*MOE_SHAPE)))
         reqs = {"2x4": Request(mesh=mesh8), "1x1": Request(mesh=mesh1)}
+        if kind == "mesh":
+            reqs = {"1x2": Request(mesh=MeshSpec(("data", "model"),
+                                                 MESH_SHAPE)),
+                    "1x1": Request(mesh=mesh1)}
     else:
         sess, names = serve.decode_session(cfg, DECODE_SHAPE[0],
                                            DECODE_MAX_SEQ)
@@ -459,6 +497,12 @@ def plan_job(kind: str, name: str, depth: int | None = None,
                         (T.param_specs(cfg), meta_tokens(*DECODE_SHAPE)))
         out["plans"]["prefill 1x1"] = psess.partition(
             Request(mesh=mesh1)).to_json()
+    if kind == "mesh":
+        B, P, G = MESH_SERVE
+        dsess, names = serve.decode_session(cfg, B, P + G)
+        out["decode conflicts"] = len(dsess.artifacts.analysis.conflicts)
+        out["plans"]["decode 1x2"] = dsess.partition(serve.decode_request(
+            cfg, names, MeshSpec(("data", "model"), MESH_SHAPE))).to_json()
     return out
 
 
@@ -1404,6 +1448,349 @@ def drive_moe(torch, name, counters, card, full_jobs, jobs) -> dict:
     return {"launches": captured, "site_errs": site_errs}
 
 
+def place_in_place(applied, params) -> None:
+    """Place ``params`` (the first argument of ``applied``'s step) as the
+    plan's ``in_specs``, leaf by leaf, in its dicts: each entry is
+    rebound to its block as soon as the block is made, so the full leaf
+    is freed then (a full-width arctic layer, held whole and placed at
+    once by two ranks on one card, would not fit)."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    mesh = applied.mesh
+    placements = dict(zip(applied.plan.input_paths,
+                          applied.plan.torch_in_placements(mesh)))
+
+    def walk(node, path):
+        keys = node.keys() if isinstance(node, dict) else range(len(node))
+        for k in list(keys):
+            p = f"{path}[{k!r}]"
+            v = node[k]
+            if not isinstance(v, torch.Tensor):
+                walk(v, p)
+                continue
+            d = distribute_tensor(v, mesh, placements[p], src_data_rank=None)
+            if d.to_local().untyped_storage().data_ptr() == \
+                    v.untyped_storage().data_ptr():
+                d = d.clone()
+            del v
+            node[k] = d
+    walk(params, "[0][0]")
+
+
+def expert_stack_gathers(shapes, cfg) -> dict:
+    """The all-gathers among ``collective_tally`` shapes whose result is
+    a whole expert stack, (E, d, f) or (E, f, d)."""
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    return {str(k): n for k, n in shapes.items()
+            if k[0].startswith("all_gather") and len(k[1]) >= 3 and
+            tuple(k[1][-3:]) in ((e, d, f), (e, f, d))}
+
+
+def moe_mesh_rank(rank, jobs, n_requests):
+    """One of the two ranks that share card 0 in the MoE mesh phase.
+
+    For each cut model (``jobs``: name -> (depth, its ``"mesh"``
+    :func:`plan_job` plans)): apply the (1, 2) prefill plan to the
+    seeded weights, placed leaf by leaf, answer ``n_requests`` requests
+    (each timed on the host clock with the card synchronized, under
+    ``CommDebugMode`` and the collective tally, its capacity selections
+    recorded); free them; then make the same weights again and serve one
+    ``MESH_SERVE`` request through the serving launcher's route on the
+    mesh (``serve.serve_replicated``: the weights, cache and prompts
+    replicated, the decode plan's rules).  Returns, per model, the
+    gathered logits, tokens and selections and what the rank counted."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.partitioner import ShardingPlan
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, (depth, plans) in jobs.items():
+        cfg = dataclasses.replace(get_config(name), use_pallas=True,
+                                  num_layers=depth)
+        B, S = MOE_SHAPE
+        applied = ShardingPlan.from_json(plans["1x2"]).apply(
+            make_prefill_step(cfg))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = T.init_params(cfg,
+                               torch.Generator(device="cuda").manual_seed(0))
+        place_in_place(applied, params)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        tgen = torch.Generator(device="cuda").manual_seed(1)
+        requests = [{"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                             generator=tgen, device="cuda",
+                                             dtype=torch.int32)}
+                    for _ in range(n_requests)]
+        fa.launches = 0
+        ops.local_calls.clear()
+        sharding.per_shard.clear()
+        ms, logits, selected = [], [], []
+        comm_counts, calls, nbytes, comm_s, shapes = (
+            collections.Counter() for _ in range(5))
+        for req in requests:
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with CommDebugMode() as comm, M.collective_tally() as tally, \
+                    MoESelections() as sel:
+                y = applied(params, req)
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            comm_counts.update({str(k): v for k, v in
+                                comm.get_comm_counts().items()})
+            calls.update(tally.calls)
+            nbytes.update(tally.bytes)
+            comm_s.update(tally.seconds)
+            shapes.update(tally.shapes)
+            logits.append(y.full_tensor().float().cpu())
+            selected.append([x.full_tensor().cpu() for x in sel.selected()])
+            del sel
+        res = {"logits": logits, "ms": ms, "place_s": place_s,
+               "selected": selected, "comm_counts": dict(comm_counts),
+               "calls": dict(calls), "bytes": dict(nbytes),
+               "comm_s": dict(comm_s),
+               "expert_gathers": expert_stack_gathers(shapes, cfg),
+               "launches": fa.launches,
+               "local_calls": [[k, impl, shp, n] for (k, impl, shp, _), n
+                               in ops.local_calls.items()],
+               "per_shard": dict(sharding.per_shard),
+               "prefill_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del params, applied, requests, y
+        torch.cuda.empty_cache()
+
+        # decode through the serving launcher's route on the mesh
+        dplan = ShardingPlan.from_json(plans["decode 1x2"])
+        mesh = M.build_mesh(dplan.mesh, "cuda")
+        Bd, P, G = MESH_SERVE
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init_params(cfg,
+                               torch.Generator(device="cuda").manual_seed(0))
+        prompts = torch.randint(0, cfg.vocab_size, (Bd, P), device="cuda",
+                                generator=torch.Generator(
+                                    device="cuda").manual_seed(2),
+                                dtype=torch.int32)
+        dist.barrier()
+        t0 = time.perf_counter()
+        with M.collective_tally() as tally:
+            served = serve.serve_replicated(
+                make_decode_step(cfg), params,
+                T.init_cache(cfg, Bd, P + G), prompts, G,
+                dict(dplan.logical_rules), mesh)
+        res["serve"] = {
+            "s": time.perf_counter() - t0, "rules": dplan.logical_rules,
+            "tokens": served.tokens.full_tensor().cpu(),
+            "prompt_logits": served.prompt_logits.full_tensor().float().cpu(),
+            "prefill_ms": served.prefill_ms, "step_ms": served.step_ms,
+            "calls": dict(tally.calls), "bytes": dict(tally.bytes),
+            "steps": P + G - 1,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        out[name] = res
+        del params, served, prompts
+        torch.cuda.empty_cache()
+    return out
+
+
+def drive_moe_mesh(torch, counters, card, jobs) -> dict:
+    """The MoE mesh phase (7c): both MoE models, cut to
+    ``MOE_MESH_DEPTH``, on two ranks of one gloo group sharing card 0.
+
+    One card first: each cut model's 1x1 prefill plan (eager) answers the
+    requests the ranks will answer, with its capacity selections
+    recorded, and ``serve_loop`` serves the ``MESH_SERVE`` request; each
+    model is freed before the next.  Then the ranks (:func:`moe_mesh_rank`)
+    answer the same requests on the (1, 2) plan and serve the same
+    request through the launcher's route.  Their gathered last-token
+    logits must lie within ``LOGITS_REL_TOL`` of the largest of one
+    card's, and the served prompt logits too, with argmax equal but in a
+    tie (a row whose one-card top two logits lie within twice the
+    largest difference); arctic's
+    attention sites launch the kernel once a layer and request on each
+    rank; no expert stack is gathered whole.
+
+    Args:
+        counters: kernel name -> its wrapper module (``launches``).
+        card: the card's name and power limit, for the time lines.
+        jobs: model name -> its ``"mesh"`` :func:`plan_job` result.
+
+    Returns:
+        Model name -> each rank's attention launches.
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    t_start = time.perf_counter()
+    B, S = MOE_SHAPE
+    Bd, P, G = MESH_SERVE
+    one = {}
+    for name, depth in MOE_MESH_DEPTH.items():
+        job = jobs[name]
+        cfg = dataclasses.replace(get_config(name), use_pallas=True,
+                                  num_layers=depth)
+        plan2, dplan = plan_of(job, "1x2"), plan_of(job, "decode 1x2")
+        experts = {p.rsplit("[", 1)[1].strip("]'"): tuple(s) for p, s in
+                   zip(plan2.input_paths, plan2.in_specs)
+                   if "['ffn']" in p and p.endswith(
+                       ("['wi']", "['wgate']", "['wo']", "['wg']"))}
+        sites = {r["site"]: str(tuple(r["in_specs"][0]))
+                 for r in plan2.kernel_sites if r["sharded"]}
+        tokens = tuple(plan2.in_specs[plan2.input_paths.index(
+            "[0][1]['tokens']")])
+        log(f"[moe mesh plan {name} 1x2] {depth} layers, traced in the "
+            f"worker process: {job['stats']['conflicts']} conflicts, cost "
+            f"{plan2.cost:.6f}, comm_bytes "
+            f"{plan2.breakdown['comm_bytes']:.0f}, tokens {tokens}, "
+            f"expert weights {json.dumps(experts)}, sharded kernel sites "
+            f"{json.dumps(sites)}; decode plan ({job['decode conflicts']} "
+            f"conflicts) rules {json.dumps(dplan.logical_rules)}")
+        # one card: the same requests on the 1x1 plan, the same request
+        # served by serve_loop
+        step = make_prefill_step(cfg)
+        eager = plan_of(job, "1x1").apply(step, capture=False)
+        params = T.init_params(cfg,
+                               torch.Generator(device="cuda").manual_seed(0))
+        tgen = torch.Generator(device="cuda").manual_seed(1)
+        logits, selected = [], []
+        for _ in range(MOE_MESH_REQUESTS):
+            req = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                           generator=tgen, device="cuda",
+                                           dtype=torch.int32)}
+            with MoESelections() as sel:
+                logits.append(eager(params, req).float().cpu())
+            selected.append([x.cpu() for x in sel.selected()])
+            del sel
+        prompts = torch.randint(0, cfg.vocab_size, (Bd, P), device="cuda",
+                                generator=torch.Generator(
+                                    device="cuda").manual_seed(2),
+                                dtype=torch.int32)
+        served = serve.serve_loop(make_decode_step(cfg), params,
+                                  T.init_cache(cfg, Bd, P + G), prompts, G)
+        one[name] = {"logits": logits, "selected": selected,
+                     "tokens": served.tokens.cpu(),
+                     "prompt_logits": served.prompt_logits.float().cpu(),
+                     "step_ms": served.step_ms}
+        del params, eager, served, prompts
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    log(f"[moe mesh] before the ranks the parent holds "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    t0 = time.perf_counter()
+    ranks = run_ranks(
+        moe_mesh_rank, 2,
+        {name: (depth, jobs[name]["plans"])
+         for name, depth in MOE_MESH_DEPTH.items()},
+        MOE_MESH_REQUESTS, timeout=MOE_MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    launches = {}
+    for name, depth in MOE_MESH_DEPTH.items():
+        cfg = dataclasses.replace(get_config(name), num_layers=depth)
+        want_launches = sum(T.kernel_sites(cfg)["flash_attention"]) * \
+            depth * MOE_MESH_REQUESTS
+        for rank, res in enumerate(r[name] for r in ranks):
+            sv = res["serve"]
+            log(f"[moe mesh {name} rank {rank}] flash_attention launches "
+                f"{res['launches']} (expected {want_launches}), local sites "
+                + json.dumps(res["local_calls"]) + ", ops per shard "
+                + json.dumps(res["per_shard"]))
+            log(f"[moe mesh {name} rank {rank}] prefill collectives per "
+                f"{MOE_MESH_REQUESTS} requests: CommDebugMode "
+                + json.dumps(res["comm_counts"]) + ", result bytes by kind "
+                + json.dumps(res["bytes"]) + ", host s in them and their "
+                "waits " + json.dumps({k: round(v, 3) for k, v in
+                                       res["comm_s"].items()})
+                + ", expert stacks gathered whole "
+                + json.dumps(res["expert_gathers"]))
+            log(f"[moe mesh time] {card}: {name} ({depth} layers) rank "
+                f"{rank} per request {fmt_ms(res['ms'])} (host clock, card "
+                f"synchronized; two ranks time-sharing one H100 over gloo: "
+                f"not a multi-card figure); place {res['place_s']:.3f} s; "
+                f"peak {res['prefill_peak_gb']:.2f} GB")
+            log(f"[moe mesh serve {name} rank {rank}] {card}: rules "
+                f"{json.dumps(sv['rules'])}; {sv['steps']} decode steps: "
+                f"prompt {sv['prefill_ms']:.1f} ms, median "
+                f"{percentile(sv['step_ms'], 0.5):.2f} ms per generated "
+                f"token (CUDA events on the rank; one card's serve_loop "
+                f"{percentile(one[name]['step_ms'], 0.5):.2f}); collectives "
+                + json.dumps(sv["calls"]) + ", bytes "
+                + json.dumps(sv["bytes"]) + f"; peak {sv['peak_gb']:.2f} GB; "
+                f"{sv['s']:.1f} s")
+            if res["launches"] != want_launches:
+                raise AssertionError(f"{name} rank {rank}: attention "
+                                     f"launches {res['launches']}, expected "
+                                     f"{want_launches}")
+            if res["expert_gathers"]:
+                raise AssertionError(f"{name} rank {rank}: expert stacks "
+                                     f"gathered whole")
+            if not all(torch.isfinite(x).all() for x in res["logits"]):
+                raise AssertionError(f"{name} rank {rank}: logits not "
+                                     f"finite")
+        for key in ("logits",):
+            for a, b in zip(ranks[0][name][key], ranks[1][name][key]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name}: the ranks gathered "
+                                         f"different {key}")
+        res = ranks[0][name]
+        for i, (got, want) in enumerate(zip(res["logits"],
+                                            one[name]["logits"])):
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            agree = (got.argmax(-1) == want.argmax(-1)).sum().item()
+            flips = [moved(a, b, S) for a, b in
+                     zip(res["selected"][i], one[name]["selected"][i])]
+            log(f"[moe mesh {name}] request {i}: 1x2 on two ranks vs 1x1 "
+                f"on one card: max|diff|/max|1x1| = {rel:.3e} (tol "
+                f"{LOGITS_REL_TOL}), argmax agree {agree}/{B}; tokens in one "
+                f"run's capacity selection and not the other's, per layer: "
+                f"{flips} of {res['selected'][i][0].numel()} selected")
+            if rel > LOGITS_REL_TOL:
+                raise AssertionError(f"{name}: mesh and one-card logits "
+                                     f"disagree")
+        sv, ref = res["serve"], one[name]
+        got_l, want_l = sv["prompt_logits"], ref["prompt_logits"]
+        diff = (got_l - want_l).abs().max().item()
+        rel = diff / want_l.abs().max().item()
+        # a row whose argmax differs must be a tie: its top two logits on
+        # one card within twice the largest difference, which bf16 sums
+        # in another order may break either way
+        top2 = want_l.topk(2, -1).values
+        margin = (top2[..., 0] - top2[..., 1]).flatten()
+        flipped = (got_l.argmax(-1) != want_l.argmax(-1)).flatten()
+        ties = {int(b): round(margin[b].item(), 5)
+                for b in flipped.nonzero().flatten()}
+        agree = (sv["tokens"] == ref["tokens"]).float().mean().item()
+        log(f"[moe mesh serve {name}] {card}: the launcher's route on two "
+            f"ranks vs one card's serve_loop: prompt logits max|diff|/max "
+            f"{rel:.3e} (tol {LOGITS_REL_TOL}), argmax equal in "
+            f"{Bd - len(ties)}/{Bd} rows"
+            + (f" (rows that differ, each with its one-card top-two margin, "
+               f"a tie below 2 x max|diff| = {2 * diff:.5f}: "
+               f"{json.dumps(ties)})" if ties else "")
+            + f", generated tokens equal {agree:.0%}")
+        if rel > LOGITS_REL_TOL or any(m > 2 * diff for m in ties.values()):
+            raise AssertionError(f"{name}: mesh and one-card serve "
+                                 f"disagree")
+        launches[name] = [r[name]["launches"] for r in ranks]
+    log(f"[moe mesh] two ranks, both models: {wall:.1f} s wall, the ranks' "
+        f"start included")
+    log(f"[elapsed] MoE mesh phase {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
 def train_sites(cfg) -> dict:
     """Per kernel: its forward sites in the scanned period, in the tail,
     and its launches in one train step (the scanned ones again when
@@ -2111,6 +2498,9 @@ def main(argv=None) -> int:
             for kind in ("prefill", "decode"):
                 jobs[kind, name, depth] = pool.submit(plan_job, kind, name,
                                                       depth)
+        for name, depth in MOE_MESH_DEPTH.items():
+            jobs["mesh", name, depth] = pool.submit(plan_job, "mesh", name,
+                                                    depth)
         return run_phases(torch, opts, t_start, jobs)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
@@ -2275,6 +2665,15 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
              for kind in kinds})
         torch.cuda.empty_cache()
 
+    # -- 7c: the MoE models on two ranks sharing the card ------------------
+    log(f"[graphs released] before the MoE mesh phase: "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
+    moe_mesh = drive_moe_mesh(
+        torch, counters, card,
+        {name: jobs["mesh", name, depth].result()
+         for name, depth in MOE_MESH_DEPTH.items()})
+    torch.cuda.empty_cache()
+
     # -- 8: each kernel's time at its slice shape ----------------------------
     fa_row = time_fa(fa, torch, gen, card, B, S, H, hd, plain=True)
     fa_row.update(launches=fa_launches, max_abs_err=fa_err,
@@ -2288,6 +2687,7 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
     arctic_row = time_fa(fa, torch, gen, card, *MOE_SHAPE, arctic.num_heads,
                          arctic.resolved_head_dim, plain=True)
     fa_row["launches_moe"] = {k: v["launches"] for k, v in moe.items()}
+    fa_row["launches_mesh_moe"] = moe_mesh
     fa_row["arctic_shape"] = {
         "shape": [*MOE_SHAPE, arctic.num_heads, arctic.resolved_head_dim],
         "max_abs_err": max(moe["arctic_480b"]["site_errs"]),

@@ -410,7 +410,8 @@ def collective_tally():
     Returns:
         The mode (a context manager), with ``calls``, ``bytes`` and
         ``seconds`` counters keyed by the collective's name
-        (``seconds`` also by ``"wait_tensor"``).
+        (``seconds`` also by ``"wait_tensor"``), and ``shapes``, keyed
+        by the name and the shape of each result.
     """
     import collections
     import time
@@ -425,6 +426,7 @@ def collective_tally():
             self.calls = collections.Counter()
             self.bytes = collections.Counter()
             self.seconds = collections.Counter()
+            self.shapes = collections.Counter()
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if any(t is DTensor for t in types):
@@ -437,11 +439,14 @@ def collective_tally():
             out = func(*args, **(kwargs or {}))
             self.seconds[name] += time.perf_counter() - t0
             if name != "wait_tensor":
+                outs = [t for t in (out if isinstance(out, (list, tuple))
+                                    else [out])
+                        if isinstance(t, torch.Tensor)]
                 self.calls[name] += 1
-                self.bytes[name] += sum(
-                    t.numel() * t.element_size() for t in
-                    (out if isinstance(out, (list, tuple)) else [out])
-                    if isinstance(t, torch.Tensor))
+                self.bytes[name] += sum(t.numel() * t.element_size()
+                                        for t in outs)
+                for t in outs:
+                    self.shapes[name, tuple(t.shape)] += 1
             return out
 
     return CollectiveTally()

@@ -33,7 +33,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from contextlib import nullcontext
 
 import torch
 
@@ -190,6 +189,30 @@ def serve_loop(decode, params, cache, prompts, gen: int) -> ServeResult:
         step_ms=[ms(a, b) for a, b in zip(marks, marks[1:])])
 
 
+def serve_replicated(decode, params, cache, prompts, gen: int, rules,
+                     mesh) -> ServeResult:
+    """The launcher's route on a mesh: :func:`serve_loop` on the
+    parameters, the cache and the prompts replicated on ``mesh``, as the
+    reference's jit receives them unplaced, under ``rules`` (the decode
+    plan's logical rules, whose ``constrain`` hooks place the
+    activations).
+
+    The replicas are the tensors themselves, not copies: nothing is
+    donated or written in place, and a full-width MoE model held twice
+    on one card (two ranks sharing it) would not fit.
+
+    Returns:
+        The :class:`ServeResult` (its tensors DTensors).
+    """
+    from torch.distributed.tensor import DTensor, Replicate
+    params, cache, prompts = pytree.tree_map(
+        lambda x: DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                     run_check=False),
+        (params, cache, prompts))
+    with M.mesh_context(mesh), sharding.logical_rules(rules or None):
+        return serve_loop(decode, params, cache, prompts, gen)
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     """The reference serving launcher's command line, with ``--device``."""
     ap = argparse.ArgumentParser()
@@ -222,7 +245,6 @@ def serve(args) -> ServeResult:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    T.check_devices(cfg, n_dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=dev)
     B, P, G = args.batch, args.prompt_len, args.gen
@@ -243,13 +265,9 @@ def serve(args) -> ServeResult:
                      f"rules={plan.logical_rules} "
                      f"search={plan.search_seconds:.1f}s")
             dec = plan.apply(dec, device=dev)
-        else:
-            # replicated, as the reference's jit receives them unplaced
-            params, cache, prompts = pytree.tree_map(
-                lambda x: M.distribute(x, M.NamedSharding(mesh, ())),
-                (params, cache, prompts))
-    with M.mesh_context(mesh) if mesh is not None else nullcontext(), \
-            sharding.logical_rules(rules or None):
+    if mesh is not None:
+        res = serve_replicated(dec, params, cache, prompts, G, rules, mesh)
+    else:
         res = serve_loop(dec, params, cache, prompts, G)
     tokens = res.tokens.full_tensor() if mesh is not None else res.tokens
     out = tokens.cpu().numpy()
@@ -262,9 +280,8 @@ def serve(args) -> ServeResult:
     elif mesh is not None:
         M.print0(f"[toast] {'x'.join(map(str, mesh.shape))} mesh of "
                  f"{n_dev} ranks, eager on DTensors")
-    shown = prompts.full_tensor() if mesh is not None else prompts
     for b in range(B):
-        M.print0(f"request {b}: prompt={shown[b].cpu().numpy()[:8]}... "
+        M.print0(f"request {b}: prompt={prompts[b].cpu().numpy()[:8]}... "
                  f"generated={out[b][:12]}...")
     return res
 

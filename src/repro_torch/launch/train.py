@@ -70,9 +70,8 @@ from repro_torch.data.pipeline import DataConfig, Pipeline
 from repro_torch.device import resolve_device
 from repro_torch.jit import jit
 from repro_torch.launch import mesh as M
-from repro_torch.models import transformer as T
-from repro_torch.train.steps import (init_train_state, make_train_step,
-                                     train_state_specs)
+from repro_torch.train.steps import (check_trainable, init_train_state,
+                                     make_train_step, train_state_specs)
 
 
 class InjectedFailure(RuntimeError):
@@ -373,11 +372,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    n_dev = M.init_from_env()
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    T.check_devices(cfg, n_dev)
+    check_trainable(cfg)
+    M.init_from_env()
     supervise(cfg, args)
 
 

@@ -29,8 +29,9 @@ import torch
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import lru_associative_scan
+from repro_torch.models import sharding
 from repro_torch.models.sharding import (constrain, einsum, index_copy,
-                                        is_dtensor, matmul, pointwise,
+                                        matmul, pointwise, reduced_onto,
                                         replicate_like, split_dim)
 
 # ---------------------------------------------------------------------------
@@ -254,10 +255,6 @@ def mlp_apply(cfg, p, x):
 # ---------------------------------------------------------------------------
 
 
-MOE_ON_MESH = ("MoE blocks on a mesh of 2 or more devices are not ported "
-               "yet (ROADMAP queue 1, item 10b)")
-
-
 @torch.library.custom_op("repro_torch::top_k", mutates_args=())
 def _top_k_op(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     # a stable descending sort keeps equal values in index order
@@ -276,20 +273,29 @@ def top_k(x, k: int):
     their (int64) indices, largest first and, among equal values, the
     lower index first, on every device (``torch.topk`` promises no tie
     order).  One op, ``repro_torch::top_k``, which the tracer lowers to
-    the reference's ``top_k`` prim."""
-    return _top_k_op(x, k)
+    the reference's ``top_k`` prim; on DTensors it runs per shard
+    (``sharding.top_k``)."""
+    return sharding.top_k(_top_k_op, x, k)
+
+
+def _gather(arr, idx, axis: int):
+    shape = [i if a == 1 else a for a, i in zip(arr.shape, idx.shape)]
+    arr_shape, idx_shape = list(shape), list(shape)
+    arr_shape[axis], idx_shape[axis] = arr.shape[axis], idx.shape[axis]
+    return torch.gather(arr.expand(arr_shape), axis, idx.expand(idx_shape))
 
 
 def take_along_axis(arr, idx, axis: int):
     """``jnp.take_along_axis``: ``arr`` and ``idx`` of one rank broadcast
     against each other on every dim but ``axis``.  Both are expanded and
     gathered; the tracer lowers the gather of the two expansions to the
-    reference's one gather of the unexpanded operands."""
-    axis = axis % arr.ndim
-    shape = [i if a == 1 else a for a, i in zip(arr.shape, idx.shape)]
-    arr_shape, idx_shape = list(shape), list(shape)
-    arr_shape[axis], idx_shape[axis] = arr.shape[axis], idx.shape[axis]
-    return torch.gather(arr.expand(arr_shape), axis, idx.expand(idx_shape))
+    reference's one gather of the unexpanded operands.  On DTensors it
+    runs per shard (``sharding.take_along_axis``)."""
+    return sharding.take_along_axis(_gather, arr, idx, axis % arr.ndim)
+
+
+def _scatter_add(base, dim: int, idx, upd):
+    return base.scatter_add(dim, idx[..., None].expand(upd.shape), upd)
 
 
 def scatter_add_rows(base, dim: int, idx, upd):
@@ -299,9 +305,14 @@ def scatter_add_rows(base, dim: int, idx, upd):
     base: (*lead, N, d); idx: (*lead, n) int; upd: (*lead, n, d).  The
     index is expanded over ``d`` for ``scatter_add``; the tracer lowers
     the two to the reference's one ``scatter-add`` of the unexpanded
-    index (batching dims ``lead``, window dim ``d``).
+    index (batching dims ``lead``, window dim ``d``).  On DTensors it
+    runs per shard (``sharding.scatter_add``).
     """
-    return base.scatter_add(dim, idx[..., None].expand(upd.shape), upd)
+    return sharding.scatter_add(_scatter_add, base, dim, idx, upd)
+
+
+# the stacked expert weights, (E, d, f) and (E, f, d)
+EXPERT_STACKS = ("wi", "wgate", "wo")
 
 
 def moe_param_shapes(cfg) -> dict:
@@ -332,12 +343,24 @@ def moe_apply(cfg, p, x, capacity_factor=None):
     static (no data-dependent sizes), so the block captures in a CUDA
     graph.
 
-    Raises:
-        NotImplementedError: on DTensors (a mesh of 2 or more devices).
+    On DTensors (a mesh of two or more devices) the block runs as GSPMD
+    runs the reference's expert-sharded plans: the router's and the
+    dense path's weights are gathered as a dense block's
+    (``sharding.gather_for``), the expert stacks stay where the plan put
+    them and the dispatched tokens move to their experts
+    (``sharding.einsum``), the plain tensors the block makes (zeros, the
+    experts' iota) are replicated beside the activations, the top-k, the
+    dispatch gather and the combine run per shard (``sharding.top_k``,
+    ``sharding.take_along_axis``, ``sharding.lookup``,
+    ``sharding.scatter_add``), and the combined output, a pending sum
+    where the experts are sharded, is reduced once onto the residual's
+    placement.
     """
-    if is_dtensor(x):
-        raise NotImplementedError(MOE_ON_MESH)
     capacity_factor = capacity_factor or cfg.moe_capacity_factor
+    # the router's and the dense path's weights gathered as a dense
+    # block's are; the expert stacks stay where the plan put them
+    p = {k: w if k in EXPERT_STACKS else sharding.gather_for(w, x)
+         for k, w in p.items()}
     h = rmsnorm(x, p["ln"])
     if cfg.moe_dispatch == "local":
         y = _moe_dispatch_local(cfg, p, h, capacity_factor,
@@ -350,7 +373,7 @@ def moe_apply(cfg, p, x, capacity_factor=None):
         gate = matmul(h, p["dense_wg"])
         u = gate * torch.sigmoid(gate) * matmul(h, p["dense_wi"])
         y = y + matmul(u, p["dense_wo"])
-    return x + y
+    return x + reduced_onto(y, x)
 
 
 def _router(cfg, p, h):
@@ -362,11 +385,12 @@ def _router(cfg, p, h):
     probs = softmax(logits)
     topw, topi = top_k(probs, k)
     topw = topw / topw.sum(-1, keepdim=True)
-    W = torch.zeros(probs.shape, dtype=torch.float32, device=h.device)
+    W = replicate_like(torch.zeros(probs.shape, dtype=torch.float32,
+                                   device=h.device), probs)
     for j in range(k):
         # jax.nn.one_hot: the index against an iota of the experts
-        hot = (topi[..., j][..., None] ==
-               torch.arange(e, device=h.device)).to(torch.float32)
+        iota = replicate_like(torch.arange(e, device=h.device), probs)
+        hot = (topi[..., j][..., None] == iota).to(torch.float32)
         W = W + hot * topw[..., j:j + 1]
     return W
 
@@ -374,9 +398,10 @@ def _router(cfg, p, h):
 def _expert_ffn(p, xe):
     """xe: (..., E, C, d) with stacked expert weights (E, d, f)."""
     lead = "bp"[:xe.ndim - 3]
-    gate = einsum(f"{lead}ecd,edf->{lead}ecf", xe, p["wgate"])
-    he = gate * torch.sigmoid(gate) * \
-        einsum(f"{lead}ecd,edf->{lead}ecf", xe, p["wi"])
+    up = f"{lead}ecd,edf->{lead}ecf"
+    xe = sharding.einsum_inputs(up, xe, p["wgate"])[0]
+    gate = einsum(up, xe, p["wgate"])
+    he = gate * torch.sigmoid(gate) * einsum(up, xe, p["wi"])
     he = constrain(he, ("act_batch", "experts", None, "hidden")[-he.ndim:])
     return einsum(f"{lead}ecf,efd->{lead}ecd", he, p["wo"])
 
@@ -407,11 +432,12 @@ def _moe_dispatch_global(cfg, p, h, capacity_factor):
     W = _router(cfg, p, xf)                                     # (T, E)
     C = capacity(cfg, T, capacity_factor)
     wsel, tsel = top_k(W.t(), C)                                # (E, C)
-    xe = torch.nn.functional.embedding(tsel.reshape(-1), xf).reshape(
-        e, C, d)
+    xe = sharding.lookup(torch.nn.functional.embedding, tsel.reshape(-1),
+                         xf).reshape(e, C, d)
     xe = constrain(xe, ("experts", None, None))
     ye = _expert_ffn(p, xe) * wsel[..., None].to(h.dtype)
-    y = torch.zeros((T, d), dtype=h.dtype, device=h.device)
+    y = replicate_like(torch.zeros((T, d), dtype=h.dtype, device=h.device),
+                       h)
     return scatter_add_rows(y, 0, tsel.reshape(-1), ye.reshape(e * C, d)
                             ).reshape(B, S, d)
 
@@ -428,8 +454,8 @@ def _moe_dispatch_batch(cfg, p, h, capacity_factor):
     ye = constrain(ye, ("act_batch", "experts", None, None))
     idx, upd = tsel.reshape(B, e * C), ye.reshape(B, e * C, d)
     # the reference's vmap'd combine: one zero (S, d) per row
-    base = torch.zeros((S, d), dtype=h.dtype, device=h.device).expand(
-        B, S, d)
+    base = replicate_like(torch.zeros((S, d), dtype=h.dtype,
+                                      device=h.device), h).expand(B, S, d)
     return scatter_add_rows(base, 1, idx, upd)
 
 
@@ -449,7 +475,8 @@ def _moe_dispatch_local(cfg, p, h, capacity_factor, pools):
     ye = _expert_ffn(p, xe) * wsel[..., None].to(h.dtype)
     idx, upd = tsel.reshape(B, pools, e * C), ye.reshape(B, pools, e * C, d)
     # vmap(vmap(combine)): one zero (Sl, d) per pool, per row
-    base = torch.zeros((Sl, d), dtype=h.dtype, device=h.device).expand(
+    base = replicate_like(torch.zeros((Sl, d), dtype=h.dtype,
+                                      device=h.device), h).expand(
         pools, Sl, d).expand(B, pools, Sl, d)
     return scatter_add_rows(base, 2, idx, upd).reshape(B, S, d)
 

@@ -171,6 +171,22 @@ def placed_like(t, ref):
     return t.redistribute(ref.device_mesh, ref.placements)
 
 
+def reduced_onto(t, ref):
+    """``t`` with each pending sum reduced once onto ``ref``'s placement
+    on that mesh dim: a reduce-scatter onto a shard, an all-reduce onto
+    a replica.  A mesh dim where ``ref`` is itself a pending sum keeps
+    ``t``'s (the two add as they are), as do ``t``'s other placements.
+    Plain tensors pass as they are.
+    """
+    if not is_dtensor(t) or not is_dtensor(ref):
+        return t
+    want = tuple(r if p.is_partial() and not r.is_partial() else p
+                 for p, r in zip(t.placements, ref.placements))
+    if want == tuple(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, want)
+
+
 def embedding(tokens, table):
     """``F.embedding(tokens, table)``, on DTensors as GSPMD runs it.
 
@@ -241,6 +257,31 @@ def split_dim(t, dim: int, sizes: tuple[int, ...]):
     return t.reshape(*t.shape[:dim], *sizes, *t.shape[dim + 1:])
 
 
+def layer(t, i: int):
+    """``t[i]``: layer ``i`` of a stacked leaf.
+
+    torch 2.11's DTensor takes the index of a leaf with a strided shard
+    (``launch.mesh.placements_for``'s for two axes against the mesh's
+    order, as TOAST's expert plans give them) to a layout it cannot
+    redistribute: the plain shard moves down a dim and the strided one
+    stays.  Such a leaf, whose leading dim no mesh dim shards, is
+    indexed on each rank's block instead, every shard moved down a dim.
+    Any other tensor takes ``t[i]`` itself.
+    """
+    from torch.distributed.tensor.placement_types import _StridedShard
+    if not is_dtensor(t) or not any(isinstance(p, _StridedShard)
+                                    for p in t.placements) or any(
+            (p.is_shard() or isinstance(p, _StridedShard)) and p.dim == 0
+            for p in t.placements):
+        return t[i]
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(
+        t.to_local()[i], t.device_mesh,
+        [_shard_on(p, p.dim - 1) if p.is_shard() or
+         isinstance(p, _StridedShard) else p for p in t.placements],
+        run_check=False, shape=t.shape[1:], stride=t.stride()[1:])
+
+
 def pointwise(fn, *args):
     """``fn(*args)`` for an elementwise ``fn`` of same-shaped tensors.
 
@@ -276,14 +317,181 @@ def matmul(x, w):
     gradient arriving at the product, in the backward.  On DTensors the
     product is therefore a batched one, ``x`` against ``w`` broadcast
     over the batch, which flattens nothing; counted in
-    :data:`per_shard`.  Plain tensors take ``@`` itself, so traced
-    programs do not change.
+    :data:`per_shard`.  A weight sharded only on mesh dims where ``x``
+    is replicated, a pending sum or sharded on its features stays where
+    it lies instead, as GSPMD keeps a decode plan's 2-D sharded weights:
+    ``x`` is moved to it and the product runs per shard
+    (:func:`_local_placements`).  Plain tensors take ``@`` itself, so
+    traced programs do not change.
     """
     if not is_dtensor(x) or x.ndim != 3:
         return x @ w
     import torch
+    sharded = [i for i, p in enumerate(w.placements)
+               if not p.is_replicate()] if is_dtensor(w) else []
+    if sharded and all(not x.placements[i].is_shard() or
+                       x.placements[i].dim % 3 == 2 for i in sharded):
+        # the weight stays where it lies (a decode plan's 2-D sharded
+        # weights) and x moves to it: a shard of its rows leaves a
+        # pending sum
+        in_pl, out_pl = _local_placements(x.device_mesh, [w, x],
+                                          ["df", "bsd"], ["bsf"],
+                                          movable=(1,))
+        per_shard["matmul stationary"] += 1
+        return _run_local(lambda w_, x_: x_ @ w_, x.device_mesh, [w, x],
+                          in_pl, out_pl)
     per_shard["matmul"] += 1
     return torch.bmm(x, w.expand(x.shape[0], *w.shape))
+
+
+_LETTERS = "abcdefghijklm"
+
+
+def _shard_on(p, dim: int):
+    """The shard ``p`` (plain or strided) moved to tensor dim ``dim``."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+    if isinstance(p, _StridedShard):
+        return _StridedShard(dim, split_factor=p.split_factor)
+    return Shard(dim)
+
+
+def _local_placements(mesh, operands, specs, outs, whole: str = "",
+                      linear: int | None = None, movable=()):
+    """The placements under which an op of lettered operands runs on each
+    rank's blocks (:func:`einsum` and the MoE ops).
+
+    ``specs`` and ``outs`` give each operand's and output's dims a
+    letter; ``"."`` marks a dim of size one that broadcasts.  On each
+    mesh dim, the letters the operands shard there are tried in operand
+    order, and the first that fits is kept.  A letter fits when the mesh
+    dim divides it, it is not in ``whole``, and either every operand
+    with it is sharded on it alike there or replicated while every
+    operand without it is replicated there (an operand of ``movable``
+    may lie anyhow: it is moved), or every operand and output has it (a
+    batch letter).  The operands with the kept letter are sharded on it
+    (a slice of a replicated one, no collective; another is moved), the
+    rest replicated; an output with it is sharded on it, one without it
+    (the letter was contracted away) is a pending sum (``Partial``).  A
+    strided shard (``launch.mesh.placements_for``'s for two axes against
+    the mesh's order) is kept only in the first way, and only beside the
+    plain shard of its letter on its partner mesh dim (torch 2.11
+    refuses a lone one).  Where no letter fits, the operand ``linear``
+    (the op is linear in it) keeps a pending sum when every other
+    operand is replicated there, and so do the outputs.  Anything else
+    is made whole, pending sums included.
+
+    Returns:
+        ``(in placements, out placements)``: a tuple per operand and per
+        output.
+    """
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+    in_pl = [[Replicate()] * mesh.ndim for _ in operands]
+    out_pl = [[Replicate()] * mesh.ndim for _ in outs]
+
+    def fits(i, x, p, letter, placed):
+        if isinstance(p, _StridedShard) and not any(
+                type(q) is Shard and q.dim == p.dim and
+                mesh.size(j) == p.split_factor
+                for j, q in enumerate(x.placements) if j > i):
+            # not the layout placements_for gives (a reshape's)
+            return None
+        ways = mesh.size(i) * getattr(p, "split_factor", 1)
+        if letter == "." or letter in whole or any(
+                letter in s and x.shape[s.index(letter)] % ways
+                for x, s in zip(operands, specs)):
+            return None
+        want = [_shard_on(p, s.index(letter)) if letter in s else None
+                for s in specs]
+        ok = all(q.is_replicate() or j in movable or w is not None and
+                 type(q) is type(w) and q == w
+                 for j, (q, w) in enumerate(zip(placed, want)))
+        if not isinstance(p, _StridedShard):
+            ok = ok or all(letter in s for s in (*specs, *outs))
+        return want if ok else None
+
+    # mesh dim -> (the letter kept there, a strided shard's partner dim)
+    kept: dict[int, tuple[str, int | None]] = {}
+    for i in range(mesh.ndim):
+        placed = [x.placements[i] if is_dtensor(x) else Replicate()
+                  for x in operands]
+        cands = []
+        for x, p, spec in zip(operands, placed, specs):
+            if p.is_shard() or isinstance(p, _StridedShard):
+                cands.append((x, p, spec[p.dim % len(spec)]))
+        # the partner of a strided shard kept earlier tries its letter
+        first = [k for k, part in kept.values() if part == i]
+        cands.sort(key=lambda c: c[2] not in first)
+        for x, p, letter in cands:
+            want = fits(i, x, p, letter, placed)
+            if want is None:
+                continue
+            for pl, w in zip(in_pl, want):
+                if w is not None:
+                    pl[i] = w
+            for pl, s in zip(out_pl, outs):
+                pl[i] = _shard_on(p, s.index(letter)) if letter in s \
+                    else Partial()
+            kept[i] = (letter, next(
+                (j for j in range(i + 1, mesh.ndim)
+                 if mesh.size(j) == p.split_factor), None)
+                if isinstance(p, _StridedShard) else None)
+            break
+        else:
+            if linear is not None and placed[linear].is_partial() and all(
+                    q.is_replicate() for j, q in enumerate(placed)
+                    if j != linear):
+                in_pl[linear][i] = placed[linear]
+                for pl in out_pl:
+                    pl[i] = placed[linear]
+    # a strided shard means nothing without the plain shard of its letter
+    # on its partner mesh dim: where that was not kept, made whole
+    for i, (letter, part) in kept.items():
+        if part is not None and kept.get(part, (None,))[0] != letter:
+            for pl in (*in_pl, *out_pl):
+                pl[i] = Replicate()
+    return [tuple(p) for p in in_pl], [tuple(p) for p in out_pl]
+
+
+def _run_local(fn, mesh, operands, in_pl, out_pl):
+    """``fn`` on each rank's blocks of ``operands`` under ``local_map``,
+    the operands redistributed to ``in_pl`` (plain tensors made
+    replicated DTensors first) and the outputs placed as ``out_pl``.
+
+    An operand replicated on a mesh dim where an output is sharded or a
+    pending sum takes a pending sum as its gradient there (each rank's
+    block contributes its part); a pending-sum operand takes a replica.
+    """
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    ref = next(x for x in operands if is_dtensor(x))
+    operands = [replicate_like(x, ref) for x in operands]
+    split = [any(not pl[i].is_replicate() for pl in out_pl)
+             for i in range(mesh.ndim)]
+    grads = tuple(tuple(Partial() if p.is_replicate() and split[i] else
+                        Replicate() if p.is_partial() else p
+                        for i, p in enumerate(pl)) for pl in in_pl)
+    return local_map(fn, out_placements=tuple(out_pl),
+                     in_placements=tuple(in_pl), in_grad_placements=grads,
+                     device_mesh=mesh, redistribute_inputs=True)(*operands)
+
+
+def einsum_inputs(equation: str, *operands) -> list:
+    """``operands`` placed as :func:`einsum` places them for
+    ``equation``: an operand that several einsums take is moved once
+    (the MoE block's dispatched tokens, taken by the gate's and the
+    input's products).  Plain tensors pass as they are.
+    """
+    ref = next((x for x in operands if is_dtensor(x)), None)
+    if ref is None:
+        return list(operands)
+    ins, out = equation.replace(" ", "").split("->")
+    in_pl, _ = _local_placements(ref.device_mesh, operands,
+                                 ins.split(","), [out])
+    return [x.redistribute(x.device_mesh, pl)
+            if is_dtensor(x) and tuple(x.placements) != pl else x
+            for x, pl in zip(operands, in_pl)]
 
 
 def einsum(equation: str, *operands):
@@ -293,46 +501,139 @@ def einsum(equation: str, *operands):
     its batch dims, and refuses to flatten one whose inner dim is
     sharded (the attention's ``bkgst,btkh->bskgh`` with its kv heads
     sharded, in decode).  On DTensors the einsum therefore runs on each
-    rank's local tensors under ``local_map``: on each mesh dim, a letter
-    that the first sharded operand shards there stays sharded when every
-    operand and the output have it (a batch letter: each rank's block is
-    computed alone, and so are its gradients) and the mesh dim divides
-    it; any other shard or pending sum is made whole.  Counted in
-    :data:`per_shard`.  Plain tensors take ``torch.einsum`` itself, so
-    traced programs do not change.
+    rank's local tensors under ``local_map``, each mesh dim keeping the
+    letter :func:`_local_placements` keeps: a batch letter every operand
+    has, or a letter the operands that have it share a shard of while
+    the others are replicated, as GSPMD keeps a plan's expert weights
+    where they lie.  A letter contracted away leaves the result a
+    pending sum.  Counted in :data:`per_shard`.  Plain tensors take
+    ``torch.einsum`` itself, so traced programs do not change.
     """
     import torch
     ref = next((x for x in operands if is_dtensor(x)), None)
     if ref is None:
         return torch.einsum(equation, *operands)
-    from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-    from torch.distributed.tensor.placement_types import _StridedShard
     ins, out = equation.replace(" ", "").split("->")
-    ins = ins.split(",")
-    mesh = ref.device_mesh
-    in_pl = [[Replicate()] * mesh.ndim for _ in operands]
-    out_pl = [Replicate()] * mesh.ndim
-    for i in range(mesh.ndim):
-        letter = None
-        for x, spec in zip(operands, ins):
-            p = x.placements[i] if is_dtensor(x) else Replicate()
-            if p.is_shard() and not isinstance(p, _StridedShard):
-                letter = spec[p.dim % len(spec)]
-                break
-        if letter is None or letter not in out or any(
-                letter not in spec or x.shape[spec.index(letter)] %
-                mesh.size(i) for x, spec in zip(operands, ins)):
-            continue
-        for pl, spec in zip(in_pl, ins):
-            pl[i] = Shard(spec.index(letter))
-        out_pl[i] = Shard(out.index(letter))
+    in_pl, out_pl = _local_placements(ref.device_mesh, operands,
+                                      ins.split(","), [out])
     per_shard["einsum"] += 1
-    operands = [replicate_like(x, ref) for x in operands]
-    return local_map(lambda *xs: torch.einsum(equation, *xs),
-                     out_placements=(tuple(out_pl),),
-                     in_placements=tuple(tuple(p) for p in in_pl),
-                     device_mesh=mesh, redistribute_inputs=True)(*operands)
+    return _run_local(lambda *xs: torch.einsum(equation, *xs),
+                      ref.device_mesh, operands, in_pl, out_pl)
+
+
+def top_k(op, x, k: int):
+    """``op(x, k)`` for a top-k along the last dim (``layers.top_k``'s
+    op), which DTensor has no sharding strategy for.
+
+    On a DTensor it runs on each rank's block under ``local_map``, the
+    last dim made whole and every other shard kept (a pending sum made
+    whole), as GSPMD partitions ``lax.top_k`` on every dim but the last;
+    a stable sort along a whole last dim keeps the tie order.  Counted
+    in :data:`per_shard`.  A plain tensor takes ``op`` itself, so traced
+    programs do not change.
+    """
+    if not is_dtensor(x):
+        return op(x, k)
+    spec = _LETTERS[:x.ndim]
+    in_pl, out_pl = _local_placements(x.device_mesh, [x], [spec],
+                                      [spec, spec], whole=spec[-1])
+    per_shard["top_k"] += 1
+    return _run_local(lambda t: op(t, k), x.device_mesh, [x], in_pl,
+                      out_pl)
+
+
+def lookup(fn, ids, table):
+    """``fn(ids, table)`` for a lookup of ``table``'s rows at ``ids``
+    (``F.embedding``): the global MoE dispatch's token gather.
+
+    On DTensors it runs on each rank's blocks under ``local_map``:
+    ``table``'s rows made whole (GSPMD leaves the global dispatch's
+    buffers unsharded), its feature dim and the ids kept as
+    :func:`_local_placements` keeps them.  A model's embedding table
+    goes through :func:`embedding` instead, which keeps the table where
+    it lies.  Counted in :data:`per_shard`.  Plain tensors take ``fn``
+    itself, so traced programs do not change.
+    """
+    ref = ids if is_dtensor(ids) else table if is_dtensor(table) else None
+    if ref is None:
+        return fn(ids, table)
+    spec = _LETTERS[:ids.ndim]
+    in_pl, out_pl = _local_placements(ref.device_mesh, [ids, table],
+                                      [spec, "ZY"], [spec + "Y"],
+                                      whole="Z")
+    per_shard["lookup"] += 1
+    return _run_local(fn, ref.device_mesh, [ids, table], in_pl, out_pl)
+
+
+def take_along_axis(fn, arr, idx, axis: int):
+    """``fn(arr, idx, axis)`` for ``layers.take_along_axis``'s gather of
+    ``arr`` and ``idx`` broadcast against each other on every dim but
+    ``axis``.
+
+    On DTensors it runs on each rank's blocks under ``local_map``: a dim
+    of both stays sharded as :func:`_local_placements` keeps it, a dim
+    of size one broadcast against the other's is replicated, the index
+    may be sharded on ``axis`` (each rank gathers its own rows) and
+    ``arr``'s ``axis`` is made whole.  Counted in :data:`per_shard`.
+    Plain tensors take ``fn`` itself, so traced programs do not change.
+    """
+    ref = arr if is_dtensor(arr) else idx if is_dtensor(idx) else None
+    if ref is None:
+        return fn(arr, idx, axis)
+    axis %= arr.ndim
+    spec = _LETTERS[:arr.ndim]
+
+    def letters(x, other):
+        return "".join("." if d != axis and x.shape[d] == 1 and
+                       other.shape[d] != 1 else c
+                       for d, c in enumerate(spec))
+    # arr's axis takes a letter of its own, never sharded
+    aspec = letters(arr, idx)
+    aspec = aspec[:axis] + "Z" + aspec[axis + 1:]
+    in_pl, out_pl = _local_placements(ref.device_mesh, [arr, idx],
+                                      [aspec, letters(idx, arr)], [spec],
+                                      whole="Z")
+    per_shard["take_along_axis"] += 1
+    return _run_local(lambda a, i: fn(a, i, axis), ref.device_mesh,
+                      [arr, idx], in_pl, out_pl)
+
+
+def scatter_add(fn, base, dim: int, idx, upd):
+    """``fn(base, dim, idx, upd)`` for ``layers.scatter_add_rows``'s
+    combine: ``base`` (*lead, N, d), ``idx`` (*lead, n), ``upd`` (*lead,
+    n, d), the rows of ``upd`` added into ``base`` at ``idx`` along
+    ``dim`` (``len(lead)``).
+
+    On DTensors it runs on each rank's blocks under ``local_map``: the
+    lead dims and ``d`` stay sharded as :func:`_local_placements` keeps
+    them, ``base``'s ``N`` is made whole, and where the mesh dim shards
+    the updates' rows ``n`` (their experts) each rank adds its own rows
+    into ``base`` and the result is a pending sum, as GSPMD partitions a
+    scatter along its update dims; ``base`` then counts on the first
+    rank of that mesh dim only (the others add into zeros).  Counted in
+    :data:`per_shard`.  Plain tensors take ``fn`` itself, so traced
+    programs do not change.
+    """
+    import torch
+    ref = next((x for x in (base, idx, upd) if is_dtensor(x)), None)
+    if ref is None:
+        return fn(base, dim, idx, upd)
+    mesh = ref.device_mesh
+    lead = _LETTERS[:dim]
+    # the updates' letters are tried first: a sharded expert dim is kept
+    # (each rank adds its own rows) and the index moved to it
+    (u_pl, i_pl, b_pl), out_pl = _local_placements(
+        mesh, [upd, idx, base], [lead + "nY", lead + "n", lead + "NY"],
+        [lead + "NY"], whole="N", linear=0, movable=(1,))
+    in_pl = [b_pl, i_pl, u_pl]
+    coord = mesh.get_coordinate()
+    counts = all(coord[i] == 0 for i, p in enumerate(out_pl[0])
+                 if p.is_partial())
+
+    def local(b, i, u):
+        return fn(b if counts else torch.zeros_like(b), dim, i, u)
+    per_shard["scatter_add"] += 1
+    return _run_local(local, mesh, [base, idx, upd], in_pl, out_pl)
 
 
 def index_copy(t, dim: int, index, src):

@@ -38,8 +38,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import (constrain, embedding, gather_for,
                                         get_kernel_dispatch, get_rules,
-                                        kernel_dispatch, logical_rules,
-                                        matmul, replicate_like)
+                                        kernel_dispatch, layer,
+                                        logical_rules, matmul,
+                                        replicate_like)
 
 _NOT_PORTED = {
     "mlstm": "xLSTM blocks are not ported yet (ROADMAP queue 1, item 11)",
@@ -75,23 +76,6 @@ def kernel_sites(cfg) -> dict[str, tuple[int, int]]:
     return {k: (sum(kernel(x) == k for x in period),
                 sum(kernel(x) == k for x in tail))
             for k in ("flash_attention", "rg_lru")}
-
-
-def check_devices(cfg, n_devices: int) -> None:
-    """Raise for a model the port cannot run on ``n_devices`` devices.
-
-    Both launchers call it before anything is made.  The training
-    launcher is refused by ``make_train_step`` anyway; the serving
-    launcher would otherwise make its weights and trace its decode plan
-    before ``moe_apply`` refused the DTensors, and with ``--plan
-    manual`` (no mesh, each rank serving whole) nothing else refuses it.
-    ROADMAP item 10b lifts this guard together with those two.
-
-    Raises:
-        NotImplementedError: for an MoE model on 2 or more devices.
-    """
-    if cfg.num_experts and n_devices >= 2:
-        raise NotImplementedError(L.MOE_ON_MESH)
 
 
 def _check_ported(cfg, kind: str) -> None:
@@ -310,7 +294,9 @@ def param_logical_axes(cfg, params):
 
 def apply_block(cfg, kind, p, x, positions):
     _check_ported(cfg, kind)
-    p = gather_for(p, x)
+    # an MoE block places its own weights (layers.moe_apply)
+    p = {k: v if k == "ffn" and _is_moe(cfg, kind) else gather_for(v, x)
+         for k, v in p.items()}
     if kind == "rglru":
         x = L.rglru_apply(cfg, p["mix"], x)
     else:
@@ -378,7 +364,7 @@ def scan_layers(body, h, xs, *, with_ys=False, remat=False):
     for i in range(n):
         if disp is not None:
             disp.rewind(mark)
-        h, y = run(h, pytree.tree_map(lambda a: a[i], xs))
+        h, y = run(h, pytree.tree_map(lambda a: layer(a, i), xs))
         ys.append(y)
     if run is not step and disp is not None:
         marks.append(None)

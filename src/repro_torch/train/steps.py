@@ -162,6 +162,20 @@ def value_and_grad(loss_fn, remat: bool = False):
     return run
 
 
+def check_trainable(cfg) -> None:
+    """Raise for a model the port cannot train yet.
+
+    ``make_train_step`` calls it, and the training launcher calls it
+    before it makes anything.
+
+    Raises:
+        NotImplementedError: for an MoE model.
+    """
+    if cfg.num_experts:
+        raise NotImplementedError("training MoE models is not ported yet "
+                                  "(ROADMAP queue 1, item 10c)")
+
+
 def make_train_step(cfg, opt_cfg: adam.AdamConfig | None = None,
                     accum_steps: int = 1):
     """``train_step(state, batch) -> (state, metrics)``.
@@ -183,9 +197,7 @@ def make_train_step(cfg, opt_cfg: adam.AdamConfig | None = None,
         NotImplementedError: for the ``"dots"`` remat policy, which the
             port does not have, and for an MoE model.
     """
-    if cfg.num_experts:
-        raise NotImplementedError("training MoE models is not ported yet "
-                                  "(ROADMAP queue 1, item 10b)")
+    check_trainable(cfg)
     if cfg.remat and cfg.remat_policy != "full":
         raise NotImplementedError(
             f"remat policy {cfg.remat_policy!r}: the port checkpoints "

@@ -951,3 +951,79 @@ def test_two_ranks_serve_as_one_card(gen, arch):
         assert torch.equal(tokens_, want.tokens.cpu())
         torch.testing.assert_close(logits, want.prompt_logits.cpu(),
                                    rtol=1e-4, atol=1e-4)
+
+
+# --- MoE on two ranks sharing the card ---------------------------------------
+
+
+def moe_ops_rank(rank):
+    """The MoE ops on CUDA DTensors of a (1, 2) mesh over gloo."""
+    from test_torch_moe_mesh import check_ops
+
+    from repro_torch.launch.mesh import compat_make_mesh
+    return check_ops(compat_make_mesh((1, 2), ("data", "model"), "cuda"))
+
+
+def test_moe_ops_on_cuda_dtensors(gen):
+    """``top_k`` with ties (indices exact), the dispatch gather (exact)
+    and the combine (1e-6) with the index sharded on the expert dim and
+    on the batch, and the expert products with ``f`` sharded, on CUDA
+    DTensors of two ranks sharing the card: as on the CPU group
+    (``tests/test_torch_moe_mesh.py``), placements included."""
+    from test_torch_moe_mesh import OP_TOL
+
+    from repro_torch.launch.mesh import run_ranks
+    for ops_ in run_ranks(moe_ops_rank, 2, timeout=300):
+        for name, (err, exact, placements) in ops_.items():
+            if name.startswith(("top_k", "gather")):
+                assert exact, (name, err)
+            assert err <= OP_TOL, (name, err)
+            want = "Partial(sum)" if name in (
+                "combine experts", "einsum f contracted") else \
+                "Replicate()" if name == "top_k last" else "Shard"
+            assert all(want in p for p in placements), (name, placements)
+
+
+def small_moe_mesh_rank(rank, arch, plan_json):
+    """The small bf16 MoE model's prefill on the (1, 2) plan, on card 0:
+    the gathered logits and the attention launches."""
+    from repro_torch.core.partitioner import ShardingPlan
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_prefill_step
+    cfg = small_config(arch, "bfloat16")
+    applied = ShardingPlan.from_json(plan_json).apply(make_prefill_step(cfg))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_params(cfg, g)
+    batch = tokens(g, cfg, 2, 64)
+    fa.launches = 0
+    out = applied(params, batch).full_tensor().float().cpu()
+    return {"logits": out, "launches": fa.launches}
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "arctic_480b"])
+def test_small_moe_prefill_on_two_ranks_equals_one_card(gen, arch):
+    """A small bf16 MoE prefill (batch dispatch) on the (1, 2) plan over
+    two ranks sharing the card: the gathered logits within 2e-2 of the
+    largest of one card's 1x1 plan; arctic's attention sites on the
+    kernel on each rank."""
+    from repro_torch.api import Request, Session
+    from repro_torch.core.cost_model import MeshSpec
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import transformer as T
+    cfg = small_config(arch, "bfloat16")
+    step, plan1 = prefill_plan(cfg, 2, 64)
+    plan2 = Session(step, (T.param_specs(cfg), {"tokens": torch.empty(
+        (2, 64), dtype=torch.int32, device="meta")})).partition(
+            Request(mesh=MeshSpec(("data", "model"), (1, 2))))
+    fa.build()                                  # the ranks load it
+    ranks = run_ranks(small_moe_mesh_rank, 2, arch, plan2.to_json(),
+                      timeout=300)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_params(cfg, g)
+    want = plan1.apply(step, capture=False)(
+        params, tokens(g, cfg, 2, 64)).float().cpu()
+    sites = cfg.num_layers if arch == "arctic_480b" else 0
+    for r in ranks:
+        rel = ((r["logits"] - want).abs().max() / want.abs().max()).item()
+        assert rel <= 2e-2, rel
+        assert r["launches"] == sites
