@@ -17,7 +17,8 @@ launcher on those two ranks; and the mixture-of-experts models
 ``mixtral_8x22b`` and ``arctic_480b`` at full width (cut in depth to what
 the card holds, their plans searched at full depth), prefill and decode,
 arctic's attention sites on the CUDA flash-attention kernel, on one card
-and on two ranks sharing it.
+and on two ranks sharing it; and ``mixtral_8x22b``'s train step at full
+width on one card.
 
 1. print the card's name and power limit; build both kernels from the
    sources in this checkout, in parallel;
@@ -156,6 +157,20 @@ and on two ranks sharing it.
    and their argmax equal but in a row whose one-card top two logits
    lie within twice the largest difference (a tie, printed with its
    margin), and no expert stack gathered whole;
+7d. MoE training: ``mixtral_8x22b`` at full width cut to 1 layer (what
+   one card holds with gradients, moments and the step's temporaries),
+   B 1 x S 4096, AdamW with bf16 moments, remat: search the 2x4 plan of
+   the full-depth (56-layer) train step on ``meta`` tensors in the
+   worker process (time to the plan, colors, conflicts, the expert and
+   router weights' specs) and the cut step's 1x1 plan (no kernel site:
+   the windowed attention takes the einsum path); step 1 forward and
+   backward with the weights in f32 (no AdamW); then 8 steps captured
+   with the state donated and 8 eager, as in 6: the losses, grad norms
+   and final state equal bit for bit, the loss falling, step 1's loss
+   and grad norm within 2e-2 of the f32 step's; per eager step and layer
+   the routed pairs dropped to capacity and the router picks and expert
+   tokens remat's recomputation chose otherwise than the forward (none,
+   or it fails); step ms, peak, pool and reserved GB, launches per step;
 8. time each kernel at its slice shape beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` (a
    yardstick only: the port never calls it), and at ``arctic_480b``'s
@@ -185,6 +200,7 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -267,6 +283,21 @@ MOE_SHAPE = (4, 2048)
 MOE_MESH_DEPTH = {"mixtral_8x22b": 4, "arctic_480b": 1}
 MOE_MESH_REQUESTS = 2
 MOE_MESH_TIMEOUT = 600.0
+# MoE training at full width, cut in depth to what one card holds: a
+# mixtral_8x22b layer is 2.504 B parameters (5.008 GB in bf16) and the
+# embedding and unembedding 0.805 GB; at 1 layer the parameters, their
+# gradients and two bf16 moments take ~23.3 GB, the clipped gradients
+# beside the unclipped ones +5.8, the captured step's new parameters and
+# moments in the graph's pool before they are written into the donated
+# buffers +17.4, AdamW's f32 temporaries of the largest leaf (8, 6144,
+# 16384) 3.2 GB each, and the windowed attention's einsum path f32
+# scores, probabilities and their cotangent at (1, 48, 4096, 4096) 3.2
+# GB each: ~65-70 GB; a second layer adds ~7 x 5.0 GB.  arctic_480b's one
+# layer (27.2 GB of weights, ~109 GB with gradients and moments) needs a
+# multi-card host.  The step: train_4k's sequence, its batch of 256 cut
+# to 1 (as the hybrid's), AdamW with bf16 moments, remat on
+MOE_TRAIN_DEPTH = {"mixtral_8x22b": 1}
+MOE_TRAIN_SHAPE = (1, 4096)
 # H100 SXM data sheet (dense bf16 FLOP/s, f32 FLOP/s outside the tensor
 # cores, HBM bytes/s)
 PEAK_BF16_FLOPS = 989e12
@@ -1232,6 +1263,68 @@ class MoESelections:
                             for x, w, _ in self.calls[1::2]]).cpu()
 
 
+def remat_selections(record, cfg, label: str, i: int) -> dict:
+    """One eager train step's capacity selections (``record``: the
+    :class:`MoESelections` around it; with remat the forward's calls,
+    then the backward's recomputation, last layer first): per layer the
+    routed pairs the forward dropped to capacity, and the router's top-k
+    picks and the tokens each expert took that the recomputation chose
+    otherwise than the forward.  Raises if any differs."""
+    n = cfg.num_layers
+    calls = record.calls
+    if len(calls) != 2 * n * (1 + cfg.remat):
+        raise AssertionError(f"{label} step {i}: {len(calls)} top_k calls "
+                             f"for {n} MoE layers")
+    fwd = [calls[2 * j:2 * j + 2] for j in range(n)]
+    again = [calls[2 * n + 2 * j:2 * n + 2 * j + 2]
+             for j in range(n)][::-1] if cfg.remat else fwd
+    drops = [int((cap[0] > 0).sum() - (cap[1] > 0).sum())
+             for _, cap in fwd]
+    router = [int((f[0][2] != r[0][2]).sum()) for f, r in zip(fwd, again)]
+    tokens = [moved(f[1][2], r[1][2], f[1][0].shape[-1])
+              for f, r in zip(fwd, again)]
+    log(f"[train {cfg.name} {label}] step {i}: routed pairs dropped to "
+        f"capacity per layer {drops} of "
+        f"{cfg.experts_per_token * fwd[0][0][0].shape[:-1].numel()}"
+        f"; remat's recomputation chose otherwise router picks {router}, "
+        f"expert tokens {tokens} per layer")
+    if any(router) or any(tokens):
+        raise AssertionError(f"{label} step {i}: remat's recomputation "
+                             f"selected other experts or tokens than the "
+                             f"forward")
+    return {"dropped": drops, "router_moved": router, "tokens_moved": tokens}
+
+
+def f32_step(torch, cfg, params, batch, card) -> dict:
+    """Step 1 forward and backward (no AdamW) of ``cfg`` with ``params``
+    cast to f32: its loss and gradient norm, to hold the bf16 step's
+    against."""
+    from repro_torch import pytree
+    from repro_torch.optim import adam
+    from repro_torch.train import steps as TS
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    p32 = pytree.tree_map(lambda x: x.float(), params)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss, _, grads = TS.value_and_grad(TS.make_loss_fn(cfg32),
+                                       remat=cfg.remat)(p32, batch)
+    gnorm = adam.global_norm(grads)
+    end.record()
+    torch.cuda.synchronize()
+    row = {"loss": loss.item(), "grad_norm": gnorm.item(),
+           "ms": start.elapsed_time(end),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[train {cfg.name} f32] step 1 forward and backward in f32 (no "
+        f"AdamW; {tree_bytes(p32) / 1e9:.3f} GB of weights) on {card}: loss "
+        f"{row['loss']:.6f} grad_norm {row['grad_norm']:.6f} "
+        f"{row['ms']:.3f} ms, peak {row['peak_gb']:.2f} GB")
+    del p32, grads
+    torch.cuda.empty_cache()
+    return row
+
+
 def moved(a, b, tokens: int) -> int:
     """Of two (B, E, C) capacity selections over ``tokens`` tokens, the
     tokens that one run's experts took and the other's did not."""
@@ -1791,6 +1884,43 @@ def drive_moe_mesh(torch, counters, card, jobs) -> dict:
     return launches
 
 
+def drive_moe_train(torch, name, counters, card, seed: int, full_job,
+                    job) -> dict:
+    """Train one MoE model at full width, cut to ``MOE_TRAIN_DEPTH[name]``
+    layers, through :func:`drive_train` (``moe=True``); report the 2x4
+    plan of its full-depth train step.
+
+    Args:
+        full_job: the :func:`plan_job` result of the full-depth train
+            step (its 2x4 plan is reported).
+        job: the same for the cut step (its 1x1 plan runs it).
+    """
+    from repro_torch.configs import get_config
+    t_start = time.perf_counter()
+    full = dataclasses.replace(get_config(name), use_pallas=True)
+    B, S = MOE_TRAIN_SHAPE
+    plan = plan_of(full_job, "2x4")
+    specs = {p.split(".", 1)[1].split("['layers']")[0] + "." +
+             p.rsplit("[", 1)[1].strip("]'"): tuple(s)
+             for p, s in zip(plan.input_paths, plan.in_specs)
+             if "['ffn']" in p and p.endswith(("['wi']", "['wg']"))}
+    st = full_job["stats"]
+    log(f"[moe train plan {name} 2x4] {full.num_layers} layers, B={B} "
+        f"S={S}: {full_job['seconds']:.3f} s to the plans in the worker "
+        f"process (trace {st['phases']['trace']:.3f} s, search "
+        f"{plan.search_seconds:.3f} s), {st['ops']} ops, trip counts "
+        f"{st['trips']}, {st['colors']} colors, {st['conflicts']} "
+        f"conflicts, cost {plan.cost:.6f}, expert and router weights "
+        f"{json.dumps(specs)}, rules {json.dumps(plan.logical_rules)}, "
+        f"json round-trip ok")
+    cfg = dataclasses.replace(full, num_layers=MOE_TRAIN_DEPTH[name])
+    out = drive_train(torch, cfg, counters, card, seed, MOE_TRAIN_SHAPE,
+                      HYBRID_TRAIN_OPT, job, moe=True)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[elapsed] {name} MoE train phase {out['seconds']:.1f} s")
+    return out
+
+
 def train_sites(cfg) -> dict:
     """Per kernel: its forward sites in the scanned period, in the tail,
     and its launches in one train step (the scanned ones again when
@@ -1803,7 +1933,7 @@ def train_sites(cfg) -> dict:
 
 
 def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
-                small_layers=None) -> dict:
+                small_layers=None, moe: bool = False) -> dict:
     """Plan and run the train step of ``cfg``; returns its launches.
 
     Args:
@@ -1817,6 +1947,13 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
         opt_kw: the ``AdamConfig`` fields.
         small_layers: the small f32 model's depth (``None``: the reduced
             config's).
+        moe: an MoE model (no kernel site of its own): step 1 is held
+            against the same step's loss and grad norm in f32 (forward
+            and backward, no AdamW) instead of the plain sites' and the
+            small model; each eager step's capacity selections are
+            recorded, its routed pairs dropped printed per layer, and
+            remat's recomputation must select what the forward did;
+            captured and eager must agree bit for bit.
     """
     from repro_torch.api import Request, Session
     from repro_torch.configs import get_config
@@ -1843,7 +1980,7 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
         f"trip counts {trips}, {st['colors']} colors, "
         f"{st['conflicts']} conflicts, kernel ops {st['kernel_ops']}, "
         f"phases " + json.dumps(st["phases"]) + " (worker process)")
-    if trips != [1, T.n_scan_blocks(cfg)]:
+    if trips != sorted({1, T.n_scan_blocks(cfg)}):
         raise AssertionError(f"train program trip counts {trips}")
     plan8 = plan_of(job, "2x4")
     log(f"[train partition {name} 2x4] cost={plan8.cost:.6f} "
@@ -1892,8 +2029,10 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
         torch.cuda.reset_peak_memory_stats()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        record = MoESelections() if moe and not fn.capture else None
         start.record()
-        state, m = fn(state, batch)
+        with record or contextlib.nullcontext():
+            state, m = fn(state, batch)
         end.record()
         torch.cuda.synchronize()
         counts = ops.launch_counts()
@@ -1919,6 +2058,8 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
             f"{json.dumps(row['launches'])}, rg_lru by route "
             f"{json.dumps(row['routes'])}, backward sites (plain vjp) "
             f"{json.dumps(row['bwd'])}")
+        if record is not None:
+            row["moe"] = remat_selections(record, cfg, label, i)
         return state, row
 
     want_launches = {k: sites[k]["launches"] for k in counters}
@@ -1942,11 +2083,15 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
 
     # step 1 with every site on the plain version first (it also warms
     # the eager path up); its new state is dropped before the kernel
-    # steps, so that no more than two train states are ever held
+    # steps, so that no more than two train states are ever held.  An
+    # MoE model has no site: step 1 forward and backward in f32 instead
     state = init_state()
-    prow = run(plain, state, "plain", 1)[1]
-    if any(prow["launches"].values()) or prow["bwd"] != want_bwd:
-        raise AssertionError("the plain train step launched a kernel")
+    if moe:
+        prow = f32_step(torch, cfg, state.params, batch, card)
+    else:
+        prow = run(plain, state, "plain", 1)[1]
+        if any(prow["launches"].values()) or prow["bwd"] != want_bwd:
+            raise AssertionError("the plain train step launched a kernel")
     # captured: the first call warms up, captures and replays step 1
     mine = pytree.tree_leaves(state)
     state, cap_rows = steps(applied, state, "captured")
@@ -1995,9 +2140,11 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
             f"in {sum(d > 0 for d in noise.values())}: "
             + json.dumps({p: [diffs[p], noise[p]] for p in diffs
                           if diffs[p] or noise[p]}))
-        if worse:
+        if worse or moe:
             raise AssertionError(f"captured differs from eager beyond two "
-                                 f"eager runs' spread: {worse}")
+                                 f"eager runs' spread: {worse}"
+                                 if worse else "captured differs from "
+                                 "eager")
         del host_eager
     del state, host
     torch.cuda.empty_cache()
@@ -2005,12 +2152,15 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
         f"and grad norms and the final state ({len(diffs)} leaves) "
         + ("equal bit for bit" if same else "within two eager runs' "
            "spread"))
+    ref = "f32" if moe else "plain"
     for key in ("loss", "grad_norm"):
         rel = abs(cap_rows[0][key] - prow[key]) / abs(prow[key])
-        log(f"[train {name}] step 1 {key}: kernel {cap_rows[0][key]:.6f} vs "
-            f"plain {prow[key]:.6f}, rel {rel:.3e} (tol {TRAIN_REL_TOL})")
+        log(f"[train {name}] step 1 {key}: "
+            f"{'bf16' if moe else 'kernel'} {cap_rows[0][key]:.6f} vs "
+            f"{ref} {prow[key]:.6f}, rel {rel:.3e} (tol {TRAIN_REL_TOL})")
         if rel > TRAIN_REL_TOL:
-            raise AssertionError(f"train step 1 {key}: kernel and plain "
+            raise AssertionError(f"train step 1 {key}: "
+                                 f"{'bf16' if moe else 'kernel'} and {ref} "
                                  f"disagree")
     losses = [r["loss"] for r in cap_rows]
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
@@ -2021,7 +2171,8 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
         f"{k} launches per step {want_launches[k]} = {n} x {v['period']} "
         f"forward + {v['tail']} tail + {n * v['period'] * cfg.remat} "
         f"recomputed (remat), {want_bwd[k]} backward sites on the plain "
-        f"vjp" for k, v in sites.items() if v["forward"])
+        f"vjp" for k, v in sites.items() if v["forward"]) or \
+        f"kernel launches per step {json.dumps(want_launches)} (no site)"
     med = {label: percentile([r["ms"] for r in rows[1:]], 0.5)
            for label, rows in (("captured", cap_rows),
                                ("eager", eager_rows))}
@@ -2033,6 +2184,9 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
         f"ms, peak {eager_mem['peak_gb']:.2f} GB, reserved "
         f"{eager_mem['reserved_gb']:.2f} GB")
 
+    if moe:
+        # no kernel site to hold against its plain version
+        return {"launches_per_step": want_launches, "steps": cap_rows}
     # small f32 model (remat on, as the full one): loss, every gradient
     # leaf and the updated state, kernel sites vs plain sites
     small = dataclasses.replace(get_config(name).reduced(), use_pallas=True,
@@ -2501,6 +2655,11 @@ def main(argv=None) -> int:
         for name, depth in MOE_MESH_DEPTH.items():
             jobs["mesh", name, depth] = pool.submit(plan_job, "mesh", name,
                                                     depth)
+        for name, depth in MOE_TRAIN_DEPTH.items():
+            for d in (depth, None):
+                jobs["train", name, d] = pool.submit(
+                    plan_job, "train", name, d, MOE_TRAIN_SHAPE,
+                    HYBRID_TRAIN_OPT)
         return run_phases(torch, opts, t_start, jobs)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
@@ -2674,6 +2833,17 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
          for name, depth in MOE_MESH_DEPTH.items()})
     torch.cuda.empty_cache()
 
+    # -- 7d: MoE training on the card --------------------------------------
+    moe_train = {}
+    for name, depth in MOE_TRAIN_DEPTH.items():
+        log(f"[graphs released] before the {name} train phase: "
+            f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
+        moe_train[name] = drive_moe_train(
+            torch, name, counters, card, opts.seed,
+            jobs["train", name, None].result(),
+            jobs["train", name, depth].result())
+        torch.cuda.empty_cache()
+
     # -- 8: each kernel's time at its slice shape ----------------------------
     fa_row = time_fa(fa, torch, gen, card, B, S, H, hd, plain=True)
     fa_row.update(launches=fa_launches, max_abs_err=fa_err,
@@ -2688,6 +2858,9 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
                          arctic.resolved_head_dim, plain=True)
     fa_row["launches_moe"] = {k: v["launches"] for k, v in moe.items()}
     fa_row["launches_mesh_moe"] = moe_mesh
+    fa_row["launches_moe_train_step"] = {
+        k: v["launches_per_step"]["flash_attention"]
+        for k, v in moe_train.items()}
     fa_row["arctic_shape"] = {
         "shape": [*MOE_SHAPE, arctic.num_heads, arctic.resolved_head_dim],
         "max_abs_err": max(moe["arctic_480b"]["site_errs"]),

@@ -11,8 +11,11 @@ linearize-then-transpose, prim by prim:
 - each differentiated op's JVP splits into *residual* ops, on primal
   values only (``rsqrt``'s ``-0.5 * ans / x``, ``logistic``'s ``ans * (1
   - ans)``, ``div``'s ``y**-2``, ``reduce_max``'s location counts,
-  ``max``'s tie weights, ...), and *linear* ops on tangents, recorded on
-  a tape; the residuals follow their op, in the JVP's order;
+  ``max``'s tie weights, ``top_k``'s indices with a unit index dim, the
+  zeros ``scatter-add`` instantiates for an operand without a tangent,
+  ...), and *linear* ops on tangents, recorded on a tape (``top_k``'s
+  values: a ``gather`` of the tangent at the indices); the residuals
+  follow their op, in the JVP's order;
 - a few ops form one unit with a JVP of its own, as JAX's
   ``custom_jvp``: ``jnp.logaddexp``'s steps (softplus) take its rule,
   ``t * exp(x - out)`` with its ``inf`` guards, and their inner ops none;
@@ -20,7 +23,9 @@ linearize-then-transpose, prim by prim:
   ``dot_general`` and a ``transpose``, ``broadcast_in_dim`` into
   ``reduce_sum``, ``slice`` into ``pad``, ``pad`` into a negative
   ``pad`` and a strided ``slice``, ``concatenate`` into ``split``,
-  ``gather`` into ``scatter-add`` into zeros, ``select_n`` into a
+  ``gather`` into ``scatter-add`` into zeros, ``scatter-add`` into its
+  cotangent for the operand and a ``gather`` of it for the updates,
+  ``select_n`` into a
   ``select_n`` against zeros, a fused kernel into its backward op
   (``kernel:flash_attention_bwd``, ``kernel:rg_lru_bwd``); fanned-out
   cotangents meet in ``add_any``;
@@ -50,7 +55,8 @@ from typing import Any
 
 import numpy as np
 
-from repro_torch.core.ir import ScatterDimensionNumbers
+from repro_torch.core.ir import (GatherDimensionNumbers,
+                                 ScatterDimensionNumbers)
 
 # prims whose results carry no tangent (integer / boolean results, or
 # the gradient explicitly stopped)
@@ -931,6 +937,44 @@ def _rule_gather(vjp, op, ops, act, out, shape, dtype):
     return [Lin("gather", dict(op.params), [_t(ops[0]), ops[1]], out)]
 
 
+def _rule_top_k(vjp, op, ops, act, out, shape, dtype):
+    # JAX's ``_top_k_jvp``: the indices reshaped with a unit index
+    # vector dim (a residual), then a gather of the tangent at them, one
+    # element along ``axis`` and every other dim a batching dim; the
+    # indices carry no tangent
+    axis = op.params["axis"]
+    ishape, idtype = vjp.vtype(op.results[1])
+    rank = len(ishape)
+    gi = vjp.r("reshape", {"new_sizes": tuple(ishape) + (1,),
+                           "dimensions": None}, [op.results[1]],
+               tuple(ishape) + (1,), idtype)
+    batch = tuple(i for i in range(rank) if i != axis)
+    dn = GatherDimensionNumbers(
+        offset_dims=(), collapsed_slice_dims=(axis,),
+        start_index_map=(axis,), operand_batching_dims=batch,
+        start_indices_batching_dims=batch)
+    return [Lin("gather", {"dimension_numbers": dn,
+                           "slice_sizes": (1,) * rank},
+                [_t(ops[0]), gi], out)]
+
+
+def _rule_scatter_add(vjp, op, ops, act, out, shape, dtype):
+    # JAX's ``_scatter_add_jvp``: linear in the operand and the updates,
+    # a side without a tangent instantiated as zeros (a residual); the
+    # indices carry none
+    if act[1]:
+        raise NotImplementedError("a gradient through scatter indices")
+    args: list = []
+    for v, a in ((ops[0], act[0]), (ops[2], act[2])):
+        if a:
+            args.append(_t(v))
+        else:
+            s, d = vjp.vtype(v)
+            args.append(vjp.full(s, d))
+    return [Lin("scatter-add", dict(op.params), [args[0], ops[1], args[1]],
+                out)]
+
+
 def _rule_kernel(vjp, op, ops, act, out, shape, dtype):
     from repro_torch.kernels import registry
     spec = registry.spec_for_prim(op.prim)
@@ -958,6 +1002,7 @@ _RULES = {
     "convert_element_type": _rule_convert,
     "dot_general": _rule_dot_general, "concatenate": _rule_concatenate,
     "select_n": _rule_select_n, "gather": _rule_gather,
+    "top_k": _rule_top_k, "scatter-add": _rule_scatter_add,
 }
 
 
@@ -1224,6 +1269,31 @@ def _tr_gather(vjp, ctx, e, ct, env):
         [zeros, idx, ct], shape, dtype))
 
 
+def _tr_scatter_add(vjp, ctx, e, ct, env):
+    # JAX's ``_scatter_add_transpose_rule``: the operand takes the
+    # cotangent itself, the updates its gather at the indices
+    operand, idx, upd = e.args
+    if _is_t(operand):
+        vjp.acc(ctx, env, operand[1], ct)
+    if not _is_t(upd):
+        return
+    shape, dtype = vjp.ttype(upd[1])
+    dn = e.params["dimension_numbers"]
+    gdn = GatherDimensionNumbers(
+        offset_dims=tuple(dn.update_window_dims),
+        collapsed_slice_dims=tuple(dn.inserted_window_dims),
+        start_index_map=tuple(dn.scatter_dims_to_operand_dims),
+        operand_batching_dims=tuple(dn.operand_batching_dims),
+        start_indices_batching_dims=tuple(dn.scatter_indices_batching_dims))
+    window = iter(dn.update_window_dims)
+    sizes = tuple(1 if i in dn.inserted_window_dims or
+                  i in dn.operand_batching_dims else shape[next(window)]
+                  for i in range(len(vjp.prog.types[ct].shape)))
+    vjp.acc(ctx, env, upd[1], vjp.emit(
+        ctx, "gather", {"dimension_numbers": gdn, "slice_sizes": sizes},
+        [ct, vjp.val(ctx, idx)], shape, dtype))
+
+
 def _tr_add_any(vjp, ctx, e, ct, env):
     for a in e.args:
         vjp.acc(ctx, env, a[1], ct)
@@ -1250,6 +1320,7 @@ _TRANSPOSE = {
     "pad": _tr_pad,
     "concatenate": _tr_concatenate, "dot_general": _tr_dot_general,
     "select_n": _tr_select_n, "gather": _tr_gather,
+    "scatter-add": _tr_scatter_add,
     "kernel:flash_attention_bwd": _tr_kernel_bwd,
     "kernel:rg_lru_bwd": _tr_kernel_bwd,
 }

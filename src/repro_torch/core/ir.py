@@ -32,9 +32,11 @@ unchanged on the result:
   ``gather`` or ``scatter_add`` whose operand or index is an ``expand``
   (``layers.take_along_axis``, ``layers.scatter_add_rows``) is lowered
   as ``jnp.take_along_axis`` and the ``vmap``'d ``.at[].add`` lower
-  them: one ``gather`` / ``scatter-add`` of the unexpanded tensors,
-  their size-1 dims squeezed or taken as window dims, the others
-  batching dims, so the expansion itself is never emitted.
+  them: one ``gather`` / ``scatter-add`` of the unexpanded tensors (a
+  gather's size-1 dims squeezed or taken as offset dims, the others
+  batching dims; a scatter's dims before the scattered one batching
+  dims, those after it window dims), so the expansion itself is never
+  emitted.
 - The fused kernel ops (``repro_torch::flash_attention``,
   ``repro_torch::rg_lru``) are each recorded as one ``kernel:<name>``
   op; their impl argument is dropped, so the program does not depend on
@@ -917,10 +919,11 @@ class _Extractor:
 
     def _aten_scatter_add(self, node, args, kwargs):
         # reference lowering of ``base.at[idx].add(upd)`` along ``dim``
-        # under vmap over the dims before it: per dim but ``dim``, an
-        # index of size 1 is a window dim of the update (the operand's
-        # dim whole), any other a batching dim; the index drops its
-        # window dims and gets its vector dim appended
+        # under vmap over the dims before it: those are batching dims
+        # whatever their size (a batch of one included), the dims after
+        # ``dim`` window dims of the update (the operand's dims whole);
+        # the index drops its window dims and gets its vector dim
+        # appended
         base, dim, idx, upd = args
         shape, dtype = _meta(node)
         rank = len(shape)
@@ -936,7 +939,12 @@ class _Extractor:
             raise UnsupportedOpError(f"{node.target} of an update shaped "
                                      f"unlike its index")
         idx, idx_shape = self._broadcast_base(node, idx, dim, ut.shape)
-        window = [i for i in range(rank) if i != dim and idx_shape[i] == 1]
+        if any(idx_shape[i] != ut.shape[i] for i in range(dim)) or any(
+                idx_shape[i] != 1 for i in range(dim + 1, rank)):
+            raise UnsupportedOpError(f"{node.target} of an index that is "
+                                     f"not one row of indices per vmap "
+                                     f"batch")
+        window = list(range(dim + 1, rank))
         scatter = [i for i in range(rank) if i not in window]
         batch = [i for i in scatter if i != dim]
         ishape = tuple(idx_shape[i] for i in scatter) + (1,)

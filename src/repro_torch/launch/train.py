@@ -46,7 +46,10 @@ Example (CPU, reduced config; two ranks)::
         --plan toast --device cpu
 
 Without ``--device`` it runs on the CUDA card (each rank on card
-``LOCAL_RANK % device_count``), and raises without one.  Only rank 0
+``LOCAL_RANK % device_count``), and raises without one.  An MoE config
+(``mixtral_8x22b``, ``arctic_480b``) trains on one device; on two or more
+ranks the launcher refuses it after joining the group, before it makes
+anything (MoE training on meshes is ROADMAP queue 1, item 10d).  Only rank 0
 prints.  ``--compress`` is parsed and unused, as in the reference.
 """
 
@@ -375,8 +378,8 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    check_trainable(cfg)
     M.init_from_env()
+    check_trainable(cfg)
     supervise(cfg, args)
 
 

@@ -268,13 +268,31 @@ def _(x, k):
     return x.new_empty(shape), x.new_empty(shape, dtype=torch.int64)
 
 
+def _top_k_setup(ctx, inputs, output):
+    ctx.shape = inputs[0].shape
+    ctx.save_for_backward(output[1])
+
+
+def _top_k_backward(ctx, g_values, g_indices):
+    # lax.top_k's JVP gathers the tangent at the indices; its transpose
+    # adds the values' cotangent into zeros there.  The indices take none
+    (idx,) = ctx.saved_tensors
+    return g_values.new_zeros(ctx.shape).scatter_add(-1, idx, g_values), \
+        None
+
+
+_top_k_op.register_autograd(_top_k_backward, setup_context=_top_k_setup)
+
+
 def top_k(x, k: int):
     """``lax.top_k``: the ``k`` largest values along the last dim and
     their (int64) indices, largest first and, among equal values, the
     lower index first, on every device (``torch.topk`` promises no tie
     order).  One op, ``repro_torch::top_k``, which the tracer lowers to
     the reference's ``top_k`` prim; on DTensors it runs per shard
-    (``sharding.top_k``)."""
+    (``sharding.top_k``).  Differentiable in the values, as
+    ``lax.top_k``: their cotangent goes into zeros of ``x``'s shape at
+    the indices."""
     return sharding.top_k(_top_k_op, x, k)
 
 

@@ -26,8 +26,9 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import group_size
 from repro_torch.models import transformer as T
-from repro_torch.models.sharding import placed_like
+from repro_torch.models.sharding import is_dtensor, placed_like
 from repro_torch.optim import adam
 
 
@@ -162,18 +163,30 @@ def value_and_grad(loss_fn, remat: bool = False):
     return run
 
 
-def check_trainable(cfg) -> None:
-    """Raise for a model the port cannot train yet.
+def check_trainable(cfg, state=None) -> None:
+    """Raise for a model the port cannot train yet: an MoE model on two
+    or more ranks.
 
-    ``make_train_step`` calls it, and the training launcher calls it
+    ``make_train_step`` calls it when it builds the step (in a process
+    group) and when the step is handed DTensor state (``plan.apply`` on a
+    mesh); the training launcher calls it after joining its group,
     before it makes anything.
 
+    Args:
+        cfg: the model configuration.
+        state: the train state the step is handed, if any.
+
     Raises:
-        NotImplementedError: for an MoE model.
+        NotImplementedError: for an MoE model in a process group of two
+            or more ranks or on DTensor state.
     """
-    if cfg.num_experts:
-        raise NotImplementedError("training MoE models is not ported yet "
-                                  "(ROADMAP queue 1, item 10c)")
+    if not cfg.num_experts:
+        return
+    if group_size() > 1 or (state is not None and any(
+            is_dtensor(x) for x in pytree.tree_leaves(state))):
+        raise NotImplementedError(
+            "training MoE models on two or more ranks is not ported yet "
+            "(ROADMAP queue 1, item 10d)")
 
 
 def make_train_step(cfg, opt_cfg: adam.AdamConfig | None = None,
@@ -195,7 +208,8 @@ def make_train_step(cfg, opt_cfg: adam.AdamConfig | None = None,
 
     Raises:
         NotImplementedError: for the ``"dots"`` remat policy, which the
-            port does not have, and for an MoE model.
+            port does not have, and for an MoE model on two or more ranks
+            (:func:`check_trainable`; the step refuses DTensor state too).
     """
     check_trainable(cfg)
     if cfg.remat and cfg.remat_policy != "full":
@@ -206,6 +220,7 @@ def make_train_step(cfg, opt_cfg: adam.AdamConfig | None = None,
     single = value_and_grad(make_loss_fn(cfg), remat=cfg.remat)
 
     def train_step(state: TrainState, batch):
+        check_trainable(cfg, state)
         if accum_steps == 1:
             loss, ce, grads = single(state.params, batch)
         else:

@@ -16,7 +16,10 @@ vjp back), on both of its routes, and so does a small f32 hybrid.
 Two ranks of one gloo group share the card: gloo's collectives on CUDA
 tensors, DTensor's all-gather through ``launch.mesh``'s route, and
 small f32 models on a (1, 2) mesh against their one-card plan within
-1e-4, their kernel sites on local shards.
+1e-4, their kernel sites on local shards.  MoE training: autograd
+through ``repro_torch::top_k`` equal to the CPU's, a small f32 MoE
+model's gradients within 1e-4 of the CPU's, and a small bf16 one's
+captured, donated train steps equal to eager ones bit for bit.
 """
 
 import pytest
@@ -512,6 +515,73 @@ def test_top_k_breaks_ties_as_on_the_cpu(gen):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out[1].cpu(), top_k(x.cpu(), 640)[1])
+
+
+def test_top_k_trains_as_on_the_cpu(gen):
+    """Autograd through ``repro_torch::top_k`` on the card: the values'
+    cotangent lands where the CPU puts it (ties broken alike), the
+    indices take none; the router's top-2 of 8 and a capacity selection
+    of 1,280 over 4,096 tokens."""
+    from repro_torch.models.layers import top_k
+    for shape, k in (((1, 4096, 8), 2), ((1, 8, 4096), 1280)):
+        x = torch.randint(0, 4, shape, generator=gen, device="cuda").float()
+        ct = torch.randn((*shape[:-1], k), generator=gen, device="cuda")
+        xs = [x.clone().requires_grad_(), x.cpu().requires_grad_()]
+        grads = [torch.autograd.grad(top_k(a, k)[0], a, c)[0]
+                 for a, c in zip(xs, (ct, ct.cpu()))]
+        assert torch.equal(grads[0].cpu(), grads[1])
+        assert not top_k(xs[0], k)[1].requires_grad
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "arctic_480b"])
+def test_small_moe_gradients_as_on_the_cpu(gen, arch):
+    """A small f32 MoE model with remat, capacity factor 1.0 (tokens
+    drop): loss and every gradient on the card within 1e-4 of the CPU's
+    (arctic's attention sites on the kernel there, the plain version
+    here)."""
+    import dataclasses
+
+    from repro_torch import pytree
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import KernelDispatch, kernel_dispatch
+    from repro_torch.train import steps as TS
+    cfg = dataclasses.replace(small_config(arch, "float32"), remat=True,
+                              moe_capacity_factor=1.0)
+    params = T.init_params(cfg, gen)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "targets")}
+    grads = TS.value_and_grad(TS.make_loss_fn(cfg), remat=True)
+    with kernel_dispatch(KernelDispatch(default_impl="cuda")):
+        got = grads(params, batch)
+    want = grads(pytree.tree_map(lambda x: x.cpu(), params),
+                 pytree.tree_map(lambda x: x.cpu(), batch))
+    for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x22b", "arctic_480b"])
+def test_captured_donated_moe_train_steps_equal_eager(gen, arch):
+    """A small bf16 MoE model's train step (remat, capacity factor 1.0)
+    through one graph with its state donated: 4 steps' metrics and the
+    final state equal 4 eager steps exactly."""
+    from repro_torch import pytree
+    cfg, opt, step, plan = train_setup(arch, "bfloat16",
+                                       moe_capacity_factor=1.0)
+    captured = plan.apply(step, donate_argnums=0)
+    eager = plan.apply(step, capture=False)
+    state, want = train_state(cfg, opt), train_state(cfg, opt)
+    for batch in train_batches(gen, cfg, 4):
+        state, metrics = captured(state, batch)
+        want, want_metrics = eager(want, batch)
+        for k in ("loss", "ce", "grad_norm", "step"):
+            assert torch.equal(metrics[k], want_metrics[k]), k
+    assert captured.captures == 1 and captured.replays == 4
+    for a, b in zip(pytree.tree_leaves(state), pytree.tree_leaves(want)):
+        assert torch.equal(a, b)
+    (graph,) = captured.graphs
+    sites = 2 * cfg.num_layers if arch == "arctic_480b" else 0
+    assert graph.launches["flash_attention"] == sites
 
 
 def test_a_kept_result_is_not_overwritten_by_the_next_call(gen):

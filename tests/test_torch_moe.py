@@ -13,7 +13,7 @@ reduced configs' capacity factor 4.0 (no token dropped) and at 1.0
 greedy tokens of the serve loop, ``top_k``'s values and indices on
 inputs full of ties, the tokens each expert selects, ``param_logical_axes``,
 the MoE block's logical specs under the manual rules and the carried
-parameters.
+parameters.  Training is held in ``tests/test_torch_moe_train.py``.
 
 *Ties.*  ``lax.top_k`` puts the lower index first among equal values;
 ``torch.topk`` promises no order, so the port's ``layers.top_k`` is a
@@ -323,14 +323,17 @@ class TestParams:
                 assert tuple(TS.spec_for(n)) == tuple(JS.spec_for(n)), n
 
     def test_training_and_meshes_raise_item_10b(self):
-        """Item 10b took MoE onto meshes (``tests/test_torch_moe_mesh.py``);
-        training stays refused, now citing item 10c, by the one guard
-        ``make_train_step`` and the training launcher share."""
+        """Item 10b took MoE onto meshes (``tests/test_torch_moe_mesh.py``)
+        and item 10c MoE training on one device: the one guard
+        ``make_train_step`` and the training launcher share lets an MoE
+        model train here (no process group) and refuses it on two or more
+        ranks only, citing item 10d (``tests/test_torch_moe_train.py``)."""
         from repro_torch.train.steps import check_trainable
         cfg = get_config("mixtral_8x22b").reduced()
-        with pytest.raises(NotImplementedError, match="item 10c"):
-            specs.step_and_inputs(cfg, ShapeConfig("s", 64, 4, "train"))
-        with pytest.raises(NotImplementedError, match="item 10c"):
-            check_trainable(cfg)
+        fn, args, _ = specs.step_and_inputs(cfg,
+                                            ShapeConfig("s", 64, 4, "train"))
+        assert callable(fn) and len(args) == 2
+        check_trainable(cfg)
+        check_trainable(get_config("arctic_480b"))
         check_trainable(get_config("qwen2_05b"))
         assert not hasattr(T, "check_devices")

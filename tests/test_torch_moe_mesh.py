@@ -32,7 +32,7 @@ through ``kernels.ops``; on CPU tensors the kernels' plain versions):
   and ``--plan manual``: tokens equal to one process's.
 - The entry points on 2 ranks: ``plan.apply`` and the serving launcher
   run an MoE model; the training launcher and ``make_train_step``
-  refuse it, citing ROADMAP item 10c.
+  refuse it, citing ROADMAP item 10d (MoE training on meshes).
 
 The reference's plans (JSON from the JAX package) run in
 ``tests/test_torch_moe_mesh_plans.py``; the collectives against GSPMD's
@@ -486,10 +486,12 @@ def test_serving_launcher_equals_one_process(two, four, one_process, ranks):
 
 def test_moe_entry_points_run_on_two_ranks_training_raises_item_10c(two):
     """``plan.apply`` and the serving launcher run an MoE model on two
-    ranks; the training launcher (before it makes anything) and
-    ``make_train_step`` refuse it, citing item 10c."""
+    ranks; the training launcher (after joining the group, before it
+    makes anything) and ``make_train_step`` refuse it, citing item 10d
+    (MoE training on meshes; item 10c trains MoE on one device)."""
     for r in two:
         assert len(r["prefill"]) == len(PREFILL["1x2"])
         assert len(r["serve"]) == len(ARCHS) * len(PLANS)
+        assert sorted(r["train"]) == ["launcher", "make_train_step"]
         for name, msg in r["train"].items():
-            assert msg is not None and "item 10c" in msg, (name, msg)
+            assert msg is not None and "item 10d" in msg, (name, msg)
