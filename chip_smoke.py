@@ -27,9 +27,10 @@ width on one card.
    built for, in both dtypes; RG-LRU: each case checks which route it
    took);
 3. trace and analyze both full-width prefill steps on ``meta`` tensors
-   (``Session``); the mesh phase: search each step's plan for a (data 1,
-   model 2) mesh, hand it as JSON to two ranks (processes of one gloo
-   group, CUDA tensors, both on card 0), which make the same seeded
+   (``Session``, in the worker process); the mesh phase: search each
+   step's plan for a (data 1, model 2) mesh, hand it as JSON to two
+   ranks (processes of one gloo group, CUDA tensors, both on card 0),
+   which make the same seeded
    weights, apply the plan eagerly over a ``DeviceMesh`` and answer 2
    requests per model, their kernel sites on local shards under
    ``local_map``; print each plan's in-spec summary and sharded sites,
@@ -122,7 +123,7 @@ width on one card.
    backwards; its small f32 model has two periods and the tail (8
    layers);
 7b. the MoE models, ``mixtral_8x22b`` and then ``arctic_480b``, each
-   at full width with random bf16 weights from the seed, cut to 8 and 2
+   at full width with random bf16 weights from the seed, cut to 4 and 2
    layers (what one card holds; each freed before the next): search the
    2x4 plans of the full-depth prefill and decode steps on ``meta``
    tensors (time to a plan, colors, conflicts, the expert weights'
@@ -139,7 +140,7 @@ width on one card.
    path as in 5, holding decode's logits after the prompt against
    prefill's only for rows whose prefill dropped no routed token;
 7c. the MoE models on two ranks of one gloo group sharing card 0, each
-   cut to what two ranks holding its weights fit (``mixtral_8x22b`` 4
+   cut to what two ranks holding its weights fit (``mixtral_8x22b`` 2
    layers, ``arctic_480b`` 1): the cut prefill step's (1, 2) plan and the
    serving launcher's decode plan for two devices searched on ``meta``
    tensors in the worker process (the plan's expert-weight specs and
@@ -171,6 +172,31 @@ width on one card.
    the routed pairs dropped to capacity and the router picks and expert
    tokens remat's recomputation chose otherwise than the forward (none,
    or it fails); step ms, peak, pool and reserved GB, launches per step;
+7e. MoE training on two ranks of one gloo group sharing card 0 (after
+   7d, its states freed): ``mixtral_8x22b`` at full width cut to 1
+   layer, B 1 x S 2048, AdamW with bf16 moments at 1e-4, remat: search
+   the cut train step's (1, 2) plan on ``meta`` tensors in the worker
+   process with a ``HardwareSpec`` whose ``hbm_per_chip`` is each rank's
+   share of the card (its conflicts, predicted peak, the tokens' and
+   the expert and router weights' specs); one card first takes 4 eager
+   steps from the seeded state on one fixed batch (the final state kept
+   on the host), the same steps with each product the plan splits
+   between the ranks taken as its two halves' sum (the regrouping
+   floor: each leaf's distance from the first run, and the router's
+   after step 1), and the same steps with the router's gradient scaled
+   by 0.9 (a planted fault: some leaf must land beyond its limit); then
+   each rank makes the seeded weights, places them leaf by leaf (the
+   moments as zeros in the plan's placements) and takes the 4 steps
+   through ``plan.apply(step, donate_argnums=0)``, each timed, its
+   collectives by kind and result bytes, the routed pairs dropped and
+   the router picks and expert tokens remat's recomputation chose
+   otherwise on the rank's shards (none, or it fails); every loss and
+   grad norm within 2e-2 of one card's, every leaf of the final state
+   (made whole on the host from the ranks' blocks) and the router's
+   after step 1 within its floor + 2e-2, the loss falling, no expert
+   stack, gradient or moment gathered whole; per rank the step ms (two
+   ranks time-sharing the card: not a multi-card figure), peak and
+   reserved GB;
 8. time each kernel at its slice shape beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` (a
    yardstick only: the port never calls it), and at ``arctic_480b``'s
@@ -184,7 +210,11 @@ width on one card.
 The decode, train and MoE steps are traced and their plans searched in
 one worker process (``meta`` tensors, no card) while the card runs the
 earlier phases; each phase takes its plans as JSON.  The MoE phases
-report the full-depth steps' plans and run the cut steps' plans.
+report the full-depth steps' plans and run the cut steps' plans.  The
+``kernels`` line's attention row carries the launches of each path:
+``launches_train_step``, ``launches_mesh``, ``launches_moe``,
+``launches_mesh_moe``, ``launches_moe_train_step`` and
+``launches_moe_train_mesh`` (per rank, phase 7e).
 
 Run from the root of a checkout: ``python3 chip_smoke.py [--seed N]``
 (the seed of the train path's weights and batch, 0 by default).  Needs one
@@ -272,15 +302,15 @@ MESH_LAUNCH_TIMEOUT = 600.0
 # (mixtral_8x22b: 5.008 GB a layer in bf16; arctic_480b: 27.22 GB a
 # layer), served at the qwen2_05b path's traffic; their plans are
 # searched for the full depth
-MOE_DEPTH = {"mixtral_8x22b": 8, "arctic_480b": 2}
+MOE_DEPTH = {"mixtral_8x22b": 4, "arctic_480b": 2}
 MOE_SHAPE = (4, 2048)
 # the MoE mesh phase: two ranks share card 0 on a (data 1, model 2) mesh,
 # each model cut to what two ranks holding its weights whole fit (the
-# serving route replicates them): mixtral_8x22b 4 x 5.008 + 0.81 GB,
+# serving route replicates them): mixtral_8x22b 2 x 5.008 + 0.81 GB,
 # arctic_480b 1 x 27.22 + 0.92 GB, twice; requests of MOE_SHAPE per
 # model, then one MESH_SERVE request through the serving route; the
 # group's wall-clock limit (seconds)
-MOE_MESH_DEPTH = {"mixtral_8x22b": 4, "arctic_480b": 1}
+MOE_MESH_DEPTH = {"mixtral_8x22b": 2, "arctic_480b": 1}
 MOE_MESH_REQUESTS = 2
 MOE_MESH_TIMEOUT = 600.0
 # MoE training at full width, cut in depth to what one card holds: a
@@ -298,6 +328,34 @@ MOE_MESH_TIMEOUT = 600.0
 # to 1 (as the hybrid's), AdamW with bf16 moments, remat on
 MOE_TRAIN_DEPTH = {"mixtral_8x22b": 1}
 MOE_TRAIN_SHAPE = (1, 4096)
+# MoE training on two ranks of one gloo group sharing card 0 (phase 7e):
+# mixtral_8x22b at full width cut to 1 layer, its (1, 2) train plan
+# searched with each rank's share of the card as TOAST's memory budget.
+# Per rank, the experts and the embeddings sharded two ways: the state
+# ~9.0 GB, the step's new state beside it +9.0, the gradients and the
+# clipped ones ~3.0 each, AdamW's f32 temporaries of the largest leaf
+# (8, 3072, 16384) 1.6 GB each, and at S 4096 the windowed attention's
+# f32 scores, probabilities and their cotangent 3.2 GB each (the
+# residual runs whole in the sequence, its features sharded): ~36-40 GB
+# a rank, near the card's 79.6 GB for both with their CUDA contexts.
+# The cut to S 2048 leaves a margin, and one card runs the same steps
+# three times at this shape (plain, regrouped, with a planted fault;
+# ~66 GB each).  Steps on one fixed batch from the seed; the group's
+# wall-clock limit (seconds)
+MOE_MESH_TRAIN_DEPTH = {"mixtral_8x22b": 1}
+MOE_MESH_TRAIN_SHAPE = (1, 2048)
+MOE_MESH_TRAIN_STEPS = 4
+MOE_MESH_TRAIN_TIMEOUT = 600.0
+# its optimizer: 7d's, at a tenth of the rate: at 1e-3 the 4 steps
+# memorize the batch (loss 10.9 -> 0.1), and the last steps' gradients,
+# tiny and noisy, leave moments that any regrouping of the bf16 sums
+# moves by 20-37% (measured on an H100 80GB HBM3 at 700 W)
+MOE_MESH_TRAIN_OPT = dict(HYBRID_TRAIN_OPT, lr=1e-4)
+# the router's leaves (its weight and moments), whose gradient is the
+# noisiest: checked after step 1 too, and the planted fault of phase 7e
+# (its gradient scaled by ROUTER_FAULT) must fail the leaf checks
+ROUTER = "['ffn']['wg']"
+ROUTER_FAULT = 0.9
 # H100 SXM data sheet (dense bf16 FLOP/s, f32 FLOP/s outside the tensor
 # cores, HBM bytes/s)
 PEAK_BF16_FLOPS = 989e12
@@ -443,12 +501,14 @@ def lru_inputs(torch, gen, shape, dtype, lo=None, hi=None):
 
 
 def plan_job(kind: str, name: str, depth: int | None = None,
-             shape=None, opt_kw=None) -> dict:
+             shape=None, opt_kw=None, hbm: float | None = None) -> dict:
     """Host work of one phase, run in the worker process beside the
     card's phases (no card is touched): trace ``name``'s ``kind`` step
     on ``meta`` tensors (``Session``) and search its 2x4 and 1x1 plans.
 
-    ``kind`` is ``"prefill"`` (B x S of ``MOE_SHAPE``), ``"decode"`` (B
+    ``kind`` is ``"path"`` (the prefill step at ``shape``: its 2x4, 1x1
+    and (1, 2) plans, the last as the mesh phase plans it),
+    ``"prefill"`` (B x S of ``MOE_SHAPE``), ``"decode"`` (B
     of ``DECODE_SHAPE``, cache ``DECODE_MAX_SEQ``, the serving launcher's
     requests; with it the 1x1 plan of the prefill step on the decode
     path's prompts), ``"train"`` (``shape``, AdamW of ``opt_kw``) or
@@ -456,7 +516,10 @@ def plan_job(kind: str, name: str, depth: int | None = None,
     planned for (1, 2) with the default ``Request``, as the mesh phase
     plans its models, and for 1x1; with it the serving launcher's decode
     plan for two devices at ``MESH_SERVE``, whose rules the launcher's
-    ``toast_decode_rules`` searches).
+    ``toast_decode_rules`` searches) or ``"mesh train"`` (the train step
+    at ``shape``, AdamW of ``opt_kw``, planned for (1, 2) with a
+    ``HardwareSpec`` whose ``hbm_per_chip`` is ``hbm``, each rank's
+    share of the card).
     ``depth`` cuts the layers (``None``: the config's).  Returns the
     session's figures, each plan's JSON and what was checked on it.
     """
@@ -482,17 +545,25 @@ def plan_job(kind: str, name: str, depth: int | None = None,
     mesh8 = MeshSpec(("data", "model"), (2, 4))
     mesh1 = MeshSpec(("data", "model"), (1, 1))
     t0 = time.perf_counter()
-    if kind == "train":
+    if kind in ("train", "mesh train"):
         opt = AdamConfig(**opt_kw)
         bspec, _ = specs.batch_specs(cfg, ShapeConfig("train", shape[1],
                                                       shape[0], "train"))
         sess = Session(TS.make_train_step(cfg, opt),
                        (TS.train_state_specs(cfg, opt), bspec))
         reqs = {"2x4": Request(mesh=mesh8), "1x1": Request(mesh=mesh1)}
-    elif kind in ("prefill", "mesh"):
-        sess = Session(TS.make_prefill_step(cfg),
-                       (T.param_specs(cfg), meta_tokens(*MOE_SHAPE)))
+        if kind == "mesh train":
+            from repro_torch.core.cost_model import HardwareSpec
+            reqs = {"1x2": Request(
+                mesh=MeshSpec(("data", "model"), MESH_SHAPE),
+                hw=dataclasses.replace(HardwareSpec(), hbm_per_chip=hbm))}
+    elif kind in ("prefill", "mesh", "path"):
+        sess = Session(TS.make_prefill_step(cfg), (T.param_specs(cfg),
+                       meta_tokens(*(shape if kind == "path" else MOE_SHAPE))))
         reqs = {"2x4": Request(mesh=mesh8), "1x1": Request(mesh=mesh1)}
+        if kind == "path":
+            reqs["1x2"] = Request(mesh=MeshSpec(("data", "model"),
+                                                MESH_SHAPE))
         if kind == "mesh":
             reqs = {"1x2": Request(mesh=MeshSpec(("data", "model"),
                                                  MESH_SHAPE)),
@@ -523,6 +594,7 @@ def plan_job(kind: str, name: str, depth: int | None = None,
         out["plans"][label] = plan.to_json()
         out["constraints"][label] = [c.target for c in req.constraints]
     out["seconds"] = time.perf_counter() - t0
+    out["hbm"] = hbm
     if kind == "decode":
         psess = Session(TS.make_prefill_step(cfg),
                         (T.param_specs(cfg), meta_tokens(*DECODE_SHAPE)))
@@ -543,33 +615,24 @@ def plan_of(job: dict, label: str):
     return ShardingPlan.from_json(job["plans"][label])
 
 
-def prefill_session(torch, cfg, shape):
-    """Trace and analyze one model's full-width prefill step on ``meta``
-    tensors (``Session``); logs a ``[session ...]`` line."""
-    from repro_torch.api import Session
-    from repro_torch.models import transformer as T
-    from repro_torch.train.steps import make_prefill_step
-
+def log_session(cfg, shape, job) -> None:
+    """The ``[session ...]`` line of one model's full-width prefill step,
+    traced and analyzed on ``meta`` tensors in the worker process (its
+    ``"path"`` :func:`plan_job`)."""
     B, S = shape
-    batch_spec = {"tokens": torch.empty((B, S), dtype=torch.int32,
-                                        device="meta")}
-    sess = Session(make_prefill_step(cfg), (T.param_specs(cfg), batch_spec))
-    art = sess.artifacts
-    log(f"[session {cfg.name}] B={B} S={S}: {len(art.prog.ops)} ops, "
-        f"{len(art.nda.color_summary())} colors, "
-        f"{len(art.analysis.conflicts)} conflicts, phases "
-        + json.dumps({k: round(v, 4) for k, v in
-                      art.phase_seconds.items()}))
-    return sess
+    st = job["stats"]
+    log(f"[session {cfg.name}] B={B} S={S}: {st['ops']} ops, "
+        f"{st['colors']} colors, {st['conflicts']} conflicts, phases "
+        + json.dumps(st["phases"]) + " (worker process)")
 
 
-def drive_path(torch, cfg, sess, shape, counters, kernel, per_request,
+def drive_path(torch, cfg, job, shape, counters, kernel, per_request,
                card):
     """Plan and serve one model's prefill path.
 
     Args:
         cfg: the full-width model configuration (``use_pallas`` set).
-        sess: its prefill step's ``Session`` (:func:`prefill_session`).
+        job: the ``"path"`` :func:`plan_job` result of its prefill step.
         shape: prompts x tokens of each request.
         counters: kernel name -> its wrapper module (``launches``).
         kernel: the kernel this path runs.
@@ -583,7 +646,6 @@ def drive_path(torch, cfg, sess, shape, counters, kernel, per_request,
     from repro_torch.api import Request, Session
     from repro_torch.configs import get_config
     from repro_torch.core.cost_model import MeshSpec
-    from repro_torch.core.partitioner import ShardingPlan
     from repro_torch.models import transformer as T
     from repro_torch.train.steps import make_prefill_step
 
@@ -591,15 +653,13 @@ def drive_path(torch, cfg, sess, shape, counters, kernel, per_request,
     name = cfg.name
     step = make_prefill_step(cfg)
 
-    plan8 = sess.partition(Request(mesh=MeshSpec(("data", "model"), (2, 4))))
-    if ShardingPlan.from_json(plan8.to_json()).as_dict() != plan8.as_dict():
-        raise AssertionError("2x4 plan JSON does not round-trip")
+    plan8 = plan_of(job, "2x4")       # its JSON round trip checked there
     log(f"[partition {name} 2x4] cost={plan8.cost:.6f} "
         f"kernel_sites={len(plan8.kernel_sites)} "
         f"search={plan8.search_seconds:.3f} s "
         f"evaluations={plan8.evaluations} json round-trip ok")
 
-    plan1 = sess.partition(Request(mesh=MeshSpec(("data", "model"), (1, 1))))
+    plan1 = plan_of(job, "1x1")
     sites = {r["site"]: r["impl"] for r in plan1.kernel_sites}
     if not sites or set(sites.values()) != {"cuda"} or \
             any(not s.startswith(kernel + ":") for s in sites):
@@ -829,7 +889,8 @@ def drive_mesh(torch, sessions, shapes, per_request, card) -> dict:
     mesh and answer requests on two ranks sharing card 0 over gloo.
 
     Args:
-        sessions: model name -> its prefill ``Session``.
+        sessions: model name -> its prefill step's ``"path"``
+            :func:`plan_job` result (its (1, 2) plan).
         shapes: model name -> prompts x tokens of each request.
         per_request: model name -> (its kernel, launches per request).
         card: the card's name and power limit, for the time lines.
@@ -837,8 +898,6 @@ def drive_mesh(torch, sessions, shapes, per_request, card) -> dict:
     Returns:
         Model name -> the two ranks' results (:func:`mesh_rank`).
     """
-    from repro_torch.api import Request
-    from repro_torch.core.cost_model import MeshSpec
     from repro_torch.launch.mesh import run_ranks
 
     torch.cuda.synchronize()
@@ -847,9 +906,8 @@ def drive_mesh(torch, sessions, shapes, per_request, card) -> dict:
         f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved, "
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
     jobs = {}
-    for name, sess in sessions.items():
-        plan = sess.partition(Request(mesh=MeshSpec(("data", "model"),
-                                                    MESH_SHAPE)))
+    for name, job in sessions.items():
+        plan = plan_of(job, "1x2")
         specs = collections.Counter(str(tuple(s)) for s in plan.in_specs)
         sharded = {r["site"]: str(tuple(r["in_specs"][0]))
                    for r in plan.kernel_sites if r["sharded"]}
@@ -1541,12 +1599,13 @@ def drive_moe(torch, name, counters, card, full_jobs, jobs) -> dict:
     return {"launches": captured, "site_errs": site_errs}
 
 
-def place_in_place(applied, params) -> None:
-    """Place ``params`` (the first argument of ``applied``'s step) as the
-    plan's ``in_specs``, leaf by leaf, in its dicts: each entry is
-    rebound to its block as soon as the block is made, so the full leaf
-    is freed then (a full-width arctic layer, held whole and placed at
-    once by two ranks on one card, would not fit)."""
+def place_in_place(applied, params, prefix: str = "[0][0]") -> None:
+    """Place ``params`` (the first argument of ``applied``'s step, or the
+    subtree of it at ``prefix``) as the plan's ``in_specs``, leaf by
+    leaf, in its dicts: each entry is rebound to its block as soon as
+    the block is made, so the full leaf is freed then (a full-width
+    arctic layer, held whole and placed at once by two ranks on one
+    card, would not fit)."""
     import torch
     from torch.distributed.tensor import distribute_tensor
     mesh = applied.mesh
@@ -1567,16 +1626,18 @@ def place_in_place(applied, params) -> None:
                 d = d.clone()
             del v
             node[k] = d
-    walk(params, "[0][0]")
+    walk(params, prefix)
 
 
 def expert_stack_gathers(shapes, cfg) -> dict:
     """The all-gathers among ``collective_tally`` shapes whose result is
-    a whole expert stack, (E, d, f) or (E, f, d)."""
+    a whole expert stack, (E, d, f) or (E, f, d), on any dim."""
+    from repro_torch.launch.mesh import gathered_shapes
     e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
     return {str(k): n for k, n in shapes.items()
-            if k[0].startswith("all_gather") and len(k[1]) >= 3 and
-            tuple(k[1][-3:]) in ((e, d, f), (e, f, d))}
+            if k[0].startswith("all_gather") and any(
+                len(g) >= 3 and g[-3:] in ((e, d, f), (e, f, d))
+                for g in gathered_shapes(k[1]))}
 
 
 def moe_mesh_rank(rank, jobs, n_requests):
@@ -1919,6 +1980,507 @@ def drive_moe_train(torch, name, counters, card, seed: int, full_job,
     out["seconds"] = time.perf_counter() - t_start
     log(f"[elapsed] {name} MoE train phase {out['seconds']:.1f} s")
     return out
+
+
+def plan_splits(plan) -> dict:
+    """The parameters a (1, 2) plan shards on its ``model`` axis: each
+    leaf's path (as ``pytree.flatten_with_paths`` of the parameters gives
+    it) -> the sharded dim of the weight each layer takes (a stacked
+    leaf's layer dim left out; a leaf sharded on its layer dim is left
+    out too: its layer is handed whole to both ranks)."""
+    out = {}
+    for path, spec in zip(plan.input_paths, plan.in_specs):
+        if not path.startswith("[0][0].params"):
+            continue
+        on = [k for k, s in enumerate(spec) if s == "model" or (
+            isinstance(s, (tuple, list)) and "model" in s)]
+        path = path[len("[0][0].params"):]
+        k = on[0] - ("['layers']" in path) if len(on) == 1 else -1
+        if k >= 0:
+            out[path] = k
+    return out
+
+
+@contextlib.contextmanager
+def split_products(params, splits: dict):
+    """Each product of the model whose weight the plan shards on a dim
+    the product contracts, taken as the sum of that contraction's two
+    halves, each half rounded to the product's dtype first: what two
+    ranks compute when each takes its half and the pending sum is
+    reduced.  Other products run as they are.
+
+    ``params``: the step's parameters; ``splits``: :func:`plan_splits`.
+    A weight is known by its storage (each layer of a stacked leaf by its
+    own); the products are ``matmul`` and ``einsum`` of
+    ``models.layers`` and ``matmul`` of ``models.transformer``, swapped
+    while the context is open (as :class:`MoESelections` swaps
+    ``top_k``), the recomputation of remat included.
+    """
+    import torch
+
+    from repro_torch import pytree
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    at = {}
+    for x, path in zip(*pytree.flatten_with_paths(params)):
+        if path in splits:
+            for w in (x.unbind(0) if "['layers']" in path else (x,)):
+                at[w.data_ptr()] = splits[path]
+    saved = L.matmul, L.einsum, T.matmul
+
+    def matmul(x, w):
+        if at.get(w.data_ptr()) != w.ndim - 2:
+            return saved[0](x, w)
+        h = w.shape[-2] // 2
+        return x[..., :h] @ w[..., :h, :] + x[..., h:] @ w[..., h:, :]
+
+    def einsum(eq, *ops):
+        ins, out = eq.replace(" ", "").split("->")
+        specs = ins.split(",")
+        c = next((sp[at[o.data_ptr()]] for o, sp in zip(ops, specs)
+                  if o.data_ptr() in at and sp[at[o.data_ptr()]] not in out),
+                 None)
+        if c is None:
+            return saved[1](eq, *ops)
+        n = next(o.shape[sp.index(c)] for o, sp in zip(ops, specs)
+                 if c in sp)
+        return sum(torch.einsum(eq, *[
+            o.narrow(sp.index(c), a, m) if c in sp else o
+            for o, sp in zip(ops, specs)])
+            for a, m in ((0, n // 2), (n // 2, n - n // 2)))
+    L.matmul, L.einsum, T.matmul = matmul, einsum, matmul
+    try:
+        yield
+    finally:
+        L.matmul, L.einsum, T.matmul = saved
+
+
+def regrouped_step(cfg, opt, splits: dict):
+    """``make_train_step``'s step with the products the plan splits
+    between the two ranks regrouped as they regroup them
+    (:func:`split_products`): the same math, rounded otherwise; its
+    distance from the plain step's run bounds the two ranks' (7e)."""
+    from repro_torch.train import steps as TS
+    step = TS.make_train_step(cfg, opt)
+
+    def run(state, batch):
+        with split_products(state.params, splits):
+            return step(state, batch)
+    return run
+
+
+def router_fault_step(cfg, opt, scale: float):
+    """``make_train_step``'s loss, gradients and update with the router's
+    gradient scaled by ``scale``: the planted fault phase 7e's leaf
+    checks must see (AdamW's update is all but blind to the scale, so
+    only the router's moments show it)."""
+    from repro_torch import pytree
+    from repro_torch.optim import adam
+    from repro_torch.train import steps as TS
+    grads_of = TS.value_and_grad(TS.make_loss_fn(cfg), remat=cfg.remat)
+
+    def step(state, batch):
+        loss, _, grads = grads_of(state.params, batch)
+        leaves, paths = pytree.flatten_with_paths(grads)
+        grads = pytree.unflatten(grads, [
+            g * scale if p.endswith(ROUTER) else g
+            for g, p in zip(leaves, paths)])
+        params, opt_state, gnorm = adam.apply_updates(
+            opt, state.opt, state.params, grads)
+        return TS.TrainState(params, opt_state), {"loss": loss,
+                                                  "grad_norm": gnorm}
+    return step
+
+
+def positives(t) -> int:
+    """The entries of ``t`` above zero (a DTensor's, on every rank)."""
+    n = (t > 0).sum()
+    return int(n.full_tensor() if hasattr(n, "full_tensor") else n)
+
+
+def local_selections(record) -> list:
+    """``record``'s top-k calls (:class:`MoESelections`) on this rank's
+    blocks: each input, values and indices as local tensors."""
+    return [tuple(t.to_local() if hasattr(t, "to_local") else t
+                  for t in call) for call in record.calls]
+
+
+def moe_mesh_train_rank(rank, plan_json, depth, seed, out_dir):
+    """One of the two ranks that share card 0 in the MoE mesh train phase
+    (7e): make the seeded weights and place them leaf by leaf as the
+    (1, 2) plan says, the moments as zeros in their own placements, then
+    take ``MOE_MESH_TRAIN_STEPS`` steps through ``plan.apply(step,
+    donate_argnums=0)`` on the fixed seeded batch, each timed on the
+    host clock with the card synchronized, under the collective tally,
+    its capacity selections recorded on this rank's blocks.  The final
+    state's local blocks and their placements go to ``out_dir``.
+    Returns what the rank counted, and the router's leaves after step 1
+    (``first``)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.core.partitioner import ShardingPlan
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train import steps as TS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = "mixtral_8x22b"
+    cfg = dataclasses.replace(get_config(name), use_pallas=True,
+                              num_layers=depth)
+    opt = AdamConfig(**MOE_MESH_TRAIN_OPT)
+    B, S = MOE_MESH_TRAIN_SHAPE
+    applied = ShardingPlan.from_json(plan_json).apply(
+        TS.make_train_step(cfg, opt), donate_argnums=0)
+    mesh = applied.mesh
+    placements = dict(zip(applied.plan.input_paths,
+                          applied.plan.torch_in_placements(mesh)))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed))
+    place_in_place(applied, params, "[0][0].params")
+    leaves, paths = pytree.flatten_with_paths(params)
+    dt = getattr(torch, opt.state_dtype)
+    moments = {}
+    for tree in ("m", "v"):
+        moments[tree] = pytree.unflatten(params, [distribute_tensor(
+            torch.zeros(x.shape, dtype=dt, device="cuda"), mesh,
+            placements[f"[0][0].opt.{tree}{p}"], src_data_rank=None)
+            for x, p in zip(leaves, paths)])
+    step_count = distribute_tensor(
+        torch.zeros((), dtype=torch.int32, device="cuda"), mesh,
+        placements["[0][0].opt.step"], src_data_rank=None)
+    state = TS.TrainState(params, adam.AdamState(step_count, moments["m"],
+                                                 moments["v"]))
+    tgen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=tgen,
+                           device="cuda", dtype=torch.int32)
+    batch = {k: distribute_tensor(v.contiguous(), mesh,
+                                  placements[f"[0][1][{k!r}]"],
+                                  src_data_rank=None)
+             for k, v in (("tokens", tokens[:, :-1]),
+                          ("targets", tokens[:, 1:]))}
+    del params, leaves, moments, tokens
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    state_gb = sum(x.to_local().numel() * x.to_local().element_size()
+                   for x in pytree.tree_leaves(state)) / 1e9
+    fa.launches = 0
+    rows, gathers = [], collections.Counter()
+    for i in range(1, MOE_MESH_TRAIN_STEPS + 1):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with M.collective_tally() as tally, MoESelections() as record:
+            state, m = applied(state, batch)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        # the capacity selection's pool of tokens, whole on every rank,
+        # and the routed pairs each layer's forward dropped (all ranks')
+        pool = record.calls[1][0].shape[-1]
+        dropped = [positives(x) - positives(w)
+                   for x, w, _ in record.calls[1:2 * cfg.num_layers:2]]
+        calls = local_selections(record)
+        del record
+        n = cfg.num_layers
+        fwd = [calls[2 * j:2 * j + 2] for j in range(n)]
+        again = [calls[2 * n + 2 * j:2 * n + 2 * j + 2]
+                 for j in range(n)][::-1]
+        gathers.update(expert_stack_gathers(tally.shapes, cfg))
+        rows.append({
+            "loss": m["loss"].full_tensor().item(),
+            "grad_norm": m["grad_norm"].full_tensor().item(), "ms": ms,
+            "calls": len(calls),
+            "dropped": dropped,
+            "router_moved": [int((f[0][2] != r[0][2]).sum())
+                             for f, r in zip(fwd, again)],
+            "tokens_moved": [moved(f[1][2], r[1][2], pool)
+                             for f, r in zip(fwd, again)],
+            "calls_by_kind": dict(tally.calls),
+            "bytes": dict(tally.bytes),
+            "comm_s": round(sum(tally.seconds.values()), 3)})
+        del calls, fwd, again
+        if i == 1:
+            # the router's leaves after step 1, whole (outside the tally)
+            first = {p: x.full_tensor().cpu() for x, p in
+                     zip(*pytree.flatten_with_paths(state))
+                     if p.endswith(ROUTER)}
+    out = {"rows": rows, "place_s": place_s, "state_gb": state_gb,
+           "first": first,
+           "launches": fa.launches, "expert_gathers": dict(gathers),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+    leaves, paths = pytree.flatten_with_paths(state)
+    t0 = time.perf_counter()
+    torch.save({"paths": paths,
+                "placements": [[("shard", p.dim) if type(p).__name__ ==
+                                "Shard" else ("replicate",)
+                                if p.is_replicate() else (str(p),)
+                                for p in x.placements] for x in leaves],
+                "locals": [x.to_local().cpu() for x in leaves]},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    out["save_s"] = time.perf_counter() - t0
+    return out
+
+
+def gathered_leaves(torch, out_dir, ranks: int):
+    """The final state's leaves of :func:`moe_mesh_train_rank`, made
+    whole on the host from the ranks' blocks ((1, 2) mesh: a shard on
+    the model axis joined, a replica taken from rank 0): path -> leaf."""
+    blocks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), mmap=True)
+              for r in range(ranks)]
+    out = {}
+    for i, path in enumerate(blocks[0]["paths"]):
+        data, model = blocks[0]["placements"][i]
+        if data[0] != "replicate" or model[0] not in ("shard", "replicate"):
+            raise AssertionError(f"{path}: placed {data}, {model}")
+        out[path] = torch.cat([b["locals"][i] for b in blocks], model[1]) \
+            if model[0] == "shard" else blocks[0]["locals"][i]
+    return out
+
+
+def drive_moe_mesh_train(torch, card, seed: int, job) -> dict:
+    """The MoE mesh train phase (7e): ``mixtral_8x22b`` at full width cut
+    to ``MOE_MESH_TRAIN_DEPTH`` layers trained on two ranks of one gloo
+    group sharing card 0, against one card.
+
+    One card first, eagerly, from the seeded state and batch: the train
+    step, ``MOE_MESH_TRAIN_STEPS`` steps (its final state kept on the
+    host); the same steps with the products the plan splits regrouped as
+    the two ranks regroup them (:func:`regrouped_step`), each leaf's
+    relative distance from the first run's the regrouping floor (and the
+    router's leaves' after step 1, their floor after one step); the same
+    steps with the router's gradient scaled by ``ROUTER_FAULT``
+    (:func:`router_fault_step`), a planted fault that must fail the leaf
+    checks.  Then the ranks (:func:`moe_mesh_train_rank`) take the same
+    steps through the (1, 2) plan.  Every loss and grad norm within
+    ``TRAIN_REL_TOL`` of one card's, every leaf, and the router's leaves
+    after step 1, within ``TRAIN_REL_TOL`` (relative, in norm) beyond
+    their floor, the loss falling, no router pick or expert token chosen
+    otherwise by remat's recomputation on either rank, and no expert
+    stack, gradient or moment gathered whole.
+
+    Args:
+        card: the card's name and power limit, for the time lines.
+        seed: the seed of the weights and the batch.
+        job: the ``"mesh train"`` :func:`plan_job` result.
+
+    Returns:
+        Each rank's attention launches.
+    """
+    import tempfile
+
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train import steps as TS
+
+    t_start = time.perf_counter()
+    name, depth = next(iter(MOE_MESH_TRAIN_DEPTH.items()))
+    cfg = dataclasses.replace(get_config(name), use_pallas=True,
+                              num_layers=depth)
+    B, S = MOE_MESH_TRAIN_SHAPE
+    opt = AdamConfig(**MOE_MESH_TRAIN_OPT)
+    plan = plan_of(job, "1x2")
+    specs = {p.split(".", 1)[1].split("['layers']")[0] + "." +
+             p.rsplit("[", 1)[1].strip("]'"): tuple(s)
+             for p, s in zip(plan.input_paths, plan.in_specs)
+             if "['ffn']" in p and p.endswith(("['wi']", "['wo']",
+                                                "['wg']"))}
+    tokens = tuple(plan.in_specs[plan.input_paths.index("[0][1]['tokens']")])
+    st = job["stats"]
+    log(f"[moe mesh train plan {name} 1x2] {depth} layer(s), B={B} S={S}, "
+        f"hbm_per_chip {job['hbm'] / 1e9:.3f} GB (each rank's "
+        f"share of the card): {job['seconds']:.3f} s to the plan in the "
+        f"worker process, {st['ops']} ops, {st['conflicts']} conflicts, "
+        f"cost {plan.cost:.6f}, predicted peak "
+        f"{plan.breakdown['peak_bytes'] / 1e9:.3f} GB per device, tokens "
+        f"{tokens}, expert and router weights {json.dumps(specs)}, rules "
+        f"{json.dumps(plan.logical_rules)}")
+    step = TS.make_train_step(cfg, opt)
+
+    def run(fn, label):
+        """``fn``'s steps from the seeded state and batch: the final
+        state, each step's figures, the router's leaves after step 1."""
+        state = TS.init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(seed), opt)
+        tgen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        tok = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=tgen,
+                            device="cuda", dtype=torch.int32)
+        batch = {"tokens": tok[:, :-1].contiguous(),
+                 "targets": tok[:, 1:].contiguous()}
+        rows = []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(1, MOE_MESH_TRAIN_STEPS + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = fn(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            rows.append({"loss": m["loss"].item(),
+                         "grad_norm": m["grad_norm"].item(),
+                         "ms": start.elapsed_time(end)})
+            if i == 1:
+                first = {p: x.cpu() for x, p in
+                         zip(*pytree.flatten_with_paths(state))
+                         if p.endswith(ROUTER)}
+        log(f"[moe mesh train {name} one card, {label}] {card}: losses "
+            + json.dumps([round(r["loss"], 6) for r in rows])
+            + ", grad norms "
+            + json.dumps([round(r["grad_norm"], 6) for r in rows])
+            + f", ms {fmt_ms([r['ms'] for r in rows])}, peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        return state, rows, first
+
+    def apart(got: dict, want: dict) -> dict:
+        """Each leaf's |got - want| / |want| (norms, on the card)."""
+        out = {}
+        for p, w in want.items():
+            a = got[p].to("cuda").double()
+            b = w.to("cuda").double()
+            out[p] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            del a, b
+        return out
+
+    def beyond(far: dict, floor: dict) -> dict:
+        """The leaves farther than their floor + ``TRAIN_REL_TOL``."""
+        return {p: (far[p], floor[p]) for p in far
+                if far[p] > floor[p] + TRAIN_REL_TOL}
+
+    state, one, one_first = run(step, "eager")
+    host = {p: x.cpu() for x, p in zip(*pytree.flatten_with_paths(state))}
+    del state
+    torch.cuda.empty_cache()
+    splits = plan_splits(plan)
+    log(f"[moe mesh train] products regrouped for the floor: those of "
+        f"{json.dumps(splits)} (leaf -> the layer weight's dim the plan "
+        f"shards on model)")
+    floors = {}
+    for label, fn in (
+            ("floor", regrouped_step(cfg, opt, splits)),
+            ("fault", router_fault_step(cfg, opt, ROUTER_FAULT))):
+        state, _, first = run(fn, {
+            "floor": "the plan's split products regrouped in halves",
+            "fault": f"router gradient x{ROUTER_FAULT}, a planted fault"}[
+                label])
+        floors[label] = (apart({p: x for x, p in zip(
+            *pytree.flatten_with_paths(state))}, host),
+            apart(first, one_first))
+        del state
+        torch.cuda.empty_cache()
+    floor, floor1 = floors["floor"]
+    caught = {**beyond(floors["fault"][0], floor),
+              **{p + " (step 1)": v for p, v in
+                 beyond(floors["fault"][1], floor1).items()}}
+    log(f"[moe mesh train {name}] planted fault (router gradient "
+        f"x{ROUTER_FAULT}) vs one card: "
+        + ", ".join(f"{p} {d:.3e} (limit {f + TRAIN_REL_TOL:.3e})"
+                    for p, (d, f) in caught.items())
+        + f"; {len(caught)} leaves beyond their limit")
+    if not caught:
+        raise AssertionError("the leaf checks cannot see the planted "
+                             "fault: floors too wide")
+    log(f"[moe mesh train] before the ranks the parent holds "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
+    with tempfile.TemporaryDirectory(prefix="moe-mesh-train-") as tmp:
+        t0 = time.perf_counter()
+        ranks = run_ranks(moe_mesh_train_rank, 2, job["plans"]["1x2"],
+                          depth, seed, tmp, timeout=MOE_MESH_TRAIN_TIMEOUT)
+        wall = time.perf_counter() - t0
+        far = apart(gathered_leaves(torch, tmp, 2), host)
+        del host
+        torch.cuda.empty_cache()
+    far1 = apart(ranks[0]["first"], one_first)
+    for rank, res in enumerate(ranks):
+        rows = res["rows"]
+        log(f"[moe mesh train {name} rank {rank}] {card}: state "
+            f"{res['state_gb']:.3f} GB placed in {res['place_s']:.3f} s, "
+            f"flash_attention launches {res['launches']}, expert stacks "
+            f"gathered whole {json.dumps(res['expert_gathers'])}, peak "
+            f"{res['peak_gb']:.2f} GB, reserved {res['reserved_gb']:.2f} "
+            f"GB, final blocks saved in {res['save_s']:.1f} s")
+        for i, r in enumerate(rows, 1):
+            log(f"[moe mesh train {name} rank {rank}] step {i}: loss "
+                f"{r['loss']:.6f} grad_norm {r['grad_norm']:.6f} "
+                f"{r['ms']:.1f} ms (host clock, card synchronized; two "
+                f"ranks time-sharing one H100 over gloo: not a multi-card "
+                f"figure); collectives {json.dumps(r['calls_by_kind'])}, "
+                f"result bytes {json.dumps(r['bytes'])}, host s "
+                f"{r['comm_s']}; routed pairs dropped to capacity per "
+                f"layer {r['dropped']} of {cfg.experts_per_token * B * S}; "
+                f"this rank's remat's "
+                f"recomputation chose otherwise router picks "
+                f"{r['router_moved']}, expert tokens {r['tokens_moved']}")
+        if any(sum(r["router_moved"]) + sum(r["tokens_moved"])
+               for r in rows) or any(
+                   r["calls"] != 4 * depth for r in rows):
+            raise AssertionError(f"rank {rank}: remat's recomputation "
+                                 f"selected otherwise than the forward")
+        if res["expert_gathers"]:
+            raise AssertionError(f"rank {rank}: expert stacks gathered "
+                                 f"whole")
+        if res["launches"]:
+            raise AssertionError(f"rank {rank}: the windowed attention "
+                                 f"launched the kernel")
+    rows = ranks[0]["rows"]
+    for key in ("loss", "grad_norm"):
+        worst = max(abs(r[key] - o[key]) / abs(o[key])
+                    for r, o in zip(rows, one))
+        log(f"[moe mesh train {name}] {key} per step on two ranks "
+            + json.dumps([round(r[key], 6) for r in rows])
+            + f" vs one card's, worst rel {worst:.3e} (tol {TRAIN_REL_TOL})")
+        if worst > TRAIN_REL_TOL or any(
+                r[key] != q[key] for r, q in zip(rows, ranks[1]["rows"])):
+            raise AssertionError(f"two ranks' {key} disagree with one "
+                                 f"card's or with each other")
+    for label, keep in (("parameters", lambda p: p.startswith(".params")),
+                        ("optimizer state",
+                         lambda p: not p.startswith(".params"))):
+        top = sorted((p for p in far if keep(p)), key=far.get,
+                     reverse=True)[:3]
+        log(f"[moe mesh train {name}] final {label} on two ranks vs one "
+            f"card: worst |a-b|/|b| "
+            + ", ".join(f"{p} {far[p]:.3e} (floor {floor[p]:.3e})"
+                        for p in top)
+            + f"; tol floor + {TRAIN_REL_TOL}")
+    log(f"[moe mesh train {name}] router after step 1 on two ranks vs one "
+        f"card: " + ", ".join(f"{p} {far1[p]:.3e} (floor {floor1[p]:.3e})"
+                              for p in far1)
+        + f"; tol floor + {TRAIN_REL_TOL}")
+    worse = {**beyond(far, floor),
+             **{p + " (step 1)": v for p, v in beyond(far1, floor1).items()}}
+    if worse:
+        raise AssertionError(f"leaves beyond the regrouping floor: {worse}")
+    if not all(math.isfinite(r["loss"]) for r in rows) or \
+            rows[-1]["loss"] >= rows[0]["loss"]:
+        raise AssertionError(f"losses {[r['loss'] for r in rows]} not "
+                             f"finite or not falling")
+    med = percentile([r["ms"] for r in rows[1:]], 0.5)
+    per_step = {k: sum(r["bytes"].get(k, 0) for r in rows[1:]) /
+                (len(rows) - 1) for k in rows[-1]["bytes"]}
+    log(f"[moe mesh train time] {card}: {name} ({depth} layer) B={B} "
+        f"S={S}: steps 2-{MOE_MESH_TRAIN_STEPS} median {med:.1f} ms a rank "
+        f"(step 1 {rows[0]['ms']:.1f}; one card eager "
+        f"{percentile([o['ms'] for o in one[1:]], 0.5):.1f}); collectives "
+        f"per step {sum(per_step.values()) / 1e9:.3f} GB "
+        + json.dumps({k: round(v / 1e9, 4) for k, v in per_step.items()})
+        + f"; peak {max(r['peak_gb'] for r in ranks):.2f} GB a rank vs "
+        f"predicted {plan.breakdown['peak_bytes'] / 1e9:.2f} GB; "
+        f"{wall:.1f} s wall for the ranks")
+    log(f"[elapsed] MoE mesh train phase "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return {name: [r["launches"] for r in ranks]}
 
 
 def train_sites(cfg) -> dict:
@@ -2639,6 +3201,10 @@ def main(argv=None) -> int:
         1, mp_context=multiprocessing.get_context("spawn"))
     try:
         jobs = {}
+        for name, shape in (("qwen2_05b", QWEN_SHAPE),
+                            ("recurrentgemma_2b", HYBRID_SHAPE)):
+            jobs["path", name] = pool.submit(plan_job, "path", name, None,
+                                             shape)
         for name, train in (("qwen2_05b", (TRAIN_SHAPE, TRAIN_OPT)),
                             ("recurrentgemma_2b",
                              (HYBRID_TRAIN_SHAPE, HYBRID_TRAIN_OPT))):
@@ -2660,6 +3226,12 @@ def main(argv=None) -> int:
                 jobs["train", name, d] = pool.submit(
                     plan_job, "train", name, d, MOE_TRAIN_SHAPE,
                     HYBRID_TRAIN_OPT)
+        # each of the two ranks' share of the card, TOAST's memory budget
+        share = torch.cuda.get_device_properties(0).total_memory / 2
+        for name, depth in MOE_MESH_TRAIN_DEPTH.items():
+            jobs["mesh train", name, depth] = pool.submit(
+                plan_job, "mesh train", name, depth, MOE_MESH_TRAIN_SHAPE,
+                MOE_MESH_TRAIN_OPT, share)
         return run_phases(torch, opts, t_start, jobs)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
@@ -2762,8 +3334,10 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
 
     # -- 3: trace both prefill steps; the mesh phase ------------------------
     n_lru = sum(k == "rglru" for k in hybrid.pattern)
-    sessions = {qwen.name: prefill_session(torch, qwen, QWEN_SHAPE),
-                hybrid.name: prefill_session(torch, hybrid, HYBRID_SHAPE)}
+    sessions = {cfg.name: jobs["path", cfg.name].result()
+                for cfg in (qwen, hybrid)}
+    log_session(qwen, QWEN_SHAPE, sessions[qwen.name])
+    log_session(hybrid, HYBRID_SHAPE, sessions[hybrid.name])
     mesh = drive_mesh(torch, sessions,
                       {qwen.name: QWEN_SHAPE, hybrid.name: HYBRID_SHAPE},
                       {qwen.name: ("flash_attention", qwen.num_layers),
@@ -2844,6 +3418,16 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
             jobs["train", name, depth].result())
         torch.cuda.empty_cache()
 
+    # -- 7e: MoE training on two ranks sharing the card ---------------------
+    log(f"[graphs released] before the MoE mesh train phase: "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
+    moe_mesh_train = {}
+    for name, depth in MOE_MESH_TRAIN_DEPTH.items():
+        moe_mesh_train.update(drive_moe_mesh_train(
+            torch, card, opts.seed,
+            jobs["mesh train", name, depth].result()))
+        torch.cuda.empty_cache()
+
     # -- 8: each kernel's time at its slice shape ----------------------------
     fa_row = time_fa(fa, torch, gen, card, B, S, H, hd, plain=True)
     fa_row.update(launches=fa_launches, max_abs_err=fa_err,
@@ -2861,6 +3445,7 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
     fa_row["launches_moe_train_step"] = {
         k: v["launches_per_step"]["flash_attention"]
         for k, v in moe_train.items()}
+    fa_row["launches_moe_train_mesh"] = moe_mesh_train
     fa_row["arctic_shape"] = {
         "shape": [*MOE_SHAPE, arctic.num_heads, arctic.resolved_head_dim],
         "max_abs_err": max(moe["arctic_480b"]["site_errs"]),

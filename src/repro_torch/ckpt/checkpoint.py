@@ -140,10 +140,13 @@ def _block(t: torch.Tensor, sharding: NamedSharding, device):
     coord = mesh.get_coordinate()
     block = t
     for i, p in enumerate(placements):
+        # torch 2.13's strided shard is no Shard (2.11's is): tested first
+        if isinstance(p, _StridedShard):
+            return distribute(t.to(device), sharding)
         if not p.is_shard():
             continue
         n = mesh.size(i)
-        if isinstance(p, _StridedShard) or block.shape[p.dim] % n:
+        if block.shape[p.dim] % n:
             return distribute(t.to(device), sharding)
         block = block.chunk(n, p.dim)[coord[i]]
     local = torch.empty(block.shape, dtype=block.dtype, device=device)

@@ -79,7 +79,25 @@ def compat_make_mesh(shape, axes, device=None):
         torch.cuda.set_device(local % torch.cuda.device_count())
         if dist.get_backend() == "gloo":
             route_gloo_all_gather()
-    return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+    mesh = init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+    if sum(s > 1 for s in shape) > 1:
+        # the mesh flattened: torch's DTensor (2.13) then reduces or
+        # gathers over several mesh dims in one collective, not one per
+        # mesh dim, as GSPMD does over a device group
+        _FLAT[id(mesh)] = (mesh, mesh._flatten())
+    return mesh
+
+
+# id of a mesh made by compat_make_mesh -> (the mesh, kept so that its id
+# is not reused, and the mesh flattened)
+_FLAT: dict = {}
+
+
+def flat_mesh(mesh):
+    """``mesh`` flattened to one dim, where :func:`compat_make_mesh` made
+    it (a mesh of two or more dims above one device); else ``None``."""
+    made, flat = _FLAT.get(id(mesh), (None, None))
+    return flat if made is mesh else None
 
 
 _ROUTED: list = []
@@ -398,7 +416,10 @@ def collective_tally():
     DTensor lowers every redistribution to functional collectives
     (``_c10d_functional.all_gather_into_tensor`` and the like, and its
     own ``_dtensor.shard_dim_alltoall``) on local tensors; the mode sees
-    those.  A functional collective may return before it completes, so
+    those.  On a CPU group DTensor's all-to-all runs as an all-gather and
+    a chunk: it is counted as the all-to-all (``shard_dim_alltoall``, the
+    block it returns), as it runs on a card's group and as GSPMD counts
+    it.  A functional collective may return before it completes, so
     the seconds of ``wait_tensor`` are kept too: the two sums bound the
     time a rank spends communicating.  Use it beside DTensor's
     ``CommDebugMode``, whose counts it repeats, for the bytes::
@@ -417,7 +438,7 @@ def collective_tally():
     import time
 
     import torch
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, placement_types
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class CollectiveTally(TorchDispatchMode):
@@ -427,6 +448,40 @@ def collective_tally():
             self.bytes = collections.Counter()
             self.seconds = collections.Counter()
             self.shapes = collections.Counter()
+            self._inner = 0
+
+        def __enter__(self):
+            # DTensor's all-to-all between two shards: on a CPU group it
+            # runs as an all-gather and a chunk, counted here as the
+            # all-to-all it stands for (the block it returns)
+            inner = placement_types.shard_dim_alltoall
+
+            def alltoall(*args, **kwargs):
+                self._inner += 1
+                t0 = time.perf_counter()
+                try:
+                    out = inner(*args, **kwargs)
+                finally:
+                    self._inner -= 1
+                if args[0].device.type == "cpu":
+                    self.seconds["shard_dim_alltoall"] += \
+                        time.perf_counter() - t0
+                    self._count("shard_dim_alltoall", [out])
+                return out
+            self._saved = inner
+            placement_types.shard_dim_alltoall = alltoall
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            placement_types.shard_dim_alltoall = self._saved
+            return super().__exit__(*exc)
+
+        def _count(self, name, outs):
+            self.calls[name] += 1
+            self.bytes[name] += sum(t.numel() * t.element_size()
+                                    for t in outs)
+            for t in outs:
+                self.shapes[name, tuple(t.shape)] += 1
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if any(t is DTensor for t in types):
@@ -435,21 +490,32 @@ def collective_tally():
             if getattr(func, "namespace", "") not in _COLLECTIVE_NAMESPACES \
                     or name not in _COLLECTIVES | {"wait_tensor"}:
                 return func(*args, **(kwargs or {}))
+            if self._inner and args and args[0].device.type == "cpu":
+                # the all-gather of a CPU all-to-all: counted as that
+                return func(*args, **(kwargs or {}))
             t0 = time.perf_counter()
             out = func(*args, **(kwargs or {}))
             self.seconds[name] += time.perf_counter() - t0
             if name != "wait_tensor":
-                outs = [t for t in (out if isinstance(out, (list, tuple))
-                                    else [out])
-                        if isinstance(t, torch.Tensor)]
-                self.calls[name] += 1
-                self.bytes[name] += sum(t.numel() * t.element_size()
-                                        for t in outs)
-                for t in outs:
-                    self.shapes[name, tuple(t.shape)] += 1
+                self._count(name, [t for t in (
+                    out if isinstance(out, (list, tuple)) else [out])
+                    if isinstance(t, torch.Tensor)])
             return out
 
     return CollectiveTally()
+
+
+def gathered_shapes(shape) -> list:
+    """The shapes an all-gather whose raw result is ``shape`` may hand
+    back.  ``collective_tally`` sees the functional all-gather's raw
+    result, the blocks stacked on dim 0; the caller gets that, or for a
+    group of 2, 4 or 8 the blocks joined on another dim."""
+    out = [tuple(shape)]
+    for n in (2, 4, 8):
+        if len(shape) > 1 and shape[0] % n == 0:
+            out += [(shape[0] // n, *shape[1:k], shape[k] * n,
+                     *shape[k + 1:]) for k in range(1, len(shape))]
+    return out
 
 
 # ---------------------------------------------------------------------------

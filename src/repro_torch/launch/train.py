@@ -46,11 +46,10 @@ Example (CPU, reduced config; two ranks)::
         --plan toast --device cpu
 
 Without ``--device`` it runs on the CUDA card (each rank on card
-``LOCAL_RANK % device_count``), and raises without one.  An MoE config
-(``mixtral_8x22b``, ``arctic_480b``) trains on one device; on two or more
-ranks the launcher refuses it after joining the group, before it makes
-anything (MoE training on meshes is ROADMAP queue 1, item 10d).  Only rank 0
-prints.  ``--compress`` is parsed and unused, as in the reference.
+``LOCAL_RANK % device_count``), and raises without one.  MoE configs
+(``mixtral_8x22b``, ``arctic_480b``) train on one device and on meshes
+alike, their expert stacks placed by the rules' ``"experts"`` entry.
+Only rank 0 prints.  ``--compress`` is parsed and unused, as in the reference.
 """
 
 from __future__ import annotations
@@ -73,8 +72,8 @@ from repro_torch.data.pipeline import DataConfig, Pipeline
 from repro_torch.device import resolve_device
 from repro_torch.jit import jit
 from repro_torch.launch import mesh as M
-from repro_torch.train.steps import (check_trainable, init_train_state,
-                                     make_train_step, train_state_specs)
+from repro_torch.train.steps import (init_train_state, make_train_step,
+                                     train_state_specs)
 
 
 class InjectedFailure(RuntimeError):
@@ -379,7 +378,6 @@ def main(argv=None) -> None:
     if args.reduced:
         cfg = cfg.reduced()
     M.init_from_env()
-    check_trainable(cfg)
     supervise(cfg, args)
 
 

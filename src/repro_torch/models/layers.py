@@ -418,7 +418,11 @@ def _expert_ffn(p, xe):
     lead = "bp"[:xe.ndim - 3]
     up = f"{lead}ecd,edf->{lead}ecf"
     xe = sharding.einsum_inputs(up, xe, p["wgate"])[0]
-    gate = einsum(up, xe, p["wgate"])
+    # a pending sum of the gate (its stack placed otherwise than the
+    # input's, e.g. sharded on its layers) reduced onto the input
+    # product's shard of the experts, not made whole
+    gate = sharding.reduced_for_einsum(einsum(up, xe, p["wgate"]), up, xe,
+                                       p["wi"])
     he = gate * torch.sigmoid(gate) * einsum(up, xe, p["wi"])
     he = constrain(he, ("act_batch", "experts", None, "hidden")[-he.ndim:])
     return einsum(f"{lead}ecf,efd->{lead}ecd", he, p["wo"])

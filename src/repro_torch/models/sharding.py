@@ -149,10 +149,35 @@ def gather_for(tree, x):
         if not is_dtensor(w) or \
                 all(w.placements[i].is_replicate() for i in batch):
             return w
-        return w.redistribute(w.device_mesh, [
+        return w.redistribute(w.device_mesh, _partnered(w.device_mesh, [
             Replicate() if i in batch else p
-            for i, p in enumerate(w.placements)])
+            for i, p in enumerate(w.placements)]))
     return pytree.tree_map(gather, tree)
+
+
+def _partnered(mesh, placements) -> list:
+    """``placements`` with every strided shard that lacks its partner
+    made whole (:func:`_lone_strided`): a layout torch's DTensor can
+    redistribute to.  Other placements are kept."""
+    from torch.distributed.tensor import Replicate
+    out = list(placements)
+    for i in range(len(out)):
+        if _lone_strided(mesh, out, i):
+            out[i] = Replicate()
+    return out
+
+
+def _lone_strided(mesh, placements, i: int) -> bool:
+    """Whether ``placements[i]`` is a strided shard without its partner,
+    the plain shard of its dim on a later mesh dim of its split factor
+    (no block layout: torch 2.11 refuses it)."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+    p = placements[i]
+    return isinstance(p, _StridedShard) and not any(
+        type(q) is Shard and q.dim == p.dim and
+        mesh.size(j) == p.split_factor
+        for j, q in enumerate(placements) if j > i)
 
 
 def placed_like(t, ref):
@@ -180,11 +205,49 @@ def reduced_onto(t, ref):
     """
     if not is_dtensor(t) or not is_dtensor(ref):
         return t
+    return _reduced_to(t, ref.placements)
+
+
+def _reduced_to(t, placements):
+    """``t`` with each pending sum reduced onto ``placements`` on that
+    mesh dim, unless that is a pending sum too (:func:`reduced_onto`)."""
     want = tuple(r if p.is_partial() and not r.is_partial() else p
-                 for p, r in zip(t.placements, ref.placements))
+                 for p, r in zip(t.placements, placements))
     if want == tuple(t.placements):
         return t
     return t.redistribute(t.device_mesh, want)
+
+
+def reduced_for_einsum(t, equation: str, *operands):
+    """``t`` with each pending sum reduced onto the placement that
+    :func:`einsum` gives ``einsum(equation, *operands)``'s result (a
+    reduce-scatter onto its shard, an all-reduce onto a replica), so
+    that the two meet without making ``t`` whole first; the einsum is
+    not run.  Plain tensors pass as they are."""
+    ref = next((x for x in operands if is_dtensor(x)), None)
+    if not is_dtensor(t) or ref is None:
+        return t
+    ins, out = equation.replace(" ", "").split("->")
+    _, (out_pl,) = _local_placements(ref.device_mesh, operands,
+                                     ins.split(","), [out])
+    return _reduced_to(t, out_pl)
+
+
+def reduced(t):
+    """``t`` with every pending sum reduced to a replica; plain tensors
+    pass as they are.
+
+    The loss head reduces its logits where a product over a sharded
+    d_model left them a pending sum, and its gold logit: a gather along
+    a sharded vocabulary leaves a masked pending sum whose mask has the
+    gather's shape, which torch's DTensor applies wrongly once a view
+    has dropped a dim (``squeeze``).
+    """
+    if not is_dtensor(t) or not any(p.is_partial() for p in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, [
+        Replicate() if p.is_partial() else p for p in t.placements])
 
 
 def embedding(tokens, table):
@@ -195,8 +258,10 @@ def embedding(tokens, table):
     on the table's shards, and its result is placed on those mesh dims
     as the tokens were (an all-to-all from the table's feature dim, a
     reduce-scatter from its vocabulary dim), as the reference's compiled
-    HLO does.  Gathering the table instead would move it whole every
-    call.
+    HLO does; but a mesh dim that shards both the tokens' sequence and
+    the table's features keeps the features sharded, as GSPMD does for
+    TOAST's MoE train plans of that shape.  Gathering the table instead
+    would move it whole every call.
     """
     import torch.nn.functional as F
     if not is_dtensor(table):
@@ -208,9 +273,49 @@ def embedding(tokens, table):
         Replicate() if i in on else p
         for i, p in enumerate(tokens.placements)])
     h = F.embedding(ids, table)
-    return h.redistribute(mesh, [
-        tokens.placements[i] if i in on else p
-        for i, p in enumerate(h.placements)])
+    # a mesh dim that shards the tokens' sequence and the table's
+    # features keeps the features sharded: the residual stream then runs
+    # whole in the sequence, and each product with a row-sharded weight
+    # leaves a pending sum reduced once (moving the sequence back would
+    # cost an all-to-all here and at every product)
+    want = [p if p.is_shard() and p.dim == 2 and
+            tokens.placements[i].is_shard() and tokens.placements[i].dim == 1
+            else tokens.placements[i] if i in on else p
+            for i, p in enumerate(h.placements)]
+    # a vocabulary-sharded table leaves a masked pending sum, its mask of
+    # the ids' shape: it is reduced first, while h keeps that shape
+    # (torch's DTensor applies it to a reshaped block otherwise), and
+    # its gradient must arrive as no pending sum, which DTensor cannot
+    # turn back into a masked one
+    first = [w if p.is_partial() else p for p, w in zip(h.placements, want)]
+    if first != list(h.placements):
+        h = h.redistribute(mesh, first)
+    return grad_settled(h.redistribute(mesh, want))
+
+
+def grad_settled(t):
+    """``t`` itself, its gradient placed as ``t`` is (pending sums made
+    replicas) before it flows on into ``t``'s producer.
+
+    The producer's backward then starts from a reduced gradient: a
+    ``local_map`` output that is a pending sum takes a replica as its
+    gradient (each rank's block backward needs the whole of it), and a
+    masked pending sum (a lookup in a vocabulary-sharded table) takes no
+    pending sum, which torch's DTensor cannot turn back into a masked
+    one.  Plain tensors, and tensors that take no gradient, pass as they
+    are.
+    """
+    if not is_dtensor(t) or not t.requires_grad:
+        return t
+    from torch.distributed.tensor import Replicate
+    want = tuple(Replicate() if p.is_partial() else p for p in t.placements)
+
+    def settle(g):
+        if tuple(g.placements) == want:
+            return g
+        return g.redistribute(g.device_mesh, want)
+    t.register_hook(settle)
+    return t
 
 
 def replicate_like(t, ref):
@@ -266,13 +371,20 @@ def layer(t, i: int):
     redistribute: the plain shard moves down a dim and the strided one
     stays.  Such a leaf, whose leading dim no mesh dim shards, is
     indexed on each rank's block instead, every shard moved down a dim.
-    Any other tensor takes ``t[i]`` itself.
+    A leaf whose layer dim one mesh dim shards takes the layer from the
+    rank that holds it (:func:`_owned_layer`).  Any other tensor takes
+    ``t[i]`` itself.
     """
+    from torch.distributed.tensor import Shard
     from torch.distributed.tensor.placement_types import _StridedShard
-    if not is_dtensor(t) or not any(isinstance(p, _StridedShard)
-                                    for p in t.placements) or any(
-            (p.is_shard() or isinstance(p, _StridedShard)) and p.dim == 0
-            for p in t.placements):
+    if not is_dtensor(t):
+        return t[i]
+    lead = [j for j, p in enumerate(t.placements)
+            if (p.is_shard() or isinstance(p, _StridedShard)) and p.dim == 0]
+    if len(lead) == 1 and type(t.placements[lead[0]]) is Shard and \
+            t.shape[0] % t.device_mesh.size(lead[0]) == 0:
+        return _owned_layer(t, i, lead[0])
+    if lead or not any(isinstance(p, _StridedShard) for p in t.placements):
         return t[i]
     from torch.distributed.tensor import DTensor
     return DTensor.from_local(
@@ -280,6 +392,29 @@ def layer(t, i: int):
         [_shard_on(p, p.dim - 1) if p.is_shard() or
          isinstance(p, _StridedShard) else p for p in t.placements],
         run_check=False, shape=t.shape[1:], stride=t.stride()[1:])
+
+
+def _owned_layer(t, i: int, j: int):
+    """Layer ``i`` of a stacked leaf whose layer dim mesh dim ``j`` shards
+    (alone): the rank that holds the layer hands it to the others, a
+    pending sum of its block and the others' zeros reduced on ``j``, as
+    GSPMD slices a layer-sharded stack inside its layer loop.  Indexing
+    the DTensor instead gathers the whole stack for every layer, and its
+    gradient too.  The other placements move down a dim."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = t.device_mesh
+    local = t.to_local()
+    owner, k = divmod(i, local.shape[0])
+    # the others' zeros stay in the graph (zero gradient), so every rank
+    # runs the same backward
+    piece = local[k] if mesh.get_coordinate()[j] == owner else local[k] * 0
+    pl = [_shard_on(p, p.dim - 1) if p.is_shard() else p
+          for p in t.placements]
+    out = DTensor.from_local(
+        piece, mesh, [Partial() if m == j else p for m, p in enumerate(pl)],
+        run_check=False, shape=t.shape[1:], stride=t.stride()[1:])
+    return out.redistribute(mesh, [Replicate() if m == j else p
+                                   for m, p in enumerate(pl)])
 
 
 def pointwise(fn, *args):
@@ -318,9 +453,11 @@ def matmul(x, w):
     product is therefore a batched one, ``x`` against ``w`` broadcast
     over the batch, which flattens nothing; counted in
     :data:`per_shard`.  A weight sharded only on mesh dims where ``x``
-    is replicated, a pending sum or sharded on its features stays where
-    it lies instead, as GSPMD keeps a decode plan's 2-D sharded weights:
-    ``x`` is moved to it and the product runs per shard
+    is replicated, a pending sum or sharded on its features, or where
+    ``x``'s sequence is sharded and the weight's rows, stays where it
+    lies instead, as GSPMD keeps a decode plan's 2-D sharded weights and
+    a train plan's row-sharded ones: ``x`` is moved to it (an all-to-all
+    from its sequence onto its features) and the product runs per shard
     (:func:`_local_placements`).  Plain tensors take ``@`` itself, so
     traced programs do not change.
     """
@@ -329,17 +466,30 @@ def matmul(x, w):
     import torch
     sharded = [i for i, p in enumerate(w.placements)
                if not p.is_replicate()] if is_dtensor(w) else []
-    if sharded and all(not x.placements[i].is_shard() or
-                       x.placements[i].dim % 3 == 2 for i in sharded):
+
+    def stays(i):
+        p, q = x.placements[i], w.placements[i]
+        return not p.is_shard() or p.dim % 3 == 2 or (
+            p.dim % 3 == 1 and q.is_shard() and q.dim == 0)
+    if sharded and all(stays(i) for i in sharded):
         # the weight stays where it lies (a decode plan's 2-D sharded
-        # weights) and x moves to it: a shard of its rows leaves a
-        # pending sum
+        # weights; a train plan's weights sharded on their rows against
+        # a sharded sequence) and x moves to it: a shard of its rows
+        # leaves a pending sum
         in_pl, out_pl = _local_placements(x.device_mesh, [w, x],
                                           ["df", "bsd"], ["bsf"],
                                           movable=(1,))
         per_shard["matmul stationary"] += 1
-        return _run_local(lambda w_, x_: x_ @ w_, x.device_mesh, [w, x],
-                          in_pl, out_pl)
+        out = _run_local(lambda w_, x_: x_ @ w_, x.device_mesh, [w, x],
+                         in_pl, out_pl)
+        # a pending sum where x's sequence was sharded is reduced back
+        # onto it (a reduce-scatter), as GSPMD returns the product
+        back = [x.placements[i] if p.is_partial() and
+                x.placements[i].is_shard() and x.placements[i].dim % 3 == 1
+                else p for i, p in enumerate(out.placements)]
+        if back != list(out.placements):
+            out = out.redistribute(out.device_mesh, back)
+        return out
     per_shard["matmul"] += 1
     return torch.bmm(x, w.expand(x.shape[0], *w.shape))
 
@@ -366,11 +516,13 @@ def _local_placements(mesh, operands, specs, outs, whole: str = "",
     mesh dim, the letters the operands shard there are tried in operand
     order, and the first that fits is kept.  A letter fits when the mesh
     dim divides it, it is not in ``whole``, and either every operand
-    with it is sharded on it alike there or replicated while every
-    operand without it is replicated there (an operand of ``movable``
-    may lie anyhow: it is moved), or every operand and output has it (a
-    batch letter).  The operands with the kept letter are sharded on it
-    (a slice of a replicated one, no collective; another is moved), the
+    with it is sharded on it alike there, replicated or a pending sum
+    (reduced onto the shard) while every operand without it is
+    replicated or a pending sum there (reduced whole; an operand of
+    ``movable`` may lie anyhow: it is moved), or every operand and
+    output has it (a batch letter).  The operands with the kept letter
+    are sharded on it (a slice of a replicated one, no collective;
+    another is moved), the
     rest replicated; an output with it is sharded on it, one without it
     (the letter was contracted away) is a pending sum (``Partial``).  A
     strided shard (``launch.mesh.placements_for``'s for two axes against
@@ -391,10 +543,7 @@ def _local_placements(mesh, operands, specs, outs, whole: str = "",
     out_pl = [[Replicate()] * mesh.ndim for _ in outs]
 
     def fits(i, x, p, letter, placed):
-        if isinstance(p, _StridedShard) and not any(
-                type(q) is Shard and q.dim == p.dim and
-                mesh.size(j) == p.split_factor
-                for j, q in enumerate(x.placements) if j > i):
+        if _lone_strided(mesh, x.placements, i):
             # not the layout placements_for gives (a reshape's)
             return None
         ways = mesh.size(i) * getattr(p, "split_factor", 1)
@@ -404,9 +553,15 @@ def _local_placements(mesh, operands, specs, outs, whole: str = "",
             return None
         want = [_shard_on(p, s.index(letter)) if letter in s else None
                 for s in specs]
-        ok = all(q.is_replicate() or j in movable or w is not None and
-                 type(q) is type(w) and q == w
-                 for j, (q, w) in enumerate(zip(placed, want)))
+        # a pending sum is reduced onto the letter's shard if it has the
+        # letter (a reduce-scatter), else onto a replica (an all-reduce),
+        # as GSPMD feeds a contracted product's result to the next
+        # product whose weight stays sharded
+        ok = all(q.is_replicate() or j in movable or (
+            q.is_partial() if w is None else
+            type(q) is type(w) and q == w or
+            q.is_partial() and type(w) is Shard)
+            for j, (q, w) in enumerate(zip(placed, want)))
         if not isinstance(p, _StridedShard):
             ok = ok or all(letter in s for s in (*specs, *outs))
         return want if ok else None
@@ -462,6 +617,8 @@ def _run_local(fn, mesh, operands, in_pl, out_pl):
     An operand replicated on a mesh dim where an output is sharded or a
     pending sum takes a pending sum as its gradient there (each rank's
     block contributes its part); a pending-sum operand takes a replica.
+    An output that is a pending sum takes its gradient made whole first
+    (:func:`grad_settled`): each rank's block backward needs all of it.
     """
     from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
@@ -472,9 +629,12 @@ def _run_local(fn, mesh, operands, in_pl, out_pl):
     grads = tuple(tuple(Partial() if p.is_replicate() and split[i] else
                         Replicate() if p.is_partial() else p
                         for i, p in enumerate(pl)) for pl in in_pl)
-    return local_map(fn, out_placements=tuple(out_pl),
-                     in_placements=tuple(in_pl), in_grad_placements=grads,
-                     device_mesh=mesh, redistribute_inputs=True)(*operands)
+    out = local_map(fn, out_placements=tuple(out_pl),
+                    in_placements=tuple(in_pl), in_grad_placements=grads,
+                    device_mesh=mesh, redistribute_inputs=True)(*operands)
+    if isinstance(out, tuple):
+        return tuple(grad_settled(o) for o in out)
+    return grad_settled(out)
 
 
 def einsum_inputs(equation: str, *operands) -> list:
@@ -489,9 +649,39 @@ def einsum_inputs(equation: str, *operands) -> list:
     ins, out = equation.replace(" ", "").split("->")
     in_pl, _ = _local_placements(ref.device_mesh, operands,
                                  ins.split(","), [out])
-    return [x.redistribute(x.device_mesh, pl)
-            if is_dtensor(x) and tuple(x.placements) != pl else x
+    return [moved(x, pl) if is_dtensor(x) else x
             for x, pl in zip(operands, in_pl)]
+
+
+def moved(x, placements):
+    """``x.redistribute(x.device_mesh, placements)``.
+
+    A shard moved from one dim to another on every mesh dim alike (the
+    MoE block's dispatched tokens, from their features onto the experts)
+    runs as one all-to-all over the mesh flattened, as GSPMD moves it
+    over the device group; torch's DTensor would run an all-gather and
+    an all-to-all, one mesh dim after the other.  Any other move, and a
+    mesh with no flattened form (``launch.mesh.flat_mesh``), takes
+    ``redistribute`` itself.
+    """
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.launch.mesh import flat_mesh
+    mesh, src, dst = x.device_mesh, tuple(x.placements), tuple(placements)
+    if src == dst:
+        return x
+    flat = flat_mesh(mesh)
+    a, b = src[0], dst[0]
+    if flat is None or any(type(p) is not Shard for p in src + dst) or \
+            any(p != a for p in src) or any(p != b for p in dst) or \
+            a.dim == b.dim or x.shape[a.dim] % flat.size() or \
+            x.shape[b.dim] % flat.size():
+        return x.redistribute(mesh, dst)
+    y = DTensor.from_local(x.to_local(), flat, [a], run_check=False,
+                           shape=x.shape, stride=x.stride())
+    y = y.redistribute(flat, [b]).to_local()
+    return DTensor.from_local(y, mesh, dst, run_check=False, shape=x.shape,
+                              stride=x.stride())
 
 
 def einsum(equation: str, *operands):
@@ -610,9 +800,10 @@ def scatter_add(fn, base, dim: int, idx, upd):
     the updates' rows ``n`` (their experts) each rank adds its own rows
     into ``base`` and the result is a pending sum, as GSPMD partitions a
     scatter along its update dims; ``base`` then counts on the first
-    rank of that mesh dim only (the others add into zeros).  Counted in
-    :data:`per_shard`.  Plain tensors take ``fn`` itself, so traced
-    programs do not change.
+    rank of that mesh dim only (the others add into zeros), and its
+    gradient, the cotangent there and zero elsewhere, sums back to the
+    cotangent once.  Counted in :data:`per_shard`.  Plain tensors take
+    ``fn`` itself, so traced programs do not change.
     """
     import torch
     ref = next((x for x in (base, idx, upd) if is_dtensor(x)), None)
@@ -631,7 +822,12 @@ def scatter_add(fn, base, dim: int, idx, upd):
                  if p.is_partial())
 
     def local(b, i, u):
-        return fn(b if counts else torch.zeros_like(b), dim, i, u)
+        # the other ranks add into zeros; a base that takes a gradient
+        # stays in their graphs, its gradient there zero (autograd would
+        # otherwise run its reduction on one rank only)
+        if not counts:
+            b = b * 0 if b.requires_grad else torch.zeros_like(b)
+        return fn(b, dim, i, u)
     per_shard["scatter_add"] += 1
     return _run_local(local, mesh, [base, idx, upd], in_pl, out_pl)
 

@@ -26,9 +26,8 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import group_size
 from repro_torch.models import transformer as T
-from repro_torch.models.sharding import is_dtensor, placed_like
+from repro_torch.models.sharding import placed_like, reduced
 from repro_torch.optim import adam
 
 
@@ -106,10 +105,12 @@ def cross_entropy(logits, targets, *, z_loss: float = 1e-4):
     Returns:
         ``(mean(ce + z_loss * lse**2), mean(ce))``, 0-d float32.
     """
-    logits = logits.to(torch.float32)
+    # a pending sum (a product over a sharded d_model) is reduced where
+    # the product left it, in its own dtype, as GSPMD reduces it
+    logits = reduced(logits).to(torch.float32)
     lse = logsumexp(logits)
-    gold = torch.gather(logits, -1,
-                        targets[..., None].to(torch.int64)).squeeze(-1)
+    gold = reduced(torch.gather(
+        logits, -1, targets[..., None].to(torch.int64))).squeeze(-1)
     ce = lse - gold
     zl = z_loss * torch.square(lse)
     return torch.mean(ce + zl), torch.mean(ce)
@@ -163,32 +164,6 @@ def value_and_grad(loss_fn, remat: bool = False):
     return run
 
 
-def check_trainable(cfg, state=None) -> None:
-    """Raise for a model the port cannot train yet: an MoE model on two
-    or more ranks.
-
-    ``make_train_step`` calls it when it builds the step (in a process
-    group) and when the step is handed DTensor state (``plan.apply`` on a
-    mesh); the training launcher calls it after joining its group,
-    before it makes anything.
-
-    Args:
-        cfg: the model configuration.
-        state: the train state the step is handed, if any.
-
-    Raises:
-        NotImplementedError: for an MoE model in a process group of two
-            or more ranks or on DTensor state.
-    """
-    if not cfg.num_experts:
-        return
-    if group_size() > 1 or (state is not None and any(
-            is_dtensor(x) for x in pytree.tree_leaves(state))):
-        raise NotImplementedError(
-            "training MoE models on two or more ranks is not ported yet "
-            "(ROADMAP queue 1, item 10d)")
-
-
 def make_train_step(cfg, opt_cfg: adam.AdamConfig | None = None,
                     accum_steps: int = 1):
     """``train_step(state, batch) -> (state, metrics)``.
@@ -208,10 +183,8 @@ def make_train_step(cfg, opt_cfg: adam.AdamConfig | None = None,
 
     Raises:
         NotImplementedError: for the ``"dots"`` remat policy, which the
-            port does not have, and for an MoE model on two or more ranks
-            (:func:`check_trainable`; the step refuses DTensor state too).
+            port does not have.
     """
-    check_trainable(cfg)
     if cfg.remat and cfg.remat_policy != "full":
         raise NotImplementedError(
             f"remat policy {cfg.remat_policy!r}: the port checkpoints "
@@ -220,7 +193,6 @@ def make_train_step(cfg, opt_cfg: adam.AdamConfig | None = None,
     single = value_and_grad(make_loss_fn(cfg), remat=cfg.remat)
 
     def train_step(state: TrainState, batch):
-        check_trainable(cfg, state)
         if accum_steps == 1:
             loss, ce, grads = single(state.params, batch)
         else:

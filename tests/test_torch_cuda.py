@@ -19,7 +19,10 @@ small f32 models on a (1, 2) mesh against their one-card plan within
 1e-4, their kernel sites on local shards.  MoE training: autograd
 through ``repro_torch::top_k`` equal to the CPU's, a small f32 MoE
 model's gradients within 1e-4 of the CPU's, and a small bf16 one's
-captured, donated train steps equal to eager ones bit for bit.
+captured, donated train steps equal to eager ones bit for bit.  MoE
+training on two ranks sharing the card: the MoE ops' gradients on CUDA
+DTensors as on the CPU group, and a small bf16 MoE train step through
+``plan.apply`` of its (1, 2) plan against one card's.
 """
 
 import pytest
@@ -1097,3 +1100,109 @@ def test_small_moe_prefill_on_two_ranks_equals_one_card(gen, arch):
         rel = ((r["logits"] - want).abs().max() / want.abs().max()).item()
         assert rel <= 2e-2, rel
         assert r["launches"] == sites
+
+
+# --- MoE training on two ranks sharing the card ----------------------------
+
+
+def moe_grads_rank(rank):
+    """The MoE ops' gradient cases on CUDA DTensors of a (1, 2) mesh."""
+    from test_torch_moe_mesh_train import op_cases
+
+    from repro_torch.launch.mesh import compat_make_mesh
+    return op_cases(compat_make_mesh((1, 2), ("data", "model"), "cuda"))
+
+
+def test_moe_op_gradients_on_cuda_dtensors(gen):
+    """Each MoE op's outputs and gradients on CUDA DTensors of two ranks
+    sharing the card (the all-gathers through ``route_gloo_all_gather``),
+    for a replicated and a pending-sum cotangent, within 1e-6 of the
+    plain op's on the card, ``top_k``'s exact: as on the CPU group
+    (``tests/test_torch_moe_mesh_train.py``; on the card the gathers'
+    scatter-add backward sums with atomics, in no fixed order)."""
+    from test_torch_moe_mesh_train import OP_TOL
+
+    from repro_torch.launch.mesh import run_ranks
+    for cases in run_ranks(moe_grads_rank, 2, timeout=300):
+        for name, res in cases.items():
+            assert max(res["replicated"], res["pending"]) <= OP_TOL, (
+                name, res)
+            if name in ("top_k lead", "top_k last"):
+                assert res["replicated"] == 0.0, (name, res)
+
+
+MOE_TRAIN = (2, 64)
+def moe_train_opt():
+    """AdamW with a short warmup, so that 3 steps move the loss."""
+    from repro_torch.optim.adam import AdamConfig
+    return AdamConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+
+
+def small_moe_train_rank(rank, plan_json, steps):
+    """The small bf16 MoE train step on its (1, 2) plan on card 0, the
+    state donated: per step the loss and grad norm, and the final
+    parameters gathered to the host."""
+    from repro_torch import pytree
+    from repro_torch.core.partitioner import ShardingPlan
+    from repro_torch.train import steps as TS
+    cfg = small_config("mixtral_8x22b", "bfloat16")
+    step = TS.make_train_step(cfg, moe_train_opt())
+    applied = ShardingPlan.from_json(plan_json).apply(step,
+                                                      donate_argnums=0)
+    state = TS.init_train_state(cfg, torch.Generator(
+        device="cuda").manual_seed(0), moe_train_opt())
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, MOE_TRAIN, generator=g,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "targets")}
+    state, batch = applied.place((state, batch))
+    rows = []
+    for _ in range(steps):
+        state, m = applied(state, batch)
+        rows.append((m["loss"].full_tensor().item(),
+                     m["grad_norm"].full_tensor().item()))
+    return {"rows": rows, "params": [x.full_tensor().float().cpu() for x in
+                                     pytree.tree_leaves(state.params)]}
+
+
+def test_small_bf16_moe_train_step_on_two_ranks_equals_one_card(gen):
+    """A small bf16 mixtral (batch dispatch) trained 3 steps through
+    ``plan.apply(step, donate_argnums=0)`` of the (1, 2) plan the
+    default ``Request`` searches, on two ranks sharing the card: every
+    loss and grad norm within 2e-2 (relative) of one card's eager steps
+    from the same state and batch, every parameter leaf within 2e-2
+    (relative, in norm), the loss falling."""
+    from repro_torch import pytree
+    from repro_torch.api import Request, Session
+    from repro_torch.core.cost_model import MeshSpec
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.launch.specs import batch_specs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train import steps as TS
+    cfg = small_config("mixtral_8x22b", "bfloat16")
+    step = TS.make_train_step(cfg, moe_train_opt())
+    bspec, _ = batch_specs(cfg, ShapeConfig("t", MOE_TRAIN[1], MOE_TRAIN[0],
+                                            "train"))
+    plan2 = Session(step, (TS.train_state_specs(cfg, moe_train_opt()),
+                           bspec)).partition(
+        Request(mesh=MeshSpec(("data", "model"), (1, 2))))
+    ranks = run_ranks(small_moe_train_rank, 2, plan2.to_json(), 3,
+                      timeout=300)
+    state = TS.init_train_state(cfg, torch.Generator(
+        device="cuda").manual_seed(0), moe_train_opt())
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, MOE_TRAIN, generator=g,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "targets")}
+    want = []
+    for _ in range(3):
+        state, m = step(state, batch)
+        want.append((m["loss"].item(), m["grad_norm"].item()))
+    params = [x.float().cpu() for x in pytree.tree_leaves(state.params)]
+    for r in ranks:
+        for got, ref in zip(r["rows"], want):
+            for a, b in zip(got, ref):
+                assert abs(a - b) <= 2e-2 * abs(b), (got, ref)
+        assert r["rows"][-1][0] < r["rows"][0][0]
+        for a, b in zip(r["params"], params):
+            assert ((a - b).norm() / b.norm()).item() <= 2e-2

@@ -322,18 +322,17 @@ class TestParams:
             for n in names:
                 assert tuple(TS.spec_for(n)) == tuple(JS.spec_for(n)), n
 
-    def test_training_and_meshes_raise_item_10b(self):
-        """Item 10b took MoE onto meshes (``tests/test_torch_moe_mesh.py``)
-        and item 10c MoE training on one device: the one guard
-        ``make_train_step`` and the training launcher share lets an MoE
-        model train here (no process group) and refuses it on two or more
-        ranks only, citing item 10d (``tests/test_torch_moe_train.py``)."""
-        from repro_torch.train.steps import check_trainable
+    def test_moe_train_cell_builds(self):
+        """No guard is left on MoE training (meshes:
+        ``tests/test_torch_moe_mesh.py`` and
+        ``tests/test_torch_moe_mesh_train*.py``): ``specs.step_and_inputs``
+        builds an MoE train cell as it builds a dense one."""
+        from repro_torch.train import steps as TS
         cfg = get_config("mixtral_8x22b").reduced()
         fn, args, _ = specs.step_and_inputs(cfg,
                                             ShapeConfig("s", 64, 4, "train"))
         assert callable(fn) and len(args) == 2
-        check_trainable(cfg)
-        check_trainable(get_config("arctic_480b"))
-        check_trainable(get_config("qwen2_05b"))
+        assert not hasattr(TS, "check_trainable")
+        for c in (cfg, get_config("arctic_480b"), get_config("qwen2_05b")):
+            assert callable(TS.make_train_step(c))
         assert not hasattr(T, "check_devices")

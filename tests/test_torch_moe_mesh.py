@@ -31,8 +31,9 @@ through ``kernels.ops``; on CPU tensors the kernels' plain versions):
 - The serving launcher on 2 and 4 ranks, both models, ``--plan toast``
   and ``--plan manual``: tokens equal to one process's.
 - The entry points on 2 ranks: ``plan.apply`` and the serving launcher
-  run an MoE model; the training launcher and ``make_train_step``
-  refuse it, citing ROADMAP item 10d (MoE training on meshes).
+  run an MoE model, and the training launcher and ``make_train_step``
+  train it, within 1e-4 of one process (MoE training on meshes is held
+  in full in ``tests/test_torch_moe_mesh_train*.py``).
 
 The reference's plans (JSON from the JAX package) run in
 ``tests/test_torch_moe_mesh_plans.py``; the collectives against GSPMD's
@@ -96,11 +97,13 @@ def prefill_plan(arch, dispatch, mesh):
 
 def expert_gathers(shapes, cfg) -> dict:
     """The all-gathers among ``collective_tally`` shapes whose result is
-    a whole expert stack (E, d, f) or (E, f, d), stacked or not."""
+    a whole expert stack (E, d, f) or (E, f, d), stacked or not, joined
+    on any dim."""
     e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
     return {str(k): n for k, n in shapes.items()
-            if k[0].startswith("all_gather") and len(k[1]) >= 3 and
-            tuple(k[1][-3:]) in ((e, d, f), (e, f, d))}
+            if k[0].startswith("all_gather") and any(
+                len(g) >= 3 and g[-3:] in ((e, d, f), (e, f, d))
+                for g in M.gathered_shapes(k[1]))}
 
 
 def lone_strided(placements, mesh) -> bool:
@@ -288,25 +291,52 @@ def check_strided(mesh):
     return out
 
 
-def two_ranks(rank, prefill):
-    """On a group of two ranks: the ops, the (1, 2) prefills, the serving
-    launcher, and what the training entry points raise."""
+TRAIN_ARGV = ["--arch", "mixtral_8x22b", "--reduced", "--device", "cpu",
+              "--steps", "2", "--batch", "2", "--seq", "16",
+              "--log-every", "1"]
+
+
+def train_runs(ckpt_dir):
+    """The training entry points on this group (or one process): the
+    launcher's losses, and one ``make_train_step`` step's loss on the
+    state placed by ``MANUAL_RULES`` (two ranks) or plain."""
+    from repro_torch import pytree
     from repro_torch.launch import train
-    from repro_torch.train.steps import make_train_step
+    from repro_torch.launch.specs import (shardings_from_rules,
+                                          state_logical_axes)
+    from repro_torch.models.sharding import MANUAL_RULES, logical_rules
+    from repro_torch.train.steps import init_train_state, make_train_step
+    (run,) = train.supervise(get_config("mixtral_8x22b").reduced(),
+                             train.parse_args(TRAIN_ARGV + [
+                                 "--ckpt-dir", str(ckpt_dir)]))
+    cfg = get_config("mixtral_8x22b").reduced()
+    state = init_train_state(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    batch = {"tokens": tokens, "targets": tokens}
+    if M.group_size() > 1:
+        mesh = M.compat_make_mesh((1, 2), AXES, "cpu")
+        sh = shardings_from_rules(state, state_logical_axes(cfg, state),
+                                  MANUAL_RULES, mesh)
+        state = pytree.unflatten(state, [M.distribute(x, s) for x, s in zip(
+            pytree.tree_leaves(state), pytree.tree_leaves(sh))])
+        batch = {k: M.distribute(v, M.NamedSharding(mesh, ("data", None)))
+                 for k, v in batch.items()}
+        with logical_rules(MANUAL_RULES):
+            _, metrics = make_train_step(cfg)(state, batch)
+        loss = metrics["loss"].full_tensor().item()
+    else:
+        loss = make_train_step(cfg)(state, batch)[1]["loss"].item()
+    return {"launcher": run.losses, "make_train_step": loss}
+
+
+def two_ranks(rank, prefill, ckpt_dir):
+    """On a group of two ranks: the ops, the (1, 2) prefills, the serving
+    launcher, and the training entry points."""
     mesh = M.compat_make_mesh((1, 2), AXES, "cpu")
-    out = {"ops": check_ops(mesh), "prefill": run_prefill(prefill),
-           "serve": serve_runs(), "train": {}}
-    argv = ["--arch", "mixtral_8x22b", "--reduced", "--device", "cpu",
-            "--steps", "1", "--batch", "2", "--seq", "16"]
-    for name, call in (("launcher", lambda: train.main(argv)),
-                       ("make_train_step", lambda: make_train_step(
-                           get_config("mixtral_8x22b").reduced()))):
-        try:
-            call()
-            out["train"][name] = None
-        except NotImplementedError as e:
-            out["train"][name] = str(e)
-    return out
+    return {"ops": check_ops(mesh), "prefill": run_prefill(prefill),
+            "serve": serve_runs(), "train": train_runs(ckpt_dir)}
 
 
 def four_ranks(rank, prefill, decode):
@@ -352,9 +382,11 @@ def plans():
 
 
 @pytest.fixture(scope="module")
-def two(plans):
+def two(plans, tmp_path_factory):
     cases = [(a, m, p.to_json()) for (a, m), p in plans["1x2"].items()]
-    return M.run_ranks(two_ranks, 2, cases, timeout=RANKS_TIMEOUT)
+    return M.run_ranks(two_ranks, 2, cases,
+                       tmp_path_factory.mktemp("moe_mesh_train"),
+                       timeout=RANKS_TIMEOUT)
 
 
 @pytest.fixture(scope="module")
@@ -484,14 +516,18 @@ def test_serving_launcher_equals_one_process(two, four, one_process, ranks):
             assert torch.equal(r["serve"][key], tokens), (ranks, key)
 
 
-def test_moe_entry_points_run_on_two_ranks_training_raises_item_10c(two):
-    """``plan.apply`` and the serving launcher run an MoE model on two
-    ranks; the training launcher (after joining the group, before it
-    makes anything) and ``make_train_step`` refuse it, citing item 10d
-    (MoE training on meshes; item 10c trains MoE on one device)."""
+def test_moe_entry_points_serve_and_train_on_two_ranks(two, tmp_path):
+    """On two ranks ``plan.apply`` and the serving launcher run an MoE
+    model, and so do the training entry points: the training launcher
+    takes its 2 steps and ``make_train_step`` a step on the state placed
+    by ``MANUAL_RULES``, the losses within 1e-4 of one process's."""
+    one = train_runs(tmp_path / "one")
     for r in two:
         assert len(r["prefill"]) == len(PREFILL["1x2"])
         assert len(r["serve"]) == len(ARCHS) * len(PLANS)
-        assert sorted(r["train"]) == ["launcher", "make_train_step"]
-        for name, msg in r["train"].items():
-            assert msg is not None and "item 10d" in msg, (name, msg)
+        assert len(r["train"]["launcher"]) == 2
+        np.testing.assert_allclose(np.array(r["train"]["launcher"]),
+                                   np.array(one["launcher"]), rtol=TOL,
+                                   atol=TOL)
+        assert abs(r["train"]["make_train_step"] -
+                   one["make_train_step"]) <= TOL

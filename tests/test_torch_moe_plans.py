@@ -86,8 +86,8 @@ CASES = [(a, s, k) for a in ARCHS for s in ("reduced", "full")
          for k in ("prefill", "decode")]
 
 
-def prefill_plans(jcfg, tcfg, full):
-    B, S = (4, 2048) if full else (2, 64)
+def prefill_plans(jcfg, tcfg, full, B=None):
+    B, S = (4, 2048) if full else (B or 2, 64)
     js = JSession(jax_prefill(jcfg), (JT.param_specs(jcfg), {
         "tokens": jax.ShapeDtypeStruct((B, S), jnp.int32)}))
     ts = Session(make_prefill_step(tcfg), (T.param_specs(tcfg), {
@@ -99,16 +99,16 @@ def prefill_plans(jcfg, tcfg, full):
     return js, ts, jp, tp
 
 
-def decode_plans(jcfg, tcfg, full):
+def decode_plans(jcfg, tcfg, full, B=4):
     max_seq = 256 if full else 32
     jfn, jargs, jnames = jax_step_and_inputs(
-        jcfg, JShapeConfig("serve", max_seq, 4, "decode"))
+        jcfg, JShapeConfig("serve", max_seq, B, "decode"))
     js = JSession(jfn, jargs)
     jp = js.partition(JRequest(
         mesh=JMeshSpec(AXES, (2, 2)), hw=JHardwareSpec(**HW),
         backend="greedy", min_dims=4, logical_axes=jnames,
         constraints=(JReplicate("['k']"), JReplicate("['v']"))))
-    ts, tnames = serve.decode_session(tcfg, 4, max_seq)
+    ts, tnames = serve.decode_session(tcfg, B, max_seq)
     req = serve.decode_request(tcfg, tnames, MeshSpec(AXES, (2, 2)))
     tp = ts.partition(dataclasses.replace(req, hw=HardwareSpec(**HW)))
     return js, ts, jp, tp
@@ -179,6 +179,66 @@ class TestPlanParity:
         assert loaded.input_paths == tp.input_paths
         again = ShardingPlan.from_json(tp.to_json())
         assert again.as_dict() == tp.as_dict()
+
+
+# a batch of one: the reduced 2x2 greedy prefill plans (S 64) in each
+# dispatch mode and the decode plans (cache 32), both models
+B1_CASES = [(a, k, m) for a in ARCHS for k, m in (
+    ("prefill", "global"), ("prefill", "batch"), ("prefill", "local"),
+    ("decode", "batch"))]
+
+
+@pytest.fixture(scope="module", params=B1_CASES, ids=lambda c: "-".join(c))
+def b1_plans(request):
+    arch, kind, mode = request.param
+    kw = dict(moe_dispatch=mode, moe_local_pools=4)
+    jcfg = dataclasses.replace(jax_config(arch).reduced(), **kw)
+    tcfg = dataclasses.replace(get_config(arch).reduced(), **kw)
+    make = prefill_plans if kind == "prefill" else decode_plans
+    return (request.param, *make(jcfg, tcfg, False, B=1))
+
+
+class TestBatchOfOne:
+    """At B 1 the ``vmap``'d combine keeps its lead dim as a batching dim
+    (``ir._aten_scatter_add``), so the traced prefill and decode programs
+    plan as the reference's: the same conflicts, colors, in-specs and
+    communication bytes, the cost within 2%."""
+
+    def test_identical_specs_counts_and_rules(self, b1_plans):
+        _, js, ts, jp, tp = b1_plans
+        assert tp.input_paths == jp.input_paths
+        assert [tuple(s) for s in tp.in_specs] == \
+            [tuple(s) for s in jp.in_specs]
+        assert [tuple(s) for s in tp.out_specs] == \
+            [tuple(s) for s in jp.out_specs]
+        assert (tp.num_conflicts, tp.num_colors, tp.num_compat_sets,
+                tp.num_resolution_bits) == \
+            (jp.num_conflicts, jp.num_colors, jp.num_compat_sets,
+             jp.num_resolution_bits)
+        assert tp.logical_rules == jp.logical_rules
+        assert io_color_labels(ts.artifacts.prog, ts.artifacts.nda) == \
+            io_color_labels(js.artifacts.prog, js.artifacts.nda)
+
+    def test_cost_within_2_percent_and_bytes_equal(self, b1_plans):
+        _, _, _, jp, tp = b1_plans
+        assert abs(tp.cost - jp.cost) <= COST_REL_TOL * jp.cost
+        assert tp.breakdown["comm_bytes"] == jp.breakdown["comm_bytes"]
+        assert abs(tp.breakdown["peak_bytes"] - jp.breakdown["peak_bytes"]) \
+            <= COST_REL_TOL * jp.breakdown["peak_bytes"]
+
+    def test_the_combine_is_one_scatter_add_with_equal_numbers(
+            self, b1_plans):
+        _, js, ts, _, _ = b1_plans
+        names = ("top_k", "gather", "scatter-add")
+        jops = prims(js.artifacts.prog, names)
+        tops = prims(ts.artifacts.prog, names)
+        assert [op.prim for op in tops] == [op.prim for op in jops]
+        for j, t in zip(jops, tops):
+            if t.prim != "top_k":
+                assert tuple(tuple(int(i) for i in f)
+                             for f in t.params["dimension_numbers"]) == \
+                    tuple(tuple(int(i) for i in f)
+                          for f in j.params["dimension_numbers"])
 
 
 def prims(prog, names):

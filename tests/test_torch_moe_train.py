@@ -23,10 +23,9 @@ the launcher's final state after a failure and a restart against an
 uninterrupted run's (bit for bit).  The launcher from one checkpoint the
 reference wrote agrees with the reference's launcher within 1e-4.
 
-MoE training on two or more ranks is ROADMAP item 10d: a step handed
-DTensor state refuses it (here on a one-rank gloo group; the two-rank
-refusals of ``make_train_step`` and the launcher are in
-``tests/test_torch_moe_mesh.py``).
+A step handed DTensor state (here on a one-rank gloo group) equals the
+plain step; MoE training on two or more ranks is held in
+``tests/test_torch_moe_mesh_train*.py``.
 """
 
 import argparse
@@ -362,18 +361,23 @@ def test_the_launcher_matches_the_reference_from_one_checkpoint(tmp_path):
                                    err_msg=entry["path"])
 
 
-# -- the one-device guard ----------------------------------------------------------
+# -- no guard: MoE state on meshes ---------------------------------------------
 
 
-def test_check_trainable_admits_moe_on_one_device():
+def test_make_train_step_builds_moe_steps_with_no_guard():
+    """No guard is left on MoE training: ``make_train_step`` builds the
+    MoE models' steps at full size and reduced (the step on meshes:
+    ``tests/test_torch_moe_mesh*.py``)."""
+    assert not hasattr(S, "check_trainable")
     for arch in ARCHS:
-        S.check_trainable(get_config(arch))
-        S.check_trainable(get_config(arch).reduced())
+        assert callable(S.make_train_step(get_config(arch)))
+        assert callable(S.make_train_step(get_config(arch).reduced()))
 
 
 def dtensor_step(rank):
-    """On a one-rank group: the step, made there (one rank), handed its
-    state as DTensors on a (1, 1) mesh."""
+    """On a one-rank group: the step, made there, handed its state as
+    DTensors on a (1, 1) mesh, and the same step on the plain state: the
+    new states' leaves and the metrics of both."""
     from torch.distributed.tensor import Replicate, distribute_tensor
     cfg = get_config("mixtral_8x22b").reduced()
     step = S.make_train_step(cfg)
@@ -383,14 +387,20 @@ def dtensor_step(rank):
     placed = pytree.tree_map(
         lambda x: distribute_tensor(x, mesh, [Replicate(), Replicate()]),
         state)
-    tokens = torch.zeros((2, 16), dtype=torch.int32)
-    try:
-        step(placed, {"tokens": tokens, "targets": tokens})
-    except NotImplementedError as e:
-        return str(e)
-    return None
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    batch = {"tokens": tokens, "targets": tokens}
+    got = step(placed, {k: distribute_tensor(v, mesh, [Replicate()] * 2)
+                        for k, v in batch.items()})
+    want = step(state, batch)
+    return ([x.full_tensor() for x in pytree.tree_leaves(got)],
+            pytree.tree_leaves(want))
 
 
-def test_a_step_on_dtensor_state_refuses_moe_citing_item_10d():
-    (msg,) = M.run_ranks(dtensor_step, 1, timeout=120.0)
-    assert msg is not None and "item 10d" in msg, msg
+def test_a_step_on_dtensor_state_equals_the_plain_step():
+    """A step handed DTensor state on a (1, 1) mesh trains, and equals
+    the plain step leaf by leaf (within 1e-6: one rank, the same ops)."""
+    ((got, want),) = M.run_ranks(dtensor_step, 1, timeout=120.0)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=OP_TOL, atol=OP_TOL)
