@@ -17,8 +17,10 @@ launcher on those two ranks; and the mixture-of-experts models
 ``mixtral_8x22b`` and ``arctic_480b`` at full width (cut in depth to what
 the card holds, their plans searched at full depth), prefill and decode,
 arctic's attention sites on the CUDA flash-attention kernel, on one card
-and on two ranks sharing it; and ``mixtral_8x22b``'s train step at full
-width on one card.
+and on two ranks sharing it; ``mixtral_8x22b``'s train step at full
+width on one card and on two ranks sharing it; and ``xlstm_350m`` at
+full width and depth, prefill and decode, its mLSTM and sLSTM blocks on
+no kernel (the sLSTM's time scan nested in the layer scan).
 
 1. print the card's name and power limit; build both kernels from the
    sources in this checkout, in parallel;
@@ -88,16 +90,16 @@ width on one card.
    kernels against step 1 on the plain version (loss and grad norm), and
    a small f32 model's loss, gradients and updated state likewise;
 6b. the training launcher (``launch/train.py``) on ``qwen2_05b`` at the
-   same shape: 6 steps from the seed's weights and data pipeline
-   uninterrupted (``--plan manual``), then again with ``--plan toast``,
-   a checkpoint every 3 steps and a failure injected at step 4: attempt
-   1 must resume from
+   same shape, cut to 12 of its 24 layers: 6 steps from the seed's
+   weights and data pipeline uninterrupted (``--plan manual``), then
+   again with ``--plan toast``, a checkpoint every 3 steps and a failure
+   injected at step 4: attempt 1 must resume from
    step 3, each attempt capture one graph, and the final checkpoint
    equal the uninterrupted run's final state bit for bit; the seconds
    and bytes of each save and restore are printed;
 6c. the mesh launcher phase: the one-card uninterrupted run's final
    state moved to the host, two ranks of one gloo group share card 0
-   and run ``launch/train.py`` at the same width and schedule with
+   and run ``launch/train.py`` at the same width, depth and schedule with
    ``--plan toast`` on the (data 1, model 2) mesh (the reference's rules
    route: the state placed by the plan's logical rules, the step eager
    on DTensors, every attention site on whole q, k, v): per rank the
@@ -197,6 +199,19 @@ width on one card.
    stack, gradient or moment gathered whole; per rank the step ms (two
    ranks time-sharing the card: not a multi-card figure), peak and
    reserved GB;
+7f. xLSTM (after 7e): ``xlstm_350m`` at full width and full depth (24
+   layers, 210.2 M parameters, bf16 from the seed): its prefill step's
+   2x4 and 1x1 plans searched on ``meta`` tensors in the worker process
+   (the sLSTM's time scan traced inside the layer scan's body: trip
+   counts 3 and 3 x 2048); 3 requests of 4 x 2048 tokens through the
+   1x1 plan captured and eager in turns, the logits finite and equal bit
+   for bit, no kernel launched; each request's ms, peak and reserved
+   GB, the capture's seconds and pool; one sLSTM and one mLSTM block at
+   the prefill's shape captured alone, each graph's nodes (its launches)
+   and replay ms, and their share of a captured request; then the decode
+   path as in 5; then the 16-layer reduced f32 model (two sLSTMs): its
+   decode against its forward (in 5's small check) and its forward on
+   the card against the same model on the CPU, within 1e-4;
 8. time each kernel at its slice shape beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` (a
    yardstick only: the port never calls it), and at ``arctic_480b``'s
@@ -207,14 +222,16 @@ width on one card.
    route at the slice shape; and at the hybrid train step's shape, the
    RG-LRU kernel and its plain backward.
 
-The decode, train and MoE steps are traced and their plans searched in
-one worker process (``meta`` tensors, no card) while the card runs the
-earlier phases; each phase takes its plans as JSON.  The MoE phases
-report the full-depth steps' plans and run the cut steps' plans.  The
-``kernels`` line's attention row carries the launches of each path:
-``launches_train_step``, ``launches_mesh``, ``launches_moe``,
-``launches_mesh_moe``, ``launches_moe_train_step`` and
-``launches_moe_train_mesh`` (per rank, phase 7e).
+The decode, train, MoE and xLSTM steps are traced and their plans
+searched in one worker process (``meta`` tensors, no card) while the
+card runs the earlier phases; each phase takes its plans as JSON.  The
+MoE phases report the full-depth steps' plans and run the cut steps'
+plans.  The ``kernels`` line's attention row carries the launches of
+each path: ``launches_train_step``, ``launches_mesh``,
+``launches_moe``, ``launches_mesh_moe``, ``launches_moe_train_step``,
+``launches_moe_train_mesh`` (per rank, phase 7e) and
+``launches_xlstm`` (phase 7f, 0: a launch fails the phase); the RG-LRU
+row carries its ``launches_xlstm`` too.
 
 Run from the root of a checkout: ``python3 chip_smoke.py [--seed N]``
 (the seed of the train path's weights and batch, 0 by default).  Needs one
@@ -280,12 +297,15 @@ HYBRID_TRAIN_SHAPE = (1, 4096)
 HYBRID_TRAIN_OPT = dict(TRAIN_OPT, state_dtype="bfloat16")
 # its small f32 model: two periods of (rglru, rglru, local) and a tail
 HYBRID_SMALL_LAYERS = 8
-# the training launcher at full width (qwen2_05b at TRAIN_SHAPE): steps,
-# a checkpoint every LAUNCH_CKPT_EVERY steps, a failure injected at step
-# LAUNCH_FAIL_AT of the first attempt
+# the training launcher at full width (qwen2_05b at TRAIN_SHAPE, cut to
+# LAUNCH_DEPTH of its 24 layers: the mesh launcher's steps are
+# host-bound, about linear in the layers): steps, a checkpoint every
+# LAUNCH_CKPT_EVERY steps, a failure injected at step LAUNCH_FAIL_AT of
+# the first attempt
 LAUNCH_STEPS = 6
 LAUNCH_CKPT_EVERY = 3
 LAUNCH_FAIL_AT = 4
+LAUNCH_DEPTH = 12
 # step 1 through the kernel vs through the plain version: loss and grad
 # norm, relative (bf16)
 TRAIN_REL_TOL = 2e-2
@@ -351,6 +371,12 @@ MOE_MESH_TRAIN_TIMEOUT = 600.0
 # tiny and noisy, leave moments that any regrouping of the bf16 sums
 # moves by 20-37% (measured on an H100 80GB HBM3 at 700 W)
 MOE_MESH_TRAIN_OPT = dict(HYBRID_TRAIN_OPT, lr=1e-4)
+# the xLSTM phase: xlstm_350m at full width and depth, the prefill
+# path's shape; its small f32 model has two super-blocks, each with an
+# sLSTM (the stock reduced config's 4 layers hold none)
+XLSTM = "xlstm_350m"
+XLSTM_SHAPE = QWEN_SHAPE
+XLSTM_SMALL_LAYERS = 16
 # the router's leaves (its weight and moments), whose gradient is the
 # noisiest: checked after step 1 too, and the planted fault of phase 7e
 # (its gradient scaled by ROUTER_FAULT) must fail the leaf checks
@@ -508,7 +534,8 @@ def plan_job(kind: str, name: str, depth: int | None = None,
 
     ``kind`` is ``"path"`` (the prefill step at ``shape``: its 2x4, 1x1
     and (1, 2) plans, the last as the mesh phase plans it),
-    ``"prefill"`` (B x S of ``MOE_SHAPE``), ``"decode"`` (B
+    ``"prefill"`` (B x S of ``shape``, by default ``MOE_SHAPE``),
+    ``"decode"`` (B
     of ``DECODE_SHAPE``, cache ``DECODE_MAX_SEQ``, the serving launcher's
     requests; with it the 1x1 plan of the prefill step on the decode
     path's prompts), ``"train"`` (``shape``, AdamW of ``opt_kw``) or
@@ -559,7 +586,7 @@ def plan_job(kind: str, name: str, depth: int | None = None,
                 hw=dataclasses.replace(HardwareSpec(), hbm_per_chip=hbm))}
     elif kind in ("prefill", "mesh", "path"):
         sess = Session(TS.make_prefill_step(cfg), (T.param_specs(cfg),
-                       meta_tokens(*(shape if kind == "path" else MOE_SHAPE))))
+                       meta_tokens(*(shape or MOE_SHAPE))))
         reqs = {"2x4": Request(mesh=mesh8), "1x1": Request(mesh=mesh1)}
         if kind == "path":
             reqs["1x2"] = Request(mesh=MeshSpec(("data", "model"),
@@ -1061,7 +1088,8 @@ def tree_bytes(tree) -> int:
                for x in pytree.tree_leaves(tree))
 
 
-def drive_decode(torch, cfg, params, counters, card, job) -> None:
+def drive_decode(torch, cfg, params, counters, card, job,
+                 small=None) -> None:
     """Plan and serve one model's decode path with ``params``.
 
     Args:
@@ -1071,6 +1099,8 @@ def drive_decode(torch, cfg, params, counters, card, job) -> None:
         card: the card's name and power limit, for the time lines.
         job: the :func:`plan_job` result of its decode step (the session
             traced and the plans searched in the worker process).
+        small: the small f32 model whose decode is held against its
+            forward (``None``: the config's ``reduced()``).
     """
     from repro_torch import pytree
     from repro_torch.configs import get_config
@@ -1256,7 +1286,8 @@ def drive_decode(torch, cfg, params, counters, card, job) -> None:
 
     # small f32 model: decode logits at every position vs its forward
     # through the kernels
-    small = dataclasses.replace(get_config(name).reduced(), use_pallas=True)
+    small = dataclasses.replace(small or get_config(name).reduced(),
+                                use_pallas=True)
     sp = T.init_params(small, torch.Generator(device="cuda").manual_seed(4))
     S = SMALL_DECODE_TOKENS
     toks = torch.randint(0, small.vocab_size, (2, S), generator=tgen,
@@ -2867,7 +2898,8 @@ def drive_launcher(torch, cfg, counters, card, seed: int):
             f"step {s['step']} {s['bytes'] / 1e9:.3f} GB: host copy "
             f"{s['snapshot_s']:.3f} s, written {s['write_s']:.3f} s"
             for a in runs for s in a.saves)
-        log(f"[launcher {name}] {card}: B={B} S={S}, {LAUNCH_STEPS} steps, "
+        log(f"[launcher {name}] {card}: {cfg.num_layers} layers, B={B} "
+            f"S={S}, {LAUNCH_STEPS} steps, "
             f"--plan toast, checkpoint every {LAUNCH_CKPT_EVERY}, failure at "
             f"step {LAUNCH_FAIL_AT}: attempt 0 ran {attempts[0].replays} "
             f"steps and failed; attempt 1 resumed from step "
@@ -2892,13 +2924,14 @@ def drive_launcher(torch, cfg, counters, card, seed: int):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def mesh_launcher_rank(rank, name, train_argv, serve_argv):
+def mesh_launcher_rank(rank, name, depth, train_argv, serve_argv):
     """One of the two ranks that share card 0 in the mesh launcher phase.
 
-    Trains ``name`` at full width through ``launch/train.py`` on the
-    (1, 2) mesh (``train_argv``: a failure injected and a restart), then
-    serves each model of ``serve_argv`` through ``launch/serve.py`` on
-    the same two ranks.  Returns what the rank counted: each attempt's
+    Trains ``name`` at full width, cut to ``depth`` layers, through
+    ``launch/train.py`` on the (1, 2) mesh (``train_argv``: a failure
+    injected and a restart), then serves each model of ``serve_argv``
+    through ``launch/serve.py`` on the same two ranks.  Returns what the
+    rank counted: each attempt's
     record (its state dropped), the attention kernel's launches and
     local shapes, the peak memory, and each model's gathered tokens and
     prompt logits."""
@@ -2912,7 +2945,8 @@ def mesh_launcher_rank(rank, name, train_argv, serve_argv):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(name), use_pallas=True)
+    cfg = dataclasses.replace(get_config(name), use_pallas=True,
+                              num_layers=depth)
     fa.launches = 0
     ops.local_calls.clear()
     torch.cuda.reset_peak_memory_stats()
@@ -3027,7 +3061,8 @@ def drive_mesh_launcher(torch, cfg, hybrid, whole, card, seed: int):
             f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved, "
             f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
         t0 = time.perf_counter()
-        ranks = run_ranks(mesh_launcher_rank, 2, cfg.name, train_argv,
+        ranks = run_ranks(mesh_launcher_rank, 2, cfg.name, cfg.num_layers,
+                          train_argv,
                           {k: v + ["--plan", "toast"]
                            for k, v in serve_argv.items()},
                           timeout=MESH_LAUNCH_TIMEOUT)
@@ -3150,6 +3185,196 @@ def drive_mesh_launcher(torch, cfg, hybrid, whole, card, seed: int):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def graph_nodes(torch, fn, *args) -> tuple[int, float]:
+    """Capture ``fn(*args)`` once more as a CUDA graph kept for
+    inspection: the graph's nodes (each a kernel launch, copy or fill the
+    capture recorded, read with libcuda's ``cuGraphGetNodes``) and the
+    device ms of one replay."""
+    import ctypes
+    fn(*args)                               # warm-up, on the same stream
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn(*args)
+    get_nodes = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    get_nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.POINTER(ctypes.c_size_t)]
+    get_nodes.restype = ctypes.c_int
+    count = ctypes.c_size_t(0)
+    rc = get_nodes(graph.raw_cuda_graph(), None, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes returned {rc}")
+    graph.instantiate()
+    ms = cuda_ms(graph.replay, 3, warmup=1)
+    del graph
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return count.value, ms
+
+
+def drive_xlstm(torch, counters, card, jobs) -> dict:
+    """Plan and serve ``xlstm_350m`` at full width and full depth:
+    prefill and decode through the 1x1 plans of its steps, no kernel
+    site; the sLSTM time loop's launches and time share; a small f32
+    model on the card against the same model on the CPU.
+
+    Args:
+        counters: kernel name -> its wrapper module (``launches``).
+        card: the card's name and power limit, for the time lines.
+        jobs: the :func:`plan_job` results of its prefill and decode
+            steps, by kind.
+
+    Returns:
+        The kernels' launches on the prefill path, captured and eager
+        (none, or it fails).
+    """
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_prefill_step
+
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(get_config(XLSTM), use_pallas=True)
+    B, S = XLSTM_SHAPE
+    job = jobs["prefill"]
+    st = job["stats"]
+    plan8 = plan_of(job, "2x4")
+    specs = {p: tuple(s) for p, s in zip(plan8.input_paths, plan8.in_specs)
+             if p.endswith(("['mix']['R']", "['mix']['W']"))}
+    log(f"[xlstm plan {cfg.name} prefill 2x4] {cfg.num_layers} layers, "
+        f"B={B} S={S}: {job['seconds']:.3f} s to the plans in the worker "
+        f"process (trace {st['phases']['trace']:.3f} s, search "
+        f"{plan8.search_seconds:.3f} s), {st['ops']} ops, trip counts "
+        f"{st['trips']}, {st['colors']} colors, {st['conflicts']} "
+        f"conflicts, cost {plan8.cost:.6f}, sLSTM weights "
+        f"{json.dumps(specs)}, rules {json.dumps(plan8.logical_rules)}, "
+        f"json round-trip ok")
+    plan1 = plan_of(job, "1x1")
+    if plan1.kernel_sites or any(sum(n) for n in
+                                 T.kernel_sites(cfg).values()):
+        raise AssertionError(f"{cfg.name} has kernel sites "
+                             f"{plan1.kernel_sites}")
+    log(f"[partition {cfg.name} 1x1] cost={plan1.cost:.6f} no kernel sites")
+    step = make_prefill_step(cfg)
+    applied = plan1.apply(step)
+    eager = plan1.apply(step, capture=False)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(x.numel() for x in pytree.tree_leaves(params))
+    log(f"[xlstm {cfg.name}] {n_params / 1e6:.1f} M parameters, "
+        f"{tree_bytes(params) / 1e9:.3f} GB of bf16 weights")
+    tgen = torch.Generator(device="cuda").manual_seed(1)
+    requests = [{"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                         generator=tgen, device="cuda",
+                                         dtype=torch.int32)}
+                for _ in range(REQUESTS)]
+    t0 = time.perf_counter()
+    eager(params, requests[0])              # warm-up, not counted
+    torch.cuda.synchronize()
+    log(f"[xlstm {cfg.name}] eager warm-up request "
+        f"{time.perf_counter() - t0:.3f} s on the host")
+    graph = capture_once(torch, applied, f"{cfg.name} prefill B={B} S={S}",
+                         params, requests[0])
+    if any(graph.launches.values()) or any(graph.warmup_launches.values()):
+        raise AssertionError(f"{cfg.name}: the graph recorded kernel "
+                             f"launches {graph.launches}")
+    for mod in counters.values():
+        mod.launches = 0
+    replays = applied.replays
+    outs = {"captured": [], "eager": []}
+    times = {"captured": [], "eager": []}
+    for i, req in enumerate(requests):
+        order = ("captured", "eager") if i % 2 == 0 else ("eager", "captured")
+        for label in order:
+            fn = applied if label == "captured" else eager
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits = fn(params, req)
+            end.record()
+            torch.cuda.synchronize()
+            if logits.shape != (B, cfg.vocab_size) or \
+                    not torch.isfinite(logits).all():
+                raise AssertionError(f"{cfg.name} {label} request {i}: "
+                                     f"logits not finite or misshapen")
+            times[label].append(start.elapsed_time(end))
+            outs[label].append(logits.float())
+            log(f"[serve {cfg.name} {label}] request {i}: next tokens "
+                f"{logits.float().argmax(-1).tolist()} prefill "
+                f"{times[label][-1]:.3f} ms, peak "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, reserved "
+                f"{torch.cuda.memory_reserved() / 1e9:.2f} GB")
+    launches = graph_launches(counters, applied, replays)
+    launches = {k: launches[k] for k in counters}
+    if any(launches.values()):
+        raise AssertionError(f"{cfg.name}: kernel launches {launches}")
+    if applied.captures != 1 or applied.replays - replays != REQUESTS:
+        raise AssertionError(f"{cfg.name}: {applied.captures} captures, "
+                             f"{applied.replays - replays} replays")
+    for i, (a, b) in enumerate(zip(outs["captured"], outs["eager"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{cfg.name} request {i}: captured and "
+                                 f"eager logits differ, max|diff| "
+                                 f"{(a - b).abs().max().item():.3e}")
+        log(f"[serve {cfg.name}] request {i}: captured logits equal eager "
+            f"bit for bit")
+    cap_med = percentile(times["captured"], 0.5)
+    log(f"[xlstm {cfg.name}] kernel launches on the prefill path: "
+        f"{json.dumps(launches)} ({REQUESTS} replays, {REQUESTS} eager)")
+    log(f"[prefill time] {card}: {cfg.name} B={B} S={S} per request, "
+        f"captured {fmt_ms(times['captured'])} (median {cap_med:.3f}), "
+        f"eager {fmt_ms(times['eager'])} (median "
+        f"{percentile(times['eager'], 0.5):.3f}); capture "
+        f"{graph.seconds:.3f} s, graph pool {graph.pool_bytes / 1e9:.3f} GB")
+    del graph, outs
+    applied.release()
+    del applied, eager
+    torch.cuda.empty_cache()
+
+    # the sLSTM time loop: one block of each kind at the prefill's shape,
+    # captured alone; its graph's nodes are its launches
+    x = torch.randn((B, S, cfg.d_model), generator=tgen, device="cuda",
+                    dtype=cfg.dtype)
+    kinds, _ = T.block_kinds(cfg)
+    per_kind = {}
+    for kind, fn in (("slstm", L.slstm_apply), ("mlstm", L.mlstm_apply)):
+        j = kinds.index(kind)
+        p = {k: v[0] for k, v in params["layers"][j]["mix"].items()}
+        nodes, ms = graph_nodes(torch, lambda p, x: fn(cfg, p, x), p, x)
+        n = cfg.num_layers // len(kinds) * kinds.count(kind)
+        per_kind[kind] = {"nodes": nodes, "ms": ms, "layers": n}
+        log(f"[xlstm {kind}] one block at B={B} S={S} captured alone: "
+            f"{nodes} graph nodes ({nodes / S:.1f} a step), replay "
+            f"{ms:.3f} ms; x {n} layers = {n * nodes} launches, "
+            f"{n * ms:.3f} ms = {n * ms / cap_med:.1%} of the captured "
+            f"request's median")
+    del x
+
+    drive_decode(torch, cfg, params, counters, card, jobs["decode"],
+                 dataclasses.replace(get_config(XLSTM).reduced(),
+                                     num_layers=XLSTM_SMALL_LAYERS))
+    del params
+    torch.cuda.empty_cache()
+
+    # the small f32 model on the card against the same one on the CPU
+    small = dataclasses.replace(get_config(XLSTM).reduced(),
+                                num_layers=XLSTM_SMALL_LAYERS)
+    host = T.init_params(small, torch.Generator().manual_seed(5), "cpu")
+    toks = torch.randint(0, small.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(6),
+                         dtype=torch.int32)
+    want = T.forward(small, host, toks)
+    got = T.forward(small, pytree.tree_map(lambda t: t.cuda(), host),
+                    toks.cuda()).cpu()
+    torch.testing.assert_close(got, want, rtol=SMALL_TOL, atol=SMALL_TOL)
+    log(f"[small] {small.name} ({small.num_layers} layers, 2 sLSTM) f32 "
+        f"forward on the card vs the CPU: max|diff| "
+        f"{(got - want).abs().max().item():.3e} (tol {SMALL_TOL}) ok")
+    log(f"[elapsed] xLSTM phase {time.perf_counter() - t_start:.1f} s")
+    return {"launches": launches, "blocks": per_kind}
+
+
 def time_lru(lru, torch, gen, card, shape, dtype, route) -> dict:
     """Times one RG-LRU route at ``shape`` beside its bound; logs a
     ``[time]`` line and returns ms, bound and the plain inputs."""
@@ -3232,6 +3457,9 @@ def main(argv=None) -> int:
             jobs["mesh train", name, depth] = pool.submit(
                 plan_job, "mesh train", name, depth, MOE_MESH_TRAIN_SHAPE,
                 MOE_MESH_TRAIN_OPT, share)
+        for kind in ("prefill", "decode"):
+            jobs[kind, XLSTM] = pool.submit(plan_job, kind, XLSTM, None,
+                                            XLSTM_SHAPE)
         return run_phases(torch, opts, t_start, jobs)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
@@ -3359,11 +3587,12 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
     train = drive_train(torch, qwen, counters, card, opts.seed, TRAIN_SHAPE,
                         TRAIN_OPT, jobs["train", qwen.name].result())
     torch.cuda.empty_cache()
-    whole = drive_launcher(torch, qwen, counters, card, opts.seed)
+    launched = dataclasses.replace(qwen, num_layers=LAUNCH_DEPTH)
+    whole = drive_launcher(torch, launched, counters, card, opts.seed)
     torch.cuda.empty_cache()
     log(f"[elapsed] {time.perf_counter() - t_start:.1f} s before the mesh "
         f"launcher phase")
-    mesh_launch = drive_mesh_launcher(torch, qwen, hybrid, whole, card,
+    mesh_launch = drive_mesh_launcher(torch, launched, hybrid, whole, card,
                                       opts.seed)
     del whole
     log(f"[elapsed] {time.perf_counter() - t_start:.1f} s after it")
@@ -3428,6 +3657,14 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
             jobs["mesh train", name, depth].result()))
         torch.cuda.empty_cache()
 
+    # -- 7f: xLSTM on the card ---------------------------------------------
+    log(f"[graphs released] before the xLSTM phase: "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
+    xlstm = drive_xlstm(torch, counters, card,
+                        {kind: jobs[kind, XLSTM].result()
+                         for kind in ("prefill", "decode")})
+    torch.cuda.empty_cache()
+
     # -- 8: each kernel's time at its slice shape ----------------------------
     fa_row = time_fa(fa, torch, gen, card, B, S, H, hd, plain=True)
     fa_row.update(launches=fa_launches, max_abs_err=fa_err,
@@ -3446,6 +3683,7 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
         k: v["launches_per_step"]["flash_attention"]
         for k, v in moe_train.items()}
     fa_row["launches_moe_train_mesh"] = moe_mesh_train
+    fa_row["launches_xlstm"] = xlstm["launches"]["flash_attention"]
     fa_row["arctic_shape"] = {
         "shape": [*MOE_SHAPE, arctic.num_heads, arctic.resolved_head_dim],
         "max_abs_err": max(moe["arctic_480b"]["site_errs"]),
@@ -3490,7 +3728,8 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
         "bound_ms": ring["bound_ms"], "bound_by": ring["bound_by"],
         "library_ms": None,
         "launches_train_step": hybrid_train["launches_per_step"]["rg_lru"],
-        "launches_mesh": [r["launches"]["rg_lru"] for r in mesh[hybrid.name]]}
+        "launches_mesh": [r["launches"]["rg_lru"] for r in mesh[hybrid.name]],
+        "launches_xlstm": xlstm["launches"]["rg_lru"]}
 
     log(f"[routes] rg_lru launches by route on the {hybrid.name} path: "
         + json.dumps(lru_routes))

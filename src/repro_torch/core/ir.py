@@ -711,6 +711,59 @@ class _Extractor:
             [self._convert(src.vid, dtype), self._literal(dtype)], shape,
             dtype))
 
+    def _aten_split(self, node, args, kwargs):
+        # reference: jnp.split's one multi-result ``split`` prim
+        vid = args[0].vid
+        t = self._type(vid)
+        size = args[1] if len(args) > 1 else kwargs["split_size"]
+        dim = _norm_dim(args[2] if len(args) > 2 else kwargs.get("dim", 0),
+                        t.rank)
+        if isinstance(size, int):
+            # chunks of ``size``, the last one what is left
+            n = t.shape[dim]
+            sizes = [size] * (n // size) + ([n % size] if n % size else [])
+        else:
+            sizes = list(size)
+        return self._split(node, vid, sizes, dim)
+
+    def _aten_split_with_sizes(self, node, args, kwargs):
+        vid = args[0].vid
+        dim = args[2] if len(args) > 2 else kwargs.get("dim", 0)
+        return self._split(node, vid, list(args[1]),
+                           _norm_dim(dim, self._type(vid).rank))
+
+    def _split(self, node, vid, sizes, dim):
+        vals = node.meta["val"]
+        if sum(sizes) != self._type(vid).shape[dim] or \
+                len(vals) != len(sizes):
+            raise UnsupportedOpError(f"{node.target} into {sizes}")
+        vids = [self.prog.new_value(tuple(int(d) for d in v.shape),
+                                    dtype_name(v.dtype)) for v in vals]
+        self.prog.add_op(Op("split", {"sizes": tuple(int(n) for n in sizes),
+                                      "axis": dim}, [vid], vids), self.trip)
+        return tuple(_Ref(v) for v in vids)
+
+    def _aten_tril(self, node, args, kwargs):
+        # reference lowering of jnp.tril(x, k) on a matrix: the mask
+        # row + k >= col of two iotas, then select_n(mask, zeros, x)
+        x = args[0].vid
+        k = args[1] if len(args) > 1 else kwargs.get("diagonal", 0)
+        shape, dtype = _meta(node)
+        if len(shape) != 2 or not isinstance(k, int):
+            raise UnsupportedOpError(f"{node.target} of rank {len(shape)}")
+
+        def iota(d):
+            return self._emit("iota", {"dtype": "int32", "shape": shape,
+                                       "dimension": d}, [], shape, "int32")
+
+        rows = self._emit("add", {}, [iota(0), self._literal("int32")],
+                          shape, "int32")
+        cols = iota(1)
+        mask = self._emit("ge", {}, [rows, cols], shape, "bool")
+        zeros = self._bcast(self._literal(dtype), shape, ())
+        return _Ref(self._emit("select_n", {}, [mask, zeros, x], shape,
+                               dtype))
+
     # -- reductions ---------------------------------------------------------
 
     def _reduce(self, node, prim, vid, dims, keepdim):
@@ -736,6 +789,15 @@ class _Extractor:
         dims, keep = self._reduce_args(args, kwargs)
         vid = self._convert(args[0].vid, _meta(node)[1])
         return _Ref(self._reduce(node, "reduce_sum", vid, dims, keep))
+
+    def _aten_cumsum(self, node, args, kwargs):
+        # reference: the ``cumsum`` prim along one axis, forwards
+        shape, dtype = _meta(node)
+        dim = args[1] if len(args) > 1 else kwargs["dim"]
+        vid = self._convert(args[0].vid, dtype)
+        return _Ref(self._emit("cumsum", {"axis": _norm_dim(dim, len(shape)),
+                                          "reverse": False}, [vid], shape,
+                               dtype))
 
     def _aten_amax(self, node, args, kwargs):
         dims, keep = self._reduce_args(args, kwargs)

@@ -1,5 +1,5 @@
-"""Model building blocks in PyTorch: the dense decoder's, the hybrid's
-and the mixture-of-experts models' parts.
+"""Model building blocks in PyTorch: the dense decoder's, the hybrid's,
+the mixture-of-experts models' and xLSTM's parts.
 
 Ported so far: RMSNorm, RoPE, GQA attention (full, sliding-window and
 non-causal masking; the einsum path and the fused-kernel path; the
@@ -8,8 +8,10 @@ MoE block (top-k router, capacity-bounded gather / scatter-add dispatch
 in the global, batch and local modes, Arctic's dense residual path) and
 the Griffin RG-LRU block (full sequence, on the associative-scan path
 or the fused-kernel path; the one-token decode form over its recurrent
-and conv state).  The other block kinds of the reference (xLSTM,
-cross-attention, the GELU MLP) are ROADMAP queue 1, item 11.
+and conv state) and the xLSTM blocks (the mLSTM's stabilised parallel
+form and the sLSTM's recurrence scanned over time, each with its
+one-token decode form).  Cross-attention and the GELU MLP of the
+reference are ROADMAP queue 1, item 11.
 
 Functions take plain tensors and parameter dicts in the reference's
 pytree layout.  They are written as the same reduce / elementwise steps
@@ -607,3 +609,167 @@ def rglru_decode(cfg, p, x, cache, pos):
     hnew = a[:, 0] * cache["h"] + bterm[:, 0]               # (B,r)
     y = gelu(matmul(h, p["wy"])) * hnew[:, None].to(x.dtype)
     return x + matmul(y, p["wo"]), {"h": hnew, "conv": conv_state}
+
+
+# ---------------------------------------------------------------------------
+# xLSTM blocks
+# ---------------------------------------------------------------------------
+
+
+def mlstm_param_shapes(cfg) -> dict:
+    """Shapes and init kinds of one mLSTM block's parameters."""
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+    return {"ln": ((d,), "ones"), "wq": ((d, h * hd), "dense"),
+            "wk": ((d, h * hd), "dense"), "wv": ((d, h * hd), "dense"),
+            "wi": ((d, h), "dense"), "wf": ((d, h), "dense"),
+            "wo": ((h * hd, d), "dense")}
+
+
+def mlstm_apply(cfg, p, x):
+    """Parallel (stabilised quadratic) mLSTM forward, full sequence.
+
+    The decay matrix ``D[b,h,i,j] = exp(F_i - F_j + ig_j - max(m_i, 0))``
+    (``F`` the log-forget-gate prefix sum, ``m_i`` its row max, keys
+    after the query masked to ``-inf``) weighs the query-key products;
+    the normaliser is ``max(|row sum|, exp(-max(m, 0)))``.
+    """
+    B, S, _ = x.shape
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    xn = rmsnorm(x, p["ln"])
+    q = split_dim(matmul(xn, p["wq"]), -1, (h, hd))
+    k = split_dim(matmul(xn, p["wk"]), -1, (h, hd)) / round_to(
+        x.dtype, math.sqrt(hd))
+    v = split_dim(matmul(xn, p["wv"]), -1, (h, hd))
+    ig = matmul(xn, p["wi"]).to(torch.float32)               # (B,S,h)
+    fg = matmul(xn, p["wf"]).to(torch.float32)
+    logf = -softplus(-fg)                                    # log σ(f)
+    F = torch.cumsum(logf, dim=1)
+    # logD[b,h,i,j] = F_i - F_j + ig_j   (j <= i)
+    logD = (F.permute(0, 2, 1)[:, :, :, None] -
+            F.permute(0, 2, 1)[:, :, None, :] +
+            ig.permute(0, 2, 1)[:, :, None, :])
+    mask = replicate_like(torch.tril(torch.ones(
+        (S, S), dtype=torch.bool, device=x.device)), logD)
+    logD = torch.where(mask[None, None], logD, -math.inf)
+    m = logD.amax(-1, keepdim=True)                          # (B,h,S,1)
+    D = torch.exp(logD - torch.clamp_min(m, 0.0))
+    Sqk = einsum("bshd,bthd->bhst", q, k).to(torch.float32) * D
+    Sqk = constrain(Sqk, ("act_batch", "heads", "seq", None))
+    n = torch.maximum(torch.abs(Sqk.sum(-1, keepdim=True)),
+                      torch.exp(-torch.clamp_min(m, 0.0)))
+    out = einsum("bhst,bthd->bshd", (Sqk / n).to(v.dtype), v)
+    return x + matmul(out.reshape(B, S, h * hd), p["wo"])
+
+
+def mlstm_init_cache(cfg, batch, device=None):
+    """One mLSTM block's decode state, all float32: the matrix memory
+    ``C``, the normaliser ``n`` and the stabiliser ``m``."""
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    return {"C": torch.zeros((batch, h, hd, hd), dtype=torch.float32,
+                             device=device),
+            "n": torch.zeros((batch, h, hd), dtype=torch.float32,
+                             device=device),
+            "m": torch.zeros((batch, h), dtype=torch.float32,
+                             device=device)}
+
+
+def mlstm_decode(cfg, p, x, cache, pos):
+    """One-token mLSTM decode: the recurrent form of
+    :func:`mlstm_apply`. x: (B,1,D)."""
+    B = x.shape[0]
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    xn = rmsnorm(x, p["ln"])
+    q = matmul(xn, p["wq"]).reshape(B, h, hd)
+    k = matmul(xn, p["wk"]).reshape(B, h, hd) / round_to(
+        x.dtype, math.sqrt(hd))
+    v = matmul(xn, p["wv"]).reshape(B, h, hd)
+    ig = matmul(xn, p["wi"]).to(torch.float32).reshape(B, h)
+    fg = matmul(xn, p["wf"]).to(torch.float32).reshape(B, h)
+    logf = -softplus(-fg)
+    m_new = torch.maximum(logf + cache["m"], ig)
+    fsc = torch.exp(logf + cache["m"] - m_new)[..., None]
+    isc = torch.exp(ig - m_new)[..., None]
+    C = fsc[..., None] * cache["C"] + \
+        isc[..., None] * (v[..., :, None] * k[..., None, :])
+    nvec = fsc * cache["n"] + isc * k
+    hn = einsum("bhij,bhj->bhi", C, q.to(torch.float32))
+    denom = torch.maximum(torch.abs((nvec * q).sum(-1, keepdim=True)),
+                          torch.exp(-m_new)[..., None])
+    out = (hn / denom).to(x.dtype).reshape(B, 1, h * hd)
+    return x + matmul(out, p["wo"]), {"C": C, "n": nvec, "m": m_new}
+
+
+def slstm_param_shapes(cfg) -> dict:
+    """Shapes and init kinds of one sLSTM block's parameters: the input
+    weights ``W`` of the four gates, their per-head recurrent weights
+    ``R`` and bias ``b``."""
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+    return {"ln": ((d,), "ones"), "W": ((d, 4 * h * hd), "dense"),
+            "R": ((h, hd, 4 * hd), "dense"),
+            "b": ((4 * h * hd,), "zeros"),
+            "wo": ((h * hd, d), "dense")}
+
+
+def _slstm_step(cfg, p, carry, pre_x):
+    """One sLSTM step. carry: (c, n, hst, m), each (B,h,hd) float32;
+    pre_x: (B, 4*h*hd), the input's gate pre-activations."""
+    h_, hd = cfg.num_heads, cfg.resolved_head_dim
+    c, n, hst, m = carry
+    rec = einsum("bij,ijk->bik", hst.to(p["R"].dtype), p["R"])
+    pre = pre_x.reshape(*pre_x.shape[:-1], h_, 4 * hd) + rec
+    zi, ii, fi, oi = torch.split(pre.to(torch.float32), hd, dim=-1)
+    z = torch.tanh(zi)
+    o = torch.sigmoid(oi)
+    logf = -softplus(-fi)
+    m_new = torch.maximum(logf + m, ii)
+    isc = torch.exp(ii - m_new)
+    fsc = torch.exp(logf + m - m_new)
+    c_new = fsc * c + isc * z
+    n_new = torch.clamp_min(fsc * n + isc, 1.0)
+    h_new = o * c_new / n_new
+    return (c_new, n_new, h_new, m_new), h_new
+
+
+def slstm_apply(cfg, p, x):
+    """sLSTM block (pre-norm residual), full sequence: the gates' input
+    products for every step at once, then the recurrence scanned over
+    time (``transformer.scan_layers``: one ``scan`` under
+    ``torch.export``, a loop eagerly)."""
+    from repro_torch.models.transformer import scan_layers
+    B, S, _ = x.shape
+    h_, hd = cfg.num_heads, cfg.resolved_head_dim
+    xn = rmsnorm(x, p["ln"])
+    pre = matmul(xn, p["W"]) + p["b"]                        # (B,S,h*4hd)
+    z = torch.zeros((B, h_, hd), dtype=torch.float32, device=x.device)
+    carry = (z, z, z, torch.zeros((B, h_, hd), dtype=torch.float32,
+                                  device=x.device))
+
+    def step(c, pre_t):
+        c, h_new = _slstm_step(cfg, p, c, pre_t)
+        # a scan's output may not alias another: ys get their own copy
+        return c, h_new.clone()
+
+    _, hs = scan_layers(step, carry, pre.permute(1, 0, 2), with_ys=True)
+    out = hs.permute(1, 0, 2, 3).reshape(B, S, h_ * hd).to(x.dtype)
+    return x + matmul(out, p["wo"])
+
+
+def slstm_init_cache(cfg, batch, device=None):
+    """One sLSTM block's decode state: the carries ``c``, ``n``, ``h``
+    and ``m``, each (B, h, hd) float32."""
+    h_, hd = cfg.num_heads, cfg.resolved_head_dim
+    return {k: torch.zeros((batch, h_, hd), dtype=torch.float32,
+                           device=device) for k in ("c", "n", "h", "m")}
+
+
+def slstm_decode(cfg, p, x, cache, pos):
+    """One-token sLSTM decode: one step of the recurrence. x: (B,1,D)."""
+    B = x.shape[0]
+    h_, hd = cfg.num_heads, cfg.resolved_head_dim
+    xn = rmsnorm(x, p["ln"])
+    pre = (matmul(xn, p["W"]) + p["b"])[:, 0]
+    carry = (cache["c"], cache["n"], cache["h"], cache["m"])
+    carry, h_new = _slstm_step(cfg, p, carry, pre)
+    out = h_new.reshape(B, 1, h_ * hd).to(x.dtype)
+    cache = {"c": carry[0], "n": carry[1], "h": carry[2], "m": carry[3]}
+    return x + matmul(out, p["wo"]), cache

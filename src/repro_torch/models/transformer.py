@@ -22,8 +22,10 @@ enabled, eager) checkpoints each layer body, as the reference's
 
 Ported block kinds: ``attn``, ``local`` and ``rglru``, with the dense
 MLP, and with the MoE block after attention in a model with experts
-(``mixtral_8x22b``, ``arctic_480b``).  The others raise and name their
-ROADMAP item.
+(``mixtral_8x22b``, ``arctic_480b``), and xLSTM's ``mlstm`` and
+``slstm`` (``xlstm_350m``; the sLSTM's time scan runs inside the layer
+scan's body).  Encoder-decoder, modality-frontend and GELU-MLP models
+raise and name their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,11 +43,6 @@ from repro_torch.models.sharding import (constrain, embedding, gather_for,
                                         kernel_dispatch, layer,
                                         logical_rules, matmul,
                                         replicate_like)
-
-_NOT_PORTED = {
-    "mlstm": "xLSTM blocks are not ported yet (ROADMAP queue 1, item 11)",
-    "slstm": "xLSTM blocks are not ported yet (ROADMAP queue 1, item 11)",
-}
 
 
 def block_kinds(cfg) -> tuple[tuple[str, ...], tuple[str, ...]]:
@@ -65,10 +62,12 @@ def kernel_sites(cfg) -> dict[str, tuple[int, int]]:
     """Per fused kernel, its call sites under ``use_pallas`` in the scanned
     period and in the tail: an RG-LRU block calls the scan, full causal
     attention flash attention, windowed attention none (its einsum
-    path)."""
+    path), the xLSTM blocks none."""
     def kernel(kind):
         if kind == "rglru":
             return "rg_lru"
+        if kind not in ("attn", "local"):
+            return None
         window = cfg.sliding_window if kind == "attn" else cfg.local_window
         return "flash_attention" if window == 0 else None
 
@@ -78,9 +77,7 @@ def kernel_sites(cfg) -> dict[str, tuple[int, int]]:
             for k in ("flash_attention", "rg_lru")}
 
 
-def _check_ported(cfg, kind: str) -> None:
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[kind])
+def _check_ported(cfg) -> None:
     if cfg.is_encoder_decoder or cfg.frontend or cfg.mlp != "swiglu":
         raise NotImplementedError(
             "encoder-decoder, modality-frontend and GELU-MLP models are "
@@ -98,9 +95,10 @@ def _is_moe(cfg, kind) -> bool:
 
 
 def _block_shapes(cfg, kind) -> dict:
-    _check_ported(cfg, kind)
-    p = {"mix": L.rglru_param_shapes(cfg) if kind == "rglru" else
-         L.attn_param_shapes(cfg)}
+    _check_ported(cfg)
+    mix = {"rglru": L.rglru_param_shapes, "mlstm": L.mlstm_param_shapes,
+           "slstm": L.slstm_param_shapes}.get(kind, L.attn_param_shapes)
+    p = {"mix": mix(cfg)}
     if cfg.d_ff > 0:
         p["ffn"] = L.moe_param_shapes(cfg) if _is_moe(cfg, kind) else \
             L.mlp_param_shapes(cfg)
@@ -249,16 +247,20 @@ def param_logical_axes(cfg, params):
             base = ("vocab", "embed")
         elif key == "unembed":
             base = ("embed", "vocab")
-        elif key == "wq":
+        elif key == "wq" or (key == "W" and parent == "mix"):
             base = ("embed", "heads")
         elif key in ("wk", "wv"):
             base = ("embed", "kv_heads")
+        elif key == "R":
+            base = ("heads", None, None)
         elif key in ("wx", "wy"):
             base = ("embed", "rnn")
         elif key in ("ga_w", "ga_b", "gi_w", "gi_b", "lam", "conv_b"):
             base = ("rnn",)
         elif key == "conv_w":
             base = (None, "rnn")
+        elif key in ("wi", "wf") and parent == "mix":   # mLSTM gates
+            base = ("embed", "heads")
         elif key == "wo" and parent == "mix":
             base = ("rnn", "embed") if leaf.shape[-2] == L.rnn_width(cfg) \
                 else ("heads", "embed")
@@ -293,12 +295,16 @@ def param_logical_axes(cfg, params):
 
 
 def apply_block(cfg, kind, p, x, positions):
-    _check_ported(cfg, kind)
+    _check_ported(cfg)
     # an MoE block places its own weights (layers.moe_apply)
     p = {k: v if k == "ffn" and _is_moe(cfg, kind) else gather_for(v, x)
          for k, v in p.items()}
     if kind == "rglru":
         x = L.rglru_apply(cfg, p["mix"], x)
+    elif kind == "mlstm":
+        x = L.mlstm_apply(cfg, p["mix"], x)
+    elif kind == "slstm":
+        x = L.slstm_apply(cfg, p["mix"], x)
     else:
         window = cfg.sliding_window if kind == "attn" else cfg.local_window
         x = L.attn_apply(cfg, p["mix"], x, positions, window=window)
@@ -415,9 +421,13 @@ def forward(cfg, params, tokens):
 
 
 def _block_cache(cfg, kind, batch, max_seq, device):
-    _check_ported(cfg, kind)
+    _check_ported(cfg)
     if kind == "rglru":
         return L.rglru_init_cache(cfg, batch, device=device)
+    if kind == "mlstm":
+        return L.mlstm_init_cache(cfg, batch, device=device)
+    if kind == "slstm":
+        return L.slstm_init_cache(cfg, batch, device=device)
     window = cfg.sliding_window if kind == "attn" else cfg.local_window
     return L.attn_init_cache(cfg, batch, max_seq, window, device=device)
 
@@ -458,9 +468,13 @@ def init_cache(cfg, batch, max_seq, device=None):
 
 def decode_block(cfg, kind, p, x, cache, pos):
     """One layer's one-token decode; returns ``(x, new cache)``."""
-    _check_ported(cfg, kind)
+    _check_ported(cfg)
     if kind == "rglru":
         x, cache = L.rglru_decode(cfg, p["mix"], x, cache, pos)
+    elif kind == "mlstm":
+        x, cache = L.mlstm_decode(cfg, p["mix"], x, cache, pos)
+    elif kind == "slstm":
+        x, cache = L.slstm_decode(cfg, p["mix"], x, cache, pos)
     else:
         window = cfg.sliding_window if kind == "attn" else cfg.local_window
         x, cache = L.attn_decode(cfg, p["mix"], x, cache, pos,

@@ -22,7 +22,9 @@ model's gradients within 1e-4 of the CPU's, and a small bf16 one's
 captured, donated train steps equal to eager ones bit for bit.  MoE
 training on two ranks sharing the card: the MoE ops' gradients on CUDA
 DTensors as on the CPU group, and a small bf16 MoE train step through
-``plan.apply`` of its (1, 2) plan against one card's.
+``plan.apply`` of its (1, 2) plan against one card's.  xLSTM: a
+16-layer f32 model (two sLSTMs) on the card within 1e-4 of the CPU, and
+a bf16 one's captured prefill and decode equal to eager bit for bit.
 """
 
 import pytest
@@ -478,6 +480,78 @@ def test_captured_moe_prefill_and_decode_equal_eager(gen, arch):
     (graph,) = captured.graphs
     sites = cfg.num_layers if arch == "arctic_480b" else 0
     assert graph.launches["flash_attention"] == sites
+    B, P, G, max_seq = 2, 8, 8, 32
+    sess, names = serve.decode_session(cfg, B, max_seq)
+    dplan = sess.partition(serve.decode_request(
+        cfg, names, MeshSpec(("data", "model"), (1, 1))))
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    dec = dplan.apply(make_decode_step(cfg))
+    got = serve.serve_loop(dec, params, T.init_cache(cfg, B, max_seq),
+                           prompts, G)
+    want = serve.serve_loop(dplan.apply(make_decode_step(cfg),
+                                        capture=False),
+                            params, T.init_cache(cfg, B, max_seq), prompts, G)
+    assert dec.captures == 1 and dec.replays == P + G - 1
+    assert torch.equal(got.tokens, want.tokens)
+    for a, b in zip(pytree.tree_leaves(got.cache),
+                    pytree.tree_leaves(want.cache)):
+        assert torch.equal(a, b)
+
+
+def small_xlstm(dtype):
+    """The reduced xLSTM at 16 layers: two scanned super-blocks, each
+    with an sLSTM whose time scan runs inside the layer scan."""
+    import dataclasses
+    return dataclasses.replace(small_config("xlstm_350m", dtype),
+                               num_layers=16)
+
+
+def test_small_xlstm_on_the_card_as_on_the_cpu(gen):
+    """The 16-layer f32 xLSTM: forward logits and 8 decode steps' logits
+    and caches on the card within 1e-4 of the same model on the CPU."""
+    from repro_torch import pytree
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_decode_step
+    cfg = small_xlstm("float32")
+    params = T.init_params(cfg, gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    host = pytree.tree_map(lambda x: x.cpu(), params)
+    torch.testing.assert_close(T.forward(cfg, params, toks).cpu(),
+                               T.forward(cfg, host, toks.cpu()),
+                               rtol=1e-4, atol=1e-4)
+    dec = make_decode_step(cfg)
+    cache, hcache = T.init_cache(cfg, 2, 8), T.init_cache(cfg, 2, 8, "cpu")
+    for t in range(8):
+        pos = torch.tensor(t, dtype=torch.int32)
+        got, cache = dec(params, cache, toks[:, t:t + 1], pos.cuda())
+        want, hcache = dec(host, hcache, toks[:, t:t + 1].cpu(), pos)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for a, b in zip(pytree.tree_leaves(cache), pytree.tree_leaves(hcache)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def test_captured_xlstm_prefill_and_decode_equal_eager(gen):
+    """The 16-layer bf16 xLSTM inside a graph (the sLSTM's time loop
+    captured step by step): prefill replays equal eager exactly, and so
+    does decode, 8 prompt tokens and 8 greedy tokens; no kernel site."""
+    from repro_torch import pytree
+    from repro_torch.core.cost_model import MeshSpec
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_decode_step
+    cfg = small_xlstm("bfloat16")
+    step, plan = prefill_plan(cfg, 2, 64)
+    assert not plan.kernel_sites
+    params = T.init_params(cfg, gen)
+    captured = plan.apply(step)
+    eager = plan.apply(step, capture=False)
+    for _ in range(3):
+        batch = tokens(gen, cfg, 2, 64)
+        assert torch.equal(captured(params, batch), eager(params, batch))
+    assert captured.captures == 1 and captured.replays == 3
+    assert not any(captured.graphs[0].launches.values())
     B, P, G, max_seq = 2, 8, 8, 32
     sess, names = serve.decode_session(cfg, B, max_seq)
     dplan = sess.partition(serve.decode_request(

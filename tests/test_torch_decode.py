@@ -190,9 +190,8 @@ class TestInitCache:
         assert cache["layers"][0]["h"].shape == (1, 1, 96)
 
     def test_unported_kinds_raise(self):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            T.init_cache(get_config("xlstm_350m").reduced(), 1, 8,
-                         device="cpu")
+        # xLSTM's caches are ported (item 11a, tests/test_torch_xlstm.py)
+        T.init_cache(get_config("xlstm_350m").reduced(), 1, 8, device="cpu")
         with pytest.raises(NotImplementedError, match="item 11"):
             T.init_cache(get_config("whisper_small").reduced(), 1, 8,
                          device="cpu")

@@ -100,7 +100,9 @@ class TestParams:
                                       np.asarray(x, np.float32))
 
     def test_unported_block_kinds_raise(self):
-        for arch in ("whisper_small", "xlstm_350m"):
+        # xLSTM's blocks are ported (item 11a, tests/test_torch_xlstm.py)
+        T.param_specs(get_config("xlstm_350m").reduced())
+        for arch in ("whisper_small", "phi3_vision"):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 T.param_specs(get_config(arch).reduced())
 
