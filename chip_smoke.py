@@ -18,9 +18,14 @@ launcher on those two ranks; and the mixture-of-experts models
 the card holds, their plans searched at full depth), prefill and decode,
 arctic's attention sites on the CUDA flash-attention kernel, on one card
 and on two ranks sharing it; ``mixtral_8x22b``'s train step at full
-width on one card and on two ranks sharing it; and ``xlstm_350m`` at
+width on one card and on two ranks sharing it; ``xlstm_350m`` at
 full width and depth, prefill and decode, its mLSTM and sLSTM blocks on
-no kernel (the sLSTM's time scan nested in the layer scan).
+no kernel (the sLSTM's time scan nested in the layer scan); and the
+frontend models at full width and depth, ``whisper_small`` (its
+encoder's attention on the kernel non-causal, its decoder's causal, the
+decoder's cross-attention on the einsum path) and ``phi3_vision`` (its
+patch embeddings before the tokens, the kernel at head dim 96), prefill
+and decode.
 
 1. print the card's name and power limit; build both kernels from the
    sources in this checkout, in parallel;
@@ -56,7 +61,9 @@ no kernel (the sLSTM's time scan nested in the layer scan).
    turns; hold the last-token logits against the same requests with
    every site forced to the plain version; check a small f32 model
    against the plain path too;
-5. for each model's decode path (``launch/serve.py``, the same weights):
+5. for each model's decode path (``launch/serve.py``, the same weights,
+   cut to ``DECODE_DEPTH``: 4 of ``qwen2_05b``'s 24 layers, 8 of
+   ``recurrentgemma_2b``'s 26):
    trace and analyze the decode step at B = 4 and cache 256; search the
    2x4 plan with the serving launcher's request (it must satisfy its
    ``Replicate`` constraints and round-trip through JSON) and the 1x1
@@ -90,7 +97,7 @@ no kernel (the sLSTM's time scan nested in the layer scan).
    kernels against step 1 on the plain version (loss and grad norm), and
    a small f32 model's loss, gradients and updated state likewise;
 6b. the training launcher (``launch/train.py``) on ``qwen2_05b`` at the
-   same shape, cut to 12 of its 24 layers: 6 steps from the seed's
+   same shape, cut to 4 of its 24 layers: 6 steps from the seed's
    weights and data pipeline uninterrupted (``--plan manual``), then
    again with ``--plan toast``, a checkpoint every 3 steps and a failure
    injected at step 4: attempt 1 must resume from
@@ -112,8 +119,9 @@ no kernel (the sLSTM's time scan nested in the layer scan).
    beyond the distance from that run of one card's run of the same
    batches in two microbatches (bf16 rounding that AdamW amplifies in a
    leaf whose gradient cancels); then
-   both models serve one request of 4 x (16 prompt + 16 generated)
-   tokens through ``launch/serve.py`` on the same ranks (the decode
+   both models, each at its ``DECODE_DEPTH``, serve one request of 4 x
+   (16 prompt + 16 generated) tokens through ``launch/serve.py`` on the
+   same ranks (the decode
    step's plan for (1, 2), the weights and cache replicated), the prompt
    logits within 2e-2 of the largest and argmax equal to one card's
    serve of the same prompts;
@@ -125,8 +133,8 @@ no kernel (the sLSTM's time scan nested in the layer scan).
    backwards; its small f32 model has two periods and the tail (8
    layers);
 7b. the MoE models, ``mixtral_8x22b`` and then ``arctic_480b``, each
-   at full width with random bf16 weights from the seed, cut to 4 and 2
-   layers (what one card holds; each freed before the next): search the
+   at full width with random bf16 weights from the seed, cut to 2 and 1
+   layers (each freed before the next): search the
    2x4 plans of the full-depth prefill and decode steps on ``meta``
    tensors (time to a plan, colors, conflicts, the expert weights'
    specs); apply the 1x1 plans of the cut model's own prefill and
@@ -209,29 +217,55 @@ no kernel (the sLSTM's time scan nested in the layer scan).
    GB, the capture's seconds and pool; one sLSTM and one mLSTM block at
    the prefill's shape captured alone, each graph's nodes (its launches)
    and replay ms, and their share of a captured request; then the decode
-   path as in 5; then the 16-layer reduced f32 model (two sLSTMs): its
-   decode against its forward (in 5's small check) and its forward on
-   the card against the same model on the CPU, within 1e-4;
+   path as in 5, cut to its first 8 layers (one period); then the
+   16-layer reduced f32 model (two sLSTMs): its decode against its
+   forward (in 5's small check) and its forward on the card against the
+   same model on the CPU, within 1e-4;
+7g. the frontend models (after 7f), each at full width and full depth
+   with bf16 weights from the seed, one after the other:
+   ``whisper_small`` (12 encoder + 12 decoder layers, 0.28 B parameters)
+   and ``phi3_vision`` (32 layers, head dim 96, 3.8 B): the prefill
+   step's 2x4 and 1x1 plans searched on ``meta`` tensors in the worker
+   process (their kernel sites: whisper's encoder site non-causal, its
+   decoder's causal); the prefill path as in 4, its 3 requests
+   whisper's of 4 x (1500 frames + 1500 tokens), phi3_vision's of 4 x
+   (576 patch embeddings + 1472 tokens), the attention launches counted
+   per request (24: 12 non-causal and 12 causal; 32); every site held at
+   its own q, k, v against the plain attention (2e-2, bf16), whisper's
+   encoder output within 2e-2 of the largest through the plain sites;
+   then the decode path as in 5 (whisper's against the
+   encoder's output of 1500 frames, which every step's cross-attention
+   reads and projects anew: its bound counts those reads and the
+   projections' operations; phi3_vision's text only), its small f32
+   model's decode against its forward; for whisper, the serving
+   launcher's command line once on the card;
 8. time each kernel at its slice shape beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` (a
    yardstick only: the port never calls it), and at ``arctic_480b``'s
-   shape (4, 2048, 56, 128); time the attention kernel
+   shape (4, 2048, 56, 128) and at the frontend models' shapes
+   (whisper's (4, 1500, 12, 64) non-causal and causal, phi3_vision's (4,
+   2048, 32, 96)); time the attention kernel
    and SDPA at head dims 96 and 128 too, at the slice's B, S and H, and
    at hd 64 without the causal mask and at four times the length; time
    the RG-LRU ring in bf16 and at one batch row too, and its generic
    route at the slice shape; and at the hybrid train step's shape, the
    RG-LRU kernel and its plain backward.
 
-The decode, train, MoE and xLSTM steps are traced and their plans
-searched in one worker process (``meta`` tensors, no card) while the
-card runs the earlier phases; each phase takes its plans as JSON.  The
+Every step is traced and its plans searched in two worker processes
+(``meta`` tensors, no card) while the card runs the earlier phases, the
+small f32 models' prefill and train steps too; each phase takes its
+plans as JSON.  The
 MoE phases report the full-depth steps' plans and run the cut steps'
 plans.  The ``kernels`` line's attention row carries the launches of
 each path: ``launches_train_step``, ``launches_mesh``,
 ``launches_moe``, ``launches_mesh_moe``, ``launches_moe_train_step``,
-``launches_moe_train_mesh`` (per rank, phase 7e) and
-``launches_xlstm`` (phase 7f, 0: a launch fails the phase); the RG-LRU
-row carries its ``launches_xlstm`` too.
+``launches_moe_train_mesh`` (per rank, phase 7e),
+``launches_xlstm`` (phase 7f, 0: a launch fails the phase) and
+``launches_whisper`` / ``launches_phi3_vision`` (phase 7g, per request),
+with ``whisper_encoder_shape``, ``whisper_decoder_shape`` and
+``phi3_vision_shape`` (the kernel's times there beside its bound, the
+plain version and SDPA, and the sites' largest error); the RG-LRU row
+carries 0 for those launches too.
 
 Run from the root of a checkout: ``python3 chip_smoke.py [--seed N]``
 (the seed of the train path's weights and batch, 0 by default).  Needs one
@@ -281,6 +315,15 @@ SMALL_TOL = 1e-4
 DECODE_SHAPE = (4, 128)
 DECODE_GEN = 128
 DECODE_MAX_SEQ = 256
+# the decode paths of qwen2_05b, recurrentgemma_2b (two periods and its
+# tail of two RG-LRU blocks: at 5 layers one served row's greedy token
+# was a near tie that the two ranks' bf16 rounding flipped, within 6.1e-3
+# of the largest logit) and xlstm_350m (one period: 7 mLSTM + 1 sLSTM),
+# and the first two's serves on two ranks in the mesh launcher phase,
+# cut in depth: their eager steps are host-bound, about linear in the
+# layers (~2.1-3.8 ms a layer and token on one card, as much as ~80 ms
+# on two ranks sharing it, by host)
+DECODE_DEPTH = {"qwen2_05b": 4, "recurrentgemma_2b": 8, "xlstm_350m": 8}
 # small f32 models' decode: tokens (past the hybrid's 16-token window)
 SMALL_DECODE_TOKENS = 40
 # train path: batch x tokens (the prefill path's shape), steps on one
@@ -298,14 +341,15 @@ HYBRID_TRAIN_OPT = dict(TRAIN_OPT, state_dtype="bfloat16")
 # its small f32 model: two periods of (rglru, rglru, local) and a tail
 HYBRID_SMALL_LAYERS = 8
 # the training launcher at full width (qwen2_05b at TRAIN_SHAPE, cut to
-# LAUNCH_DEPTH of its 24 layers: the mesh launcher's steps are
-# host-bound, about linear in the layers): steps, a checkpoint every
+# LAUNCH_DEPTH of its 24 layers; at 6 and at 4 layers a mesh launcher
+# step took ~7-10 s on a slow host, the embedding, unembedding and
+# gloo's copies setting most of it): steps, a checkpoint every
 # LAUNCH_CKPT_EVERY steps, a failure injected at step LAUNCH_FAIL_AT of
 # the first attempt
 LAUNCH_STEPS = 6
 LAUNCH_CKPT_EVERY = 3
 LAUNCH_FAIL_AT = 4
-LAUNCH_DEPTH = 12
+LAUNCH_DEPTH = 4
 # step 1 through the kernel vs through the plain version: loss and grad
 # norm, relative (bf16)
 TRAIN_REL_TOL = 2e-2
@@ -315,14 +359,16 @@ MESH_SHAPE = (1, 2)
 MESH_REQUESTS = 2
 MESH_TIMEOUT = 420.0
 # the mesh launcher phase: the launcher's schedule on (1, 2), then one
-# request of 4 x (16 prompt + 16 generated) tokens per model
+# request of 4 x (16 prompt + 16 generated) tokens per model, each at
+# its DECODE_DEPTH
 MESH_SERVE = (4, 16, 16)
 MESH_LAUNCH_TIMEOUT = 600.0
-# the MoE models at full width, cut in depth to what one card holds
-# (mixtral_8x22b: 5.008 GB a layer in bf16; arctic_480b: 27.22 GB a
-# layer), served at the qwen2_05b path's traffic; their plans are
-# searched for the full depth
-MOE_DEPTH = {"mixtral_8x22b": 4, "arctic_480b": 2}
+# the MoE models at full width, cut in depth (mixtral_8x22b: 5.008 GB a
+# layer in bf16; arctic_480b: 27.22 GB a layer; 4 and 2 layers, what one
+# card holds, before the decode-bound steps of their decode paths were
+# cut for time), served at the qwen2_05b path's traffic; their plans
+# are searched for the full depth
+MOE_DEPTH = {"mixtral_8x22b": 2, "arctic_480b": 1}
 MOE_SHAPE = (4, 2048)
 # the MoE mesh phase: two ranks share card 0 on a (data 1, model 2) mesh,
 # each model cut to what two ranks holding its weights whole fit (the
@@ -377,6 +423,15 @@ MOE_MESH_TRAIN_OPT = dict(HYBRID_TRAIN_OPT, lr=1e-4)
 XLSTM = "xlstm_350m"
 XLSTM_SHAPE = QWEN_SHAPE
 XLSTM_SMALL_LAYERS = 16
+# the frontend models' phase: whisper_small at full width and depth, each
+# request 4 x (1500 frames + 1500 tokens), 1500 being Whisper's 30-second
+# window after its conv stem (ShapeConfig seq_len 3000: the reference's
+# specs split it in halves); phi3_vision 4 x (576 patches + 1472 tokens)
+WHISPER = "whisper_small"
+WHISPER_SHAPE = (4, 3000)
+WHISPER_FRAMES = 1500
+PHI3V = "phi3_vision"
+PHI3V_SHAPE = QWEN_SHAPE
 # the router's leaves (its weight and moments), whose gradient is the
 # noisiest: checked after step 1 too, and the planted fault of phase 7e
 # (its gradient scaled by ROUTER_FAULT) must fail the leaf checks
@@ -527,14 +582,16 @@ def lru_inputs(torch, gen, shape, dtype, lo=None, hi=None):
 
 
 def plan_job(kind: str, name: str, depth: int | None = None,
-             shape=None, opt_kw=None, hbm: float | None = None) -> dict:
+             shape=None, opt_kw=None, hbm: float | None = None,
+             small_layers: int | None = None) -> dict:
     """Host work of one phase, run in the worker process beside the
     card's phases (no card is touched): trace ``name``'s ``kind`` step
     on ``meta`` tensors (``Session``) and search its 2x4 and 1x1 plans.
 
     ``kind`` is ``"path"`` (the prefill step at ``shape``: its 2x4, 1x1
     and (1, 2) plans, the last as the mesh phase plans it),
-    ``"prefill"`` (B x S of ``shape``, by default ``MOE_SHAPE``),
+    ``"prefill"`` (B x S of ``shape``, by default ``MOE_SHAPE``; a
+    frontend model's S split as its specs split it),
     ``"decode"`` (B
     of ``DECODE_SHAPE``, cache ``DECODE_MAX_SEQ``, the serving launcher's
     requests; with it the 1x1 plan of the prefill step on the decode
@@ -547,8 +604,13 @@ def plan_job(kind: str, name: str, depth: int | None = None,
     at ``shape``, AdamW of ``opt_kw``, planned for (1, 2) with a
     ``HardwareSpec`` whose ``hbm_per_chip`` is ``hbm``, each rank's
     share of the card).
-    ``depth`` cuts the layers (``None``: the config's).  Returns the
-    session's figures, each plan's JSON and what was checked on it.
+    ``depth`` cuts the layers (``None``: the config's).  A ``"path"``
+    job, a frontend model's ``"prefill"`` job and the ``"train"`` job of
+    a model without experts also plan the small f32 model's step for the
+    phase's small check (``"small 1x1"``): its prefill at 2 x 64
+    positions, or its train step (remat on, ``small_layers`` layers;
+    ``None``: the reduced config's).  Returns the session's figures, each
+    plan's JSON and what was checked on it.
     """
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     import torch
@@ -565,6 +627,14 @@ def plan_job(kind: str, name: str, depth: int | None = None,
     def meta_tokens(B, S):
         return {"tokens": torch.empty((B, S), dtype=torch.int32,
                                       device="meta")}
+
+    def meta_batch(B, S):
+        # a frontend model's batch (its frames or patches and tokens), as
+        # the specs split S
+        if cfg.is_encoder_decoder or cfg.frontend:
+            return specs.batch_specs(cfg, ShapeConfig("prefill", S, B,
+                                                      "prefill"))[0]
+        return meta_tokens(B, S)
 
     cfg = dataclasses.replace(get_config(name), use_pallas=True)
     if depth is not None:
@@ -586,7 +656,7 @@ def plan_job(kind: str, name: str, depth: int | None = None,
                 hw=dataclasses.replace(HardwareSpec(), hbm_per_chip=hbm))}
     elif kind in ("prefill", "mesh", "path"):
         sess = Session(TS.make_prefill_step(cfg), (T.param_specs(cfg),
-                       meta_tokens(*(shape or MOE_SHAPE))))
+                       meta_batch(*(shape or MOE_SHAPE))))
         reqs = {"2x4": Request(mesh=mesh8), "1x1": Request(mesh=mesh1)}
         if kind == "path":
             reqs["1x2"] = Request(mesh=MeshSpec(("data", "model"),
@@ -623,9 +693,33 @@ def plan_job(kind: str, name: str, depth: int | None = None,
     out["seconds"] = time.perf_counter() - t0
     out["hbm"] = hbm
     if kind == "decode":
+        # the prefill step on the decode path's prompts (and, for an
+        # encoder-decoder, the frames of its 1500-frame batch)
+        batch = meta_tokens(*DECODE_SHAPE)
+        if cfg.is_encoder_decoder:
+            batch = {**meta_batch(DECODE_SHAPE[0], 2 * WHISPER_FRAMES),
+                     **batch}
         psess = Session(TS.make_prefill_step(cfg),
-                        (T.param_specs(cfg), meta_tokens(*DECODE_SHAPE)))
+                        (T.param_specs(cfg), batch))
         out["plans"]["prefill 1x1"] = psess.partition(
+            Request(mesh=mesh1)).to_json()
+    if kind == "path" or kind == "prefill" and cfg.frontend:
+        small = dataclasses.replace(get_config(name).reduced(),
+                                    use_pallas=True)
+        ssess = Session(TS.make_prefill_step(small), (
+            T.param_specs(small),
+            specs.batch_specs(small, ShapeConfig("s", 64, 2, "prefill"))[0]))
+        out["plans"]["small 1x1"] = ssess.partition(
+            Request(mesh=mesh1)).to_json()
+    if kind == "train" and not cfg.num_experts:
+        small = dataclasses.replace(get_config(name).reduced(),
+                                    use_pallas=True, remat=True)
+        if small_layers is not None:
+            small = dataclasses.replace(small, num_layers=small_layers)
+        ssess = Session(TS.make_train_step(small, opt), (
+            TS.train_state_specs(small, opt),
+            specs.batch_specs(small, ShapeConfig("t", 64, 2, "train"))[0]))
+        out["plans"]["small 1x1"] = ssess.partition(
             Request(mesh=mesh1)).to_json()
     if kind == "mesh":
         B, P, G = MESH_SERVE
@@ -654,25 +748,27 @@ def log_session(cfg, shape, job) -> None:
 
 
 def drive_path(torch, cfg, job, shape, counters, kernel, per_request,
-               card):
+               card, sites=None):
     """Plan and serve one model's prefill path.
 
     Args:
         cfg: the full-width model configuration (``use_pallas`` set).
-        job: the ``"path"`` :func:`plan_job` result of its prefill step.
-        shape: prompts x tokens of each request.
+        job: the ``"path"`` (or ``"prefill"``) :func:`plan_job` result of
+            its prefill step.
+        shape: prompts x positions of each request (a frontend model's
+            batches: :func:`prefill_requests`).
         counters: kernel name -> its wrapper module (``launches``).
         kernel: the kernel this path runs.
         per_request: that kernel's launches in one request.
         card: the card's name and power limit, for the time lines.
+        sites: the 1x1 plan's kernel sites, in order (``None``: any of
+            ``kernel``'s).
 
     Returns:
         The kernel's launches, the RG-LRU's by route, the weights and the
         captured plan's last-token logits of each request.
     """
-    from repro_torch.api import Request, Session
     from repro_torch.configs import get_config
-    from repro_torch.core.cost_model import MeshSpec
     from repro_torch.models import transformer as T
     from repro_torch.train.steps import make_prefill_step
 
@@ -687,20 +783,18 @@ def drive_path(torch, cfg, job, shape, counters, kernel, per_request,
         f"evaluations={plan8.evaluations} json round-trip ok")
 
     plan1 = plan_of(job, "1x1")
-    sites = {r["site"]: r["impl"] for r in plan1.kernel_sites}
-    if not sites or set(sites.values()) != {"cuda"} or \
-            any(not s.startswith(kernel + ":") for s in sites):
-        raise AssertionError(f"1x1 plan kernel sites chose {sites}")
+    chose = {r["site"]: r["impl"] for r in plan1.kernel_sites}
+    if not chose or set(chose.values()) != {"cuda"} or \
+            any(not s.startswith(kernel + ":") for s in chose) or \
+            sites is not None and list(chose) != sites:
+        raise AssertionError(f"1x1 plan kernel sites chose {chose}")
     log(f"[partition {name} 1x1] cost={plan1.cost:.6f} sites="
-        + json.dumps(sites))
+        + json.dumps(chose))
     applied = plan1.apply(step)
     eager = plan1.apply(step, capture=False)
     params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     tgen = torch.Generator(device="cuda").manual_seed(1)
-    requests = [{"tokens": torch.randint(0, cfg.vocab_size, (B, S),
-                                         generator=tgen, device="cuda",
-                                         dtype=torch.int32)}
-                for _ in range(REQUESTS)]
+    requests = prefill_requests(torch, cfg, tgen, shape, REQUESTS)
     eager(params, requests[0])              # warm-up, not counted
     graph = capture_once(torch, applied, f"{name} prefill B={B} S={S}",
                          params, requests[0])
@@ -801,15 +895,11 @@ def drive_path(torch, cfg, job, shape, counters, kernel, per_request,
         if rel > LOGITS_REL_TOL:
             raise AssertionError("kernel and plain logits disagree")
 
+    # the small f32 model, its plan traced in the worker process
     small = dataclasses.replace(get_config(name).reduced(), use_pallas=True)
     small_step = make_prefill_step(small)
-    small_batch = {"tokens": torch.randint(0, small.vocab_size, (2, 64),
-                                           generator=tgen, device="cuda",
-                                           dtype=torch.int32)}
-    small_sess = Session(small_step, (T.param_specs(small), {
-        "tokens": torch.empty((2, 64), dtype=torch.int32, device="meta")}))
-    small_plan = small_sess.partition(
-        Request(mesh=MeshSpec(("data", "model"), (1, 1))))
+    (small_batch,) = prefill_requests(torch, small, tgen, (2, 64), 1)
+    small_plan = plan_of(job, "small 1x1")
     small_params = T.init_params(
         small, torch.Generator(device="cuda").manual_seed(2))
     got = small_plan.apply(small_step)(small_params, small_batch)
@@ -1088,9 +1178,30 @@ def tree_bytes(tree) -> int:
                for x in pytree.tree_leaves(tree))
 
 
+def cut_depth(cfg, params, depth: int):
+    """``cfg`` cut to its first ``depth`` layers, and the parameters of
+    those layers (views of ``params``'s stacks)."""
+    from repro_torch import pytree
+    from repro_torch.models import transformer as T
+    cut = dataclasses.replace(cfg, num_layers=depth)
+    n, tail = T.n_scan_blocks(cut), T.block_kinds(cut)[1]
+    if tail != T.block_kinds(cfg)[1][:len(tail)]:
+        raise ValueError(f"{cfg.name} cut to {depth} layers ends in "
+                         f"{tail}, its full depth otherwise")
+    return cut, {**params,
+                 "layers": tuple(pytree.tree_map(lambda x: x[:n], stack)
+                                 for stack in params["layers"]),
+                 "tail": params["tail"][:len(tail)]}
+
+
 def drive_decode(torch, cfg, params, counters, card, job,
                  small=None) -> None:
     """Plan and serve one model's decode path with ``params``.
+
+    An encoder-decoder model (whisper) decodes against the encoder's
+    output of ``WHISPER_FRAMES`` frames per request (``transformer.encode``
+    through the kernel, before the counted run), which every decode step
+    reads; its prefill check runs on the same frames.
 
     Args:
         cfg: the full-width model configuration.
@@ -1144,16 +1255,24 @@ def drive_decode(torch, cfg, params, counters, card, job,
     prompts = [torch.randint(0, cfg.vocab_size, (B, P), generator=tgen,
                              device="cuda", dtype=torch.int32)
                for _ in range(REQUESTS)]
+    frames, enc_outs = [None] * REQUESTS, [None] * REQUESTS
+    if cfg.is_encoder_decoder:
+        frames = [torch.randn((B, WHISPER_FRAMES, cfg.d_model),
+                              generator=tgen, device="cuda")
+                  for _ in range(REQUESTS)]
+        enc_outs = [T.encode(cfg, params, f) for f in frames]
+    extra = () if enc_outs[0] is None else (enc_outs[0],)
     # warm-up, not counted: eager, then the capture of the decode step's
     # one signature (every prompt and generating step shares it)
     serve.serve_loop(decode_eager, params,
                      T.init_cache(cfg, B, DECODE_MAX_SEQ), prompts[0][:, :4],
-                     4)
+                     4, enc_outs[0])
     graph = capture_once(torch, decode, f"{name} decode B={B} cache="
                          f"{DECODE_MAX_SEQ}", params,
                          T.init_cache(cfg, B, DECODE_MAX_SEQ),
                          prompts[0][:, :1], torch.zeros((), dtype=torch.int32,
-                                                        device="cuda"))
+                                                        device="cuda"),
+                         *extra)
     if any(graph.launches.values()) or any(graph.warmup_launches.values()):
         raise AssertionError(f"the decode graph recorded kernel launches "
                              f"{graph.launches}")
@@ -1169,7 +1288,8 @@ def drive_decode(torch, cfg, params, counters, card, job,
             fn = decode if label == "captured" else decode_eager
             cache = T.init_cache(cfg, B, DECODE_MAX_SEQ)
             torch.cuda.reset_peak_memory_stats()
-            res = serve.serve_loop(fn, params, cache, pr, DECODE_GEN)
+            res = serve.serve_loop(fn, params, cache, pr, DECODE_GEN,
+                                   enc_outs[i])
             peak = torch.cuda.max_memory_allocated() / 1e9
             if res.tokens.shape != (B, DECODE_GEN) or \
                     not torch.isfinite(res.prompt_logits).all() or \
@@ -1213,7 +1333,10 @@ def drive_decode(torch, cfg, params, counters, card, job,
             f"bit, captured vs eager")
 
     for i, (pr, res) in enumerate(zip(prompts, results["captured"])):
-        want = prefill(params, {"tokens": pr}).float()
+        pbatch = {"tokens": pr}
+        if frames[i] is not None:
+            pbatch["frames"] = frames[i]
+        want = prefill(params, pbatch).float()
         got = res.prompt_logits[:, 0].float()
         rows = list(range(B))
         if cfg.num_experts:
@@ -1267,19 +1390,33 @@ def drive_decode(torch, cfg, params, counters, card, job,
         embed.element_size() + B * embed.shape[1] * embed.element_size()
     c_bytes = tree_bytes(T.init_cache(cfg, B, DECODE_MAX_SEQ,
                                              device="meta"))
-    bound_ms = (w_bytes + c_bytes) / PEAK_HBM_BYTES * 1e3
+    # an encoder-decoder's cross-attention recomputes its keys and values
+    # from the encoder's output in every layer and step: each layer reads
+    # enc_out once (a fused step never writes K and V out), and the K/V
+    # projections' operations bound the step too
+    x_bytes = x_flops = 0.0
+    if enc_outs[0] is not None:
+        e = enc_outs[0]
+        kv = 2 * B * e.shape[1] * cfg.num_kv_heads * cfg.resolved_head_dim
+        x_bytes = cfg.num_layers * e.numel() * e.element_size()
+        x_flops = cfg.num_layers * 2.0 * kv * cfg.d_model
+    t_bytes = (w_bytes + c_bytes + x_bytes) / PEAK_HBM_BYTES * 1e3
+    bound_ms = max(t_bytes, x_flops / PEAK_BF16_FLOPS * 1e3)
     times = []
     for label in ("captured", "eager"):
         med = percentile(steps[label], 0.5)
         times.append(f"{label} median {med:.3f} ms, p90 "
                      f"{percentile(steps[label], 0.9):.3f} ms = "
                      f"{med / bound_ms:.1f}x the bound")
+    cross = (f" + cross-attention's enc_out reads {x_bytes / 1e6:.2f} MB "
+             f"({x_flops / 1e9:.2f} GFLOP of K/V projections at 989 "
+             f"TFLOP/s)" if x_bytes else "")
     log(f"[decode bound] {card}: {name} weights {w_bytes / 1e6:.2f} MB + "
-        f"cache {c_bytes / 1e6:.2f} MB -> {bound_ms:.4f} ms per token at "
-        f"3.35 TB/s; over {REQUESTS} x {DECODE_GEN - 1} steps each: "
+        f"cache {c_bytes / 1e6:.2f} MB{cross} -> {bound_ms:.4f} ms per "
+        f"token at 3.35 TB/s; over {REQUESTS} x {DECODE_GEN - 1} steps each: "
         + "; ".join(times) + f"; capture {graph.seconds:.3f} s, graph pool "
         f"{graph.pool_bytes / 1e9:.3f} GB")
-    del results, graph, pgraph
+    del results, graph, pgraph, enc_outs, frames
     decode.release()
     prefill.release()
     del prefill, decode, decode_eager
@@ -1292,9 +1429,15 @@ def drive_decode(torch, cfg, params, counters, card, job,
     S = SMALL_DECODE_TOKENS
     toks = torch.randint(0, small.vocab_size, (2, S), generator=tgen,
                          device="cuda", dtype=torch.int32)
+    kw, extra = {}, ()
+    if small.is_encoder_decoder:
+        kw["frames"] = torch.randn((2, 64, small.d_model), generator=tgen,
+                                   device="cuda")
     before = {k: mod.launches for k, mod in counters.items()}
     with kernel_dispatch(KernelDispatch(default_impl="cuda")):
-        want = T.forward(small, sp, toks)
+        want = T.forward(small, sp, toks, **kw)
+        if kw:
+            extra = (T.encode(small, sp, kw["frames"]),)
     ran = [k for k, mod in counters.items() if mod.launches > before[k]]
     if not ran and any(sum(n) for n in T.kernel_sites(small).values()):
         raise AssertionError("the small forward launched no kernel")
@@ -1304,7 +1447,7 @@ def drive_decode(torch, cfg, params, counters, card, job,
     for t in range(S):
         logits, cache = step(sp, cache, toks[:, t:t + 1],
                              torch.tensor(t, dtype=torch.int32,
-                                          device="cuda"))
+                                          device="cuda"), *extra)
         outs.append(logits[:, 0])
     got = torch.stack(outs, 1)
     torch.testing.assert_close(got, want, rtol=SMALL_TOL, atol=SMALL_TOL)
@@ -2539,7 +2682,7 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
         shape: batch x tokens of the step.
         opt_kw: the ``AdamConfig`` fields.
         small_layers: the small f32 model's depth (``None``: the reduced
-            config's).
+            config's), as its plan in ``job`` was traced.
         moe: an MoE model (no kernel site of its own): step 1 is held
             against the same step's loss and grad norm in f32 (forward
             and backward, no AdamW) instead of the plain sites' and the
@@ -2548,13 +2691,9 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
             remat's recomputation must select what the forward did;
             captured and eager must agree bit for bit.
     """
-    from repro_torch.api import Request, Session
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.core.cost_model import MeshSpec
     from repro_torch import pytree
     from repro_torch.kernels import ops
-    from repro_torch.launch import specs
     from repro_torch.models import transformer as T
     from repro_torch.models.sharding import KernelDispatch, kernel_dispatch
     from repro_torch.optim.adam import AdamConfig
@@ -2787,10 +2926,7 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
     if small_layers is not None:
         small = dataclasses.replace(small, num_layers=small_layers)
     sstep = TS.make_train_step(small, opt)
-    sspec, _ = specs.batch_specs(small, ShapeConfig("t", 64, 2, "train"))
-    splan = Session(sstep, (TS.train_state_specs(small, opt), sspec)
-                    ).partition(Request(mesh=MeshSpec(("data", "model"),
-                                                      (1, 1))))
+    splan = plan_of(job, "small 1x1")      # traced in the worker process
     splain = dataclasses.replace(
         splan, kernel_sites=[{**r, "impl": "ref"}
                              for r in splan.kernel_sites])
@@ -2930,8 +3066,8 @@ def mesh_launcher_rank(rank, name, depth, train_argv, serve_argv):
     Trains ``name`` at full width, cut to ``depth`` layers, through
     ``launch/train.py`` on the (1, 2) mesh (``train_argv``: a failure
     injected and a restart), then serves each model of ``serve_argv``
-    through ``launch/serve.py`` on the same two ranks.  Returns what the
-    rank counted: each attempt's
+    through ``launch/serve.py`` on the same two ranks, at its
+    ``DECODE_DEPTH``.  Returns what the rank counted: each attempt's
     record (its state dropped), the attention kernel's launches and
     local shapes, the peak memory, and each model's gathered tokens and
     prompt logits."""
@@ -2965,7 +3101,8 @@ def mesh_launcher_rank(rank, name, depth, train_argv, serve_argv):
     for arch, argv in serve_argv.items():
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res = server.serve(server.parse_args(argv))
+        res = server.serve(server.parse_args(argv), dataclasses.replace(
+            get_config(arch), num_layers=DECODE_DEPTH[arch]))
         out["serve"][arch] = {
             "s": time.perf_counter() - t0,
             "tokens": res.tokens.full_tensor().cpu(),
@@ -3015,8 +3152,9 @@ def drive_mesh_launcher(torch, cfg, hybrid, whole, card, seed: int):
     on two ranks of one gloo group sharing card 0, ``--plan toast`` on
     the (1, 2) mesh, a failure at step ``LAUNCH_FAIL_AT`` and a restart;
     then one request served through ``launch/serve.py`` on the same ranks
-    for ``cfg`` and ``hybrid``.  The final checkpoint is held against the
-    one-card uninterrupted run ``whole`` (its state on the host): the
+    for ``cfg`` and ``hybrid``, each at its ``DECODE_DEPTH``.  The final
+    checkpoint is held against the one-card uninterrupted run ``whole``
+    (its state on the host): the
     step, each step's loss and grad norm within 2e-2, and each leaf
     within 2e-2 beyond the distance from ``whole`` of one card's run of
     the same batches in two microbatches (:func:`split_run`); the served
@@ -3030,6 +3168,7 @@ def drive_mesh_launcher(torch, cfg, hybrid, whole, card, seed: int):
 
     from repro_torch import pytree
     from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve as server
     from repro_torch.launch.mesh import run_ranks
 
@@ -3051,8 +3190,10 @@ def drive_mesh_launcher(torch, cfg, hybrid, whole, card, seed: int):
         # the one-card serve of the same prompts (the same seeded weights)
         one = {}
         for arch, argv in serve_argv.items():
-            res = server.serve(server.parse_args(argv + ["--plan",
-                                                         "manual"]))
+            res = server.serve(
+                server.parse_args(argv + ["--plan", "manual"]),
+                dataclasses.replace(get_config(arch),
+                                    num_layers=DECODE_DEPTH[arch]))
             one[arch] = (res.tokens.cpu(), res.prompt_logits.float().cpu())
             del res
         torch.cuda.synchronize()
@@ -3351,7 +3492,8 @@ def drive_xlstm(torch, counters, card, jobs) -> dict:
             f"request's median")
     del x
 
-    drive_decode(torch, cfg, params, counters, card, jobs["decode"],
+    drive_decode(torch, *cut_depth(cfg, params, DECODE_DEPTH[XLSTM]),
+                 counters, card, jobs["decode"],
                  dataclasses.replace(get_config(XLSTM).reduced(),
                                      num_layers=XLSTM_SMALL_LAYERS))
     del params
@@ -3373,6 +3515,173 @@ def drive_xlstm(torch, counters, card, jobs) -> dict:
         f"{(got - want).abs().max().item():.3e} (tol {SMALL_TOL}) ok")
     log(f"[elapsed] xLSTM phase {time.perf_counter() - t_start:.1f} s")
     return {"launches": launches, "blocks": per_kind}
+
+
+def prefill_requests(torch, cfg, gen, shape, n: int) -> list:
+    """``n`` seeded prefill batches at ``shape`` (B, S positions): a
+    decoder's tokens, whisper's frames (S/2) and tokens (S/2),
+    phi3_vision's patch embeddings (its patches) and tokens (the rest),
+    the frames and patches f32 as the specs give them."""
+    B, S = shape
+    out = []
+    for _ in range(n):
+        batch, n_tokens = {}, S
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.randn((B, S // 2, cfg.d_model),
+                                          generator=gen, device="cuda")
+            n_tokens = S // 2
+        elif cfg.frontend:
+            batch["patch_embeds"] = torch.randn(
+                (B, cfg.num_patches, cfg.d_model), generator=gen,
+                device="cuda")
+            n_tokens = S - cfg.num_patches
+        batch["tokens"] = torch.randint(0, cfg.vocab_size, (B, n_tokens),
+                                        generator=gen, device="cuda",
+                                        dtype=torch.int32)
+        out.append(batch)
+    return out
+
+
+def drive_frontend(torch, name, counters, card, jobs, shape) -> dict:
+    """Plan and serve a frontend model at full width and full depth:
+    ``whisper_small`` (its encoder's sites non-causal, its decoder's
+    causal) or ``phi3_vision`` (its sites at head dim 96): its prefill
+    path (:func:`drive_path`), each site held at its own q, k, v against
+    the plain version, whisper's encoder output against the plain
+    sites; then its decode path; for whisper the serving launcher's
+    command line once.
+
+    Args:
+        name: ``WHISPER`` or ``PHI3V``.
+        counters: kernel name -> its wrapper module (``launches``).
+        card: the card's name and power limit, for the time lines.
+        jobs: the :func:`plan_job` results of its prefill and decode
+            steps, by kind.
+        shape: (B, S positions) of each prefill request.
+
+    Returns:
+        The attention kernel's launches per request, as counted, and each
+        site's largest error against the plain version, by causality.
+    """
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.sharding import KernelDispatch, kernel_dispatch
+    from repro_torch.train.steps import make_prefill_step
+
+    fa = counters["flash_attention"]
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(get_config(name), use_pallas=True)
+    B, S = shape
+    job = jobs["prefill"]
+    st = job["stats"]
+    plan8 = plan_of(job, "2x4")
+    enc = f" + {cfg.encoder_layers} encoder layers" \
+        if cfg.encoder_layers else ""
+    log(f"[frontend plan {name} prefill 2x4] {cfg.num_layers} layers{enc}"
+        f", B={B} S={S}: {job['seconds']:.3f} s to the plans in the worker "
+        f"process (trace {st['phases']['trace']:.3f} s, search "
+        f"{plan8.search_seconds:.3f} s), {st['ops']} ops, trip counts "
+        f"{st['trips']}, {st['colors']} colors, {st['conflicts']} "
+        f"conflicts, cost {plan8.cost:.6f}, kernel ops {st['kernel_ops']}, "
+        f"sites " + json.dumps({r["site"]: [r["impl"], r["sharded"]]
+                                for r in plan8.kernel_sites})
+        + f", rules {json.dumps(plan8.logical_rules)}")
+    per_request = cfg.num_layers + cfg.encoder_layers
+    n_sites = 2 if cfg.is_encoder_decoder else 1
+    launched, _, params, logits = drive_path(
+        torch, cfg, job, shape, counters, "flash_attention", per_request,
+        card, [f"flash_attention:{i}" for i in range(n_sites)])
+    n_params = sum(x.numel() for x in pytree.tree_leaves(params))
+    log(f"[frontend {name}] {n_params / 1e9:.3f} B parameters, "
+        f"{tree_bytes(params) / 1e9:.3f} GB of bf16 weights")
+
+    # every site at the model's own q, k, v (the first request, eager,
+    # recorded): the kernel against the plain version
+    site_errs = {False: [], True: []}
+    real_attention = ops.attention
+
+    def recorded(q, k, v, *, causal=True):
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.reference(q, k, v, causal=causal)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=FA_TOL["bfloat16"],
+                                   atol=FA_TOL["bfloat16"])
+        site_errs[causal].append(
+            ((got.float() - want.float()).abs().max().item(),
+             tuple(q.shape)))
+        return real_attention(q, k, v, causal=causal)
+
+    (request,) = prefill_requests(
+        torch, cfg, torch.Generator(device="cuda").manual_seed(1), shape, 1)
+    eager = plan_of(job, "1x1").apply(make_prefill_step(cfg), capture=False)
+    ops.attention = recorded
+    try:
+        got = eager(params, request).float()
+    finally:
+        ops.attention = real_attention
+    if not torch.equal(got, logits[0]):
+        raise AssertionError(f"{name}: a recorded eager run differs from "
+                             f"the captured run")
+    want_sites = {False: cfg.encoder_layers, True: cfg.num_layers}
+    for causal, errs in site_errs.items():
+        if len(errs) != want_sites[causal]:
+            raise AssertionError(f"{name}: {len(errs)} sites with causal="
+                                 f"{causal}, expected {want_sites[causal]}")
+        if errs:
+            worst = max(e for e, _ in errs)
+            log(f"[kernel] flash_attention at {name}'s {len(errs)} "
+                f"{'causal decoder' if causal else 'non-causal encoder'} "
+                f"sites, their own q {errs[0][1]} bf16: max|err|="
+                f"{worst:.3e} (within rtol = atol = {FA_TOL['bfloat16']}) "
+                f"ok")
+    if cfg.is_encoder_decoder:
+        # the encoder's output through the kernel and the plain sites
+        frames = request["frames"]
+        before = {k: mod.launches for k, mod in counters.items()}
+        with kernel_dispatch(KernelDispatch(default_impl="ref")):
+            b = T.encode(cfg, params, frames).float()
+        if {k: mod.launches for k, mod in counters.items()} != before:
+            raise AssertionError("the plain path launched a kernel")
+        with kernel_dispatch(KernelDispatch(default_impl="cuda")):
+            a = T.encode(cfg, params, frames).float()
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        log(f"[frontend {name}] encode {tuple(frames.shape)}: "
+            f"max|kernel-plain|/max|plain| = {rel:.3e} (tol "
+            f"{LOGITS_REL_TOL}), finite {bool(torch.isfinite(a).all())}")
+        if rel > LOGITS_REL_TOL or not torch.isfinite(a).all():
+            raise AssertionError("kernel and plain encoder outputs disagree")
+        del a, b
+    del eager, logits, request
+    torch.cuda.empty_cache()
+
+    drive_decode(torch, cfg, params, counters, card, jobs["decode"])
+    del params
+    torch.cuda.empty_cache()
+    if cfg.is_encoder_decoder:
+        # the serving launcher, as a user runs it on the card
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             name], cwd=REPO, capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+        if run.returncode != 0:
+            raise AssertionError(f"serve CLI --arch {name} failed:\n"
+                                 f"{run.stdout}{run.stderr}")
+        lines = run.stdout.strip().splitlines()
+        if len(lines) != 5 or not lines[0].startswith("prefill:"):
+            raise AssertionError(f"serve CLI --arch {name}: {run.stdout}")
+        for line in lines:
+            log(f"[serve cli {name}] {line}")
+        log(f"[serve cli {name}] {time.perf_counter() - t0:.1f} s with the "
+            f"process start")
+    log(f"[elapsed] {name} frontend phase "
+        f"{time.perf_counter() - t_start:.1f} s")
+    return {"launches": launched // REQUESTS,
+            "site_errs": {"causal" if c else "non-causal": max(
+                (e for e, _ in errs), default=None)
+                for c, errs in site_errs.items()}}
 
 
 def time_lru(lru, torch, gen, card, shape, dtype, route) -> dict:
@@ -3419,21 +3728,24 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(REPO / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # the decode, train and MoE phases' traces and searches run in one
-    # worker process (meta tensors only) while the card works, in the
-    # order the phases need them
+    # every phase's traces and searches run in two worker processes (meta
+    # tensors only) while the card works, in the order the phases need
+    # them: at the start the card waits for the first two prefill steps'
+    # plans, which one worker took ~80 s to trace and search on a slow host
     pool = concurrent.futures.ProcessPoolExecutor(
-        1, mp_context=multiprocessing.get_context("spawn"))
+        2, mp_context=multiprocessing.get_context("spawn"))
     try:
         jobs = {}
         for name, shape in (("qwen2_05b", QWEN_SHAPE),
                             ("recurrentgemma_2b", HYBRID_SHAPE)):
             jobs["path", name] = pool.submit(plan_job, "path", name, None,
                                              shape)
-        for name, train in (("qwen2_05b", (TRAIN_SHAPE, TRAIN_OPT)),
-                            ("recurrentgemma_2b",
-                             (HYBRID_TRAIN_SHAPE, HYBRID_TRAIN_OPT))):
-            jobs["decode", name] = pool.submit(plan_job, "decode", name)
+        for name, train in (
+                ("qwen2_05b", (TRAIN_SHAPE, TRAIN_OPT, None, None)),
+                ("recurrentgemma_2b", (HYBRID_TRAIN_SHAPE, HYBRID_TRAIN_OPT,
+                                       None, HYBRID_SMALL_LAYERS))):
+            jobs["decode", name] = pool.submit(plan_job, "decode", name,
+                                               DECODE_DEPTH[name])
             jobs["train", name] = pool.submit(plan_job, "train", name, None,
                                               *train)
         for name in MOE_DEPTH:
@@ -3457,9 +3769,14 @@ def main(argv=None) -> int:
             jobs["mesh train", name, depth] = pool.submit(
                 plan_job, "mesh train", name, depth, MOE_MESH_TRAIN_SHAPE,
                 MOE_MESH_TRAIN_OPT, share)
-        for kind in ("prefill", "decode"):
-            jobs[kind, XLSTM] = pool.submit(plan_job, kind, XLSTM, None,
-                                            XLSTM_SHAPE)
+        jobs["prefill", XLSTM] = pool.submit(plan_job, "prefill", XLSTM,
+                                             None, XLSTM_SHAPE)
+        jobs["decode", XLSTM] = pool.submit(plan_job, "decode", XLSTM,
+                                            DECODE_DEPTH[XLSTM])
+        for name, shape in ((WHISPER, WHISPER_SHAPE), (PHI3V, PHI3V_SHAPE)):
+            for kind in ("prefill", "decode"):
+                jobs[kind, name] = pool.submit(plan_job, kind, name, None,
+                                               shape)
         return run_phases(torch, opts, t_start, jobs)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
@@ -3522,6 +3839,12 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
     for dtype in (f32, bf16):
         check_fa(fa, torch, gen, 2, 190, 190, 4, 64, dtype, True,
                  strided=True)
+    # the frontend models' shapes: whisper's 1500 frames (no multiple of
+    # the tile) non-causal and causal, phi3_vision's head dim 96
+    for args in [(B, WHISPER_FRAMES, WHISPER_FRAMES, 12, 64, bf16, False),
+                 (B, WHISPER_FRAMES, WHISPER_FRAMES, 12, 64, bf16, True),
+                 (B, S, S, 32, 96, bf16, True)]:
+        check_fa(fa, torch, gen, *args)
 
     # the slice shape: the gates of the hybrid's RG-LRU block, f32
     R = hybrid.d_model * 3 // 2
@@ -3570,6 +3893,8 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
                       {qwen.name: QWEN_SHAPE, hybrid.name: HYBRID_SHAPE},
                       {qwen.name: ("flash_attention", qwen.num_layers),
                        hybrid.name: ("rg_lru", n_lru)}, card)
+    log(f"[elapsed] {time.perf_counter() - t_start:.1f} s after the mesh "
+        f"phase")
 
     # -- 4-7: plan and serve each path, prefill then decode; train ----
     fa_launches, _, params, logits = drive_path(
@@ -3578,8 +3903,8 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
     check_mesh(torch, qwen.name, mesh[qwen.name], logits)
     del logits
     torch.cuda.empty_cache()
-    drive_decode(torch, qwen, params, counters, card,
-                 jobs["decode", qwen.name].result())
+    drive_decode(torch, *cut_depth(qwen, params, DECODE_DEPTH[qwen.name]),
+                 counters, card, jobs["decode", qwen.name].result())
     del params
     torch.cuda.empty_cache()
     log(f"[graphs released] before the train path: "
@@ -3602,8 +3927,9 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
     check_mesh(torch, hybrid.name, mesh[hybrid.name], logits)
     del logits, sessions
     torch.cuda.empty_cache()
-    drive_decode(torch, hybrid, params, counters, card,
-                 jobs["decode", hybrid.name].result())
+    drive_decode(torch, *cut_depth(hybrid, params,
+                                   DECODE_DEPTH[hybrid.name]),
+                 counters, card, jobs["decode", hybrid.name].result())
     del params
     torch.cuda.empty_cache()
     log(f"[graphs released] before the train path: "
@@ -3613,6 +3939,8 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
                                jobs["train", hybrid.name].result(),
                                HYBRID_SMALL_LAYERS)
     torch.cuda.empty_cache()
+    log(f"[elapsed] {time.perf_counter() - t_start:.1f} s after the "
+        f"{hybrid.name} path")
 
     # -- 7b: the MoE models, one at a time ---------------------------------
     moe = {}
@@ -3665,7 +3993,20 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
                          for kind in ("prefill", "decode")})
     torch.cuda.empty_cache()
 
+    # -- 7g: the frontend models on the card ---------------------------------
+    frontend = {}
+    for name, shape in ((WHISPER, WHISPER_SHAPE), (PHI3V, PHI3V_SHAPE)):
+        log(f"[graphs released] before the {name} phase: "
+            f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
+        frontend[name] = drive_frontend(
+            torch, name, counters, card,
+            {kind: jobs[kind, name].result()
+             for kind in ("prefill", "decode")}, shape)
+        torch.cuda.empty_cache()
+
     # -- 8: each kernel's time at its slice shape ----------------------------
+    log(f"[elapsed] {time.perf_counter() - t_start:.1f} s before the "
+        f"kernel times")
     fa_row = time_fa(fa, torch, gen, card, B, S, H, hd, plain=True)
     fa_row.update(launches=fa_launches, max_abs_err=fa_err,
                   launches_train_step=train["launches_per_step"][
@@ -3684,6 +4025,27 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
         for k, v in moe_train.items()}
     fa_row["launches_moe_train_mesh"] = moe_mesh_train
     fa_row["launches_xlstm"] = xlstm["launches"]["flash_attention"]
+    fa_row["launches_whisper"] = frontend[WHISPER]["launches"]
+    fa_row["launches_phi3_vision"] = frontend[PHI3V]["launches"]
+    # the frontend models' sites: whisper's encoder (4, 1500, 12, 64)
+    # non-causal and its decoder causal; phi3_vision's (4, 2048, 32, 96)
+    whisper, phi3v = get_config(WHISPER), get_config(PHI3V)
+    for key, (cfg_i, S_i, causal, errs) in {
+            "whisper_encoder_shape": (whisper, WHISPER_FRAMES, False,
+                                      frontend[WHISPER]),
+            "whisper_decoder_shape": (whisper, WHISPER_SHAPE[1] // 2, True,
+                                      frontend[WHISPER]),
+            "phi3_vision_shape": (phi3v, PHI3V_SHAPE[1], True,
+                                  frontend[PHI3V])}.items():
+        row = time_fa(fa, torch, gen, card, B, S_i, cfg_i.num_heads,
+                      cfg_i.resolved_head_dim, plain=True, causal=causal)
+        fa_row[key] = {
+            "shape": [B, S_i, cfg_i.num_heads, cfg_i.resolved_head_dim],
+            "causal": causal,
+            "max_abs_err": errs["site_errs"][
+                "causal" if causal else "non-causal"],
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")}}
     fa_row["arctic_shape"] = {
         "shape": [*MOE_SHAPE, arctic.num_heads, arctic.resolved_head_dim],
         "max_abs_err": max(moe["arctic_480b"]["site_errs"]),
@@ -3729,7 +4091,8 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
         "library_ms": None,
         "launches_train_step": hybrid_train["launches_per_step"]["rg_lru"],
         "launches_mesh": [r["launches"]["rg_lru"] for r in mesh[hybrid.name]],
-        "launches_xlstm": xlstm["launches"]["rg_lru"]}
+        "launches_xlstm": xlstm["launches"]["rg_lru"],
+        "launches_whisper": 0, "launches_phi3_vision": 0}
 
     log(f"[routes] rg_lru launches by route on the {hybrid.name} path: "
         + json.dumps(lru_routes))

@@ -21,6 +21,13 @@ and runs eagerly on DTensors under the plan's logical rules, whose
 the prompts are replicated on the mesh, as the reference's jit receives
 them unplaced.  Only rank 0 prints.
 
+An encoder-decoder model (``whisper_small``) encodes the request's
+frame embeddings once (``transformer.encode``; 16 frames drawn from the
+seed, as the reference's launcher draws them) and hands the encoder's
+output to every decode step.  Encoder-decoder and frontend models serve
+on one device only: on two or more ranks they are refused before
+anything is made (ROADMAP queue 1, item 11g).
+
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_05b \\
         --reduced --batch 4 --prompt-len 16 --gen 16 --plan toast \\
         --device cpu
@@ -32,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import torch
@@ -132,7 +140,8 @@ class ServeResult:
     step_ms: list[float]
 
 
-def serve_loop(decode, params, cache, prompts, gen: int) -> ServeResult:
+def serve_loop(decode, params, cache, prompts, gen: int,
+               enc_out=None) -> ServeResult:
     """Prefill ``prompts`` token by token through ``decode``, then
     generate ``gen`` greedy tokens.
 
@@ -143,11 +152,14 @@ def serve_loop(decode, params, cache, prompts, gen: int) -> ServeResult:
     beside them, and the tokens stay DTensors.
 
     Args:
-        decode: ``decode(params, cache, token, pos) -> (logits, cache)``.
+        decode: ``decode(params, cache, token, pos[, enc_out]) ->
+            (logits, cache)``.
         params: the parameter tree.
         cache: the empty cache (``transformer.init_cache``).
         prompts: (B, P) int32 prompt tokens.
         gen: the number of tokens to generate (at least 1).
+        enc_out: an encoder-decoder model's encoder output, handed to
+            every step (``None``: the step takes four arguments).
 
     Returns:
         The :class:`ServeResult`.
@@ -168,17 +180,19 @@ def serve_loop(decode, params, cache, prompts, gen: int) -> ServeResult:
     def ms(a, b) -> float:
         return a.elapsed_time(b) if cuda else (b - a) * 1e3
 
+    extra = () if enc_out is None else (enc_out,)
     t0 = mark()
     logits = None
     for t in range(P):
         logits, cache = decode(params, cache, prompts[:, t:t + 1],
-                               positions[t])
+                               positions[t], *extra)
     t1 = mark()
     prompt_logits = logits
     tokens = [logits[:, 0].argmax(-1, keepdim=True).to(torch.int32)]
     marks = [t1]
     for g in range(gen - 1):
-        logits, cache = decode(params, cache, tokens[-1], positions[P + g])
+        logits, cache = decode(params, cache, tokens[-1], positions[P + g],
+                               *extra)
         tokens.append(logits[:, 0].argmax(-1, keepdim=True).to(torch.int32))
         marks.append(mark())
     if cuda:
@@ -234,17 +248,29 @@ def main(argv=None) -> None:
     serve(parse_args(argv))
 
 
-def serve(args) -> ServeResult:
+def serve(args, cfg=None) -> ServeResult:
     """Serve one batch of seeded prompts as :func:`main` does.
+
+    Args:
+        args: the command line (:func:`parse_args`).
+        cfg: the model configuration (``None``: ``--arch``'s, reduced
+            under ``--reduced``).
 
     Returns:
         The :class:`ServeResult` (on a mesh its tensors are DTensors).
     """
     dev = resolve_device(args.device)
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced()
+    ranks = max(M.group_size(), int(os.environ.get("WORLD_SIZE", "1")))
+    if (cfg.is_encoder_decoder or cfg.frontend) and ranks > 1:
+        raise NotImplementedError(
+            f"serving {cfg.name} (an encoder-decoder or modality-frontend "
+            f"model) on two or more ranks is not ported yet (ROADMAP "
+            f"queue 1, item 11g)")
     n_dev = M.init_from_env()
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=dev)
     B, P, G = args.batch, args.prompt_len, args.gen
@@ -252,6 +278,11 @@ def serve(args) -> ServeResult:
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
                             device=dev, dtype=torch.int32)
     cache = T.init_cache(cfg, B, max_seq, device=dev)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        frames = torch.randn((B, 16, cfg.d_model), generator=gen,
+                             device=dev)
+        enc_out = T.encode(cfg, params, frames)
 
     dec = make_decode_step(cfg)
     rules, mesh = {}, None
@@ -268,7 +299,7 @@ def serve(args) -> ServeResult:
     if mesh is not None:
         res = serve_replicated(dec, params, cache, prompts, G, rules, mesh)
     else:
-        res = serve_loop(dec, params, cache, prompts, G)
+        res = serve_loop(dec, params, cache, prompts, G, enc_out)
     tokens = res.tokens.full_tensor() if mesh is not None else res.tokens
     out = tokens.cpu().numpy()
     per_token = sum(res.step_ms) / max(len(res.step_ms), 1)

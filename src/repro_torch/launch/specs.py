@@ -29,29 +29,35 @@ def meta(shape, dtype) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
-def _check_decoder_only(cfg: ModelConfig) -> None:
-    if cfg.is_encoder_decoder or cfg.frontend:
-        raise NotImplementedError(
-            "encoder-decoder and modality-frontend inputs are not ported "
-            "yet (ROADMAP queue 1, item 11)")
-
-
 def batch_specs(cfg: ModelConfig, shape: ShapeConfig):
     """The abstract train / prefill batch and its logical dim names.
 
     Args:
-        cfg: the model configuration (a decoder-only one).
-        shape: the cell's shape; ``global_batch`` x ``seq_len`` tokens.
+        cfg: the model configuration.
+        shape: the cell's shape; ``global_batch`` x ``seq_len`` positions.
 
     Returns:
         ``(specs, names)``: ``{"tokens": meta (B, S) int32}`` and
-        ``{"tokens": ("batch", "seq")}``, with ``"targets"`` alike for
-        the train kind.
+        ``{"tokens": ("batch", "seq")}``; an encoder-decoder model
+        splits the positions in halves, ``"frames"`` (B, S/2, D) float32
+        for the encoder and (B, S/2) tokens; a vision model's
+        ``"patch_embeds"`` (B, P, D) float32 take the first P and the
+        tokens the rest; ``"targets"`` like the tokens for the train
+        kind.
     """
-    _check_decoder_only(cfg)
     B, S = shape.global_batch, shape.seq_len
-    specs = {"tokens": meta((B, S), torch.int32)}
-    names = {"tokens": ("batch", "seq")}
+    specs, names = {}, {}
+    if cfg.is_encoder_decoder:
+        S_enc, S = S // 2, S // 2
+        specs["frames"] = meta((B, S_enc, cfg.d_model), torch.float32)
+        names["frames"] = ("batch", "seq", "embed")
+    elif cfg.frontend == "vision":
+        P = cfg.num_patches
+        specs["patch_embeds"] = meta((B, P, cfg.d_model), torch.float32)
+        names["patch_embeds"] = ("batch", None, "embed")
+        S = S - P
+    specs["tokens"] = meta((B, S), torch.int32)
+    names["tokens"] = ("batch", "seq")
     if shape.kind == "train":
         specs["targets"] = meta((B, S), torch.int32)
         names["targets"] = names["tokens"]
@@ -98,7 +104,9 @@ def step_and_inputs(cfg: ModelConfig, shape: ShapeConfig):
       ``AdamConfig`` and one microbatch;
     - prefill: ``fn(params, batch) -> last-token logits``;
     - decode: ``fn(params, cache, token, pos) -> (logits, cache)``, one
-      new token against a ``seq_len``-deep cache.
+      new token against a ``seq_len``-deep cache; an encoder-decoder
+      model's takes a fifth input, ``enc_out`` of (B, min(1500,
+      seq_len // 2), D) float32, the encoder's output.
 
     Args:
         cfg: the model configuration.
@@ -110,10 +118,9 @@ def step_and_inputs(cfg: ModelConfig, shape: ShapeConfig):
         trees, ``names`` the same trees with logical dim names.
 
     Raises:
-        NotImplementedError: for encoder-decoder or frontend models
-            (ROADMAP queue 1, item 11).
+        NotImplementedError: the train kind of an encoder-decoder or
+            frontend model (ROADMAP queue 1, item 11f).
     """
-    _check_decoder_only(cfg)
     if shape.kind == "train":
         state = train_state_specs(cfg)
         bspecs, bnames = batch_specs(cfg, shape)
@@ -131,6 +138,11 @@ def step_and_inputs(cfg: ModelConfig, shape: ShapeConfig):
     cnames = cache_logical_axes(cache)
     token = meta((B, 1), torch.int32)
     pos = meta((), torch.int32)
+    if cfg.is_encoder_decoder:
+        enc = meta((B, min(1500, S // 2), cfg.d_model), torch.float32)
+        return make_decode_step(cfg), (params, cache, token, pos, enc), \
+            (pnames, cnames, ("batch", None), None,
+             ("batch", "seq", "embed"))
     return make_decode_step(cfg), (params, cache, token, pos), \
         (pnames, cnames, ("batch", None), None)
 

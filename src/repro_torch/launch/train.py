@@ -49,7 +49,10 @@ Without ``--device`` it runs on the CUDA card (each rank on card
 ``LOCAL_RANK % device_count``), and raises without one.  MoE configs
 (``mixtral_8x22b``, ``arctic_480b``) train on one device and on meshes
 alike, their expert stacks placed by the rules' ``"experts"`` entry.
-Only rank 0 prints.  ``--compress`` is parsed and unused, as in the reference.
+Encoder-decoder and frontend models (``whisper_small``, ``phi3_vision``)
+are refused before the launcher joins a group or makes anything
+(ROADMAP queue 1, item 11f).  Only rank 0 prints.  ``--compress`` is
+parsed and unused, as in the reference.
 """
 
 from __future__ import annotations
@@ -72,7 +75,8 @@ from repro_torch.data.pipeline import DataConfig, Pipeline
 from repro_torch.device import resolve_device
 from repro_torch.jit import jit
 from repro_torch.launch import mesh as M
-from repro_torch.train.steps import (init_train_state, make_train_step,
+from repro_torch.train.steps import (check_train_supported,
+                                     init_train_state, make_train_step,
                                      train_state_specs)
 
 
@@ -377,6 +381,7 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    check_train_supported(cfg)
     M.init_from_env()
     supervise(cfg, args)
 

@@ -10,8 +10,9 @@ the Griffin RG-LRU block (full sequence, on the associative-scan path
 or the fused-kernel path; the one-token decode form over its recurrent
 and conv state) and the xLSTM blocks (the mLSTM's stabilised parallel
 form and the sLSTM's recurrence scanned over time, each with its
-one-token decode form).  Cross-attention and the GELU MLP of the
-reference are ROADMAP queue 1, item 11.
+one-token decode form), cross-attention (an encoder-decoder's decoder
+attending to the encoder's output: no RoPE, no mask, the einsum path)
+and the GELU MLP.
 
 Functions take plain tensors and parameter dicts in the reference's
 pytree layout.  They are written as the same reduce / elementwise steps
@@ -115,18 +116,32 @@ def attn_param_shapes(cfg) -> dict:
     return p
 
 
-def _project_qkv(cfg, p, x, positions, kv_positions=None):
+def _project_qkv(cfg, p, xq, xkv, q_positions, kv_positions,
+                 use_rope=True):
+    """Queries from ``xq``, keys and values from ``xkv`` (the same
+    tensor in self-attention), split into heads; RoPE on the queries and
+    keys unless ``use_rope`` is false (cross-attention)."""
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = matmul(x, p["wq"])
-    k = matmul(x, p["wk"])
-    v = matmul(x, p["wv"])
+    q = matmul(xq, p["wq"])
+    k = matmul(xkv, p["wk"])
+    v = matmul(xkv, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    if kv_positions is None:
-        kv_positions = positions
-    q = rope(split_dim(q, -1, (h, hd)), positions, cfg.rope_theta)
-    k = rope(split_dim(k, -1, (kv, hd)), kv_positions, cfg.rope_theta)
+    q = split_dim(q, -1, (h, hd))
+    if use_rope:
+        q = rope(q, q_positions, cfg.rope_theta)
+    k = split_dim(k, -1, (kv, hd))
+    if use_rope:
+        k = rope(k, kv_positions, cfg.rope_theta)
     return q, k, split_dim(v, -1, (kv, hd))
+
+
+def _cross_qkv(cfg, p, h, x, enc_out):
+    """Cross-attention's projections: queries from ``h``, keys and
+    values from ``enc_out`` cast to ``x``'s dtype, no RoPE (the
+    reference makes positions for both, which it never reads)."""
+    enc_out = enc_out.to(x.dtype)
+    return _project_qkv(cfg, p, h, enc_out, None, None, use_rope=False)
 
 
 def attn_core(cfg, q, k, v, mask):
@@ -160,10 +175,18 @@ def causal_mask(S, T, window=0, device=None):
     return m
 
 
-def attn_apply(cfg, p, x, positions, *, window=0, is_causal=True):
-    """Full-sequence self-attention (train / prefill)."""
+def attn_apply(cfg, p, x, positions, *, window=0, is_causal=True,
+               enc_out=None):
+    """Full-sequence attention (train / prefill): self-attention, or with
+    ``enc_out`` cross-attention to it (the einsum path, no mask, never
+    the kernel, as in the reference)."""
     h = rmsnorm(x, p["ln"])
-    q, k, v = _project_qkv(cfg, p, h, positions)
+    if enc_out is not None:
+        q, k, v = _cross_qkv(cfg, p, h, x, enc_out)
+        out = attn_core(cfg, q, k, v, None)
+        out = constrain(out, ("act_batch", "seq", "heads"))
+        return x + matmul(out, p["wo"])
+    q, k, v = _project_qkv(cfg, p, h, h, positions, positions)
     if getattr(cfg, "use_pallas", False) and window == 0:
         # fused kernel path: expand GQA groups so the fused op's head
         # dim is shared across q/k/v (mappable by the plan), then
@@ -200,21 +223,26 @@ def attn_init_cache(cfg, batch, max_seq, window=0, device=None):
 
 
 def attn_decode(cfg, p, x, cache, pos, *, window=0, enc_out=None):
-    """One-token self-attention decode. x: (B,1,D); pos: 0-d int32.
+    """One-token attention decode. x: (B,1,D); pos: 0-d int32.
 
-    The new key and value go to slot ``pos % T`` of the ring; a slot is
-    visible when it holds a position in ``[0, pos]`` (and, windowed,
-    within ``window`` of ``pos``).  Returns the output and the new cache;
-    the old cache is not written.
+    Self-attention: the new key and value go to slot ``pos % T`` of the
+    ring; a slot is visible when it holds a position in ``[0, pos]``
+    (and, windowed, within ``window`` of ``pos``).  Returns the output
+    and the new cache; the old cache is not written.
+
+    With ``enc_out``, cross-attention: the keys and values are projected
+    from ``enc_out`` anew at every step (there is no cross cache, as in
+    the reference), nothing is masked, and ``cache`` is returned as it
+    came (``None`` from ``decode_block``).
     """
-    if enc_out is not None:
-        raise NotImplementedError(
-            "cross-attention decode is not ported yet (ROADMAP queue 1, "
-            "item 11)")
     h = rmsnorm(x, p["ln"])
+    if enc_out is not None:
+        q, k, v = _cross_qkv(cfg, p, h, x, enc_out)
+        out = attn_core(cfg, q, k, v, None)
+        return x + matmul(out, p["wo"]), cache
     # the query's and the key's position, each its own (1, 1) broadcast
     # of pos as the reference's pos[None, None]
-    q, k_new, v_new = _project_qkv(cfg, p, h, pos.expand(1, 1),
+    q, k_new, v_new = _project_qkv(cfg, p, h, h, pos.expand(1, 1),
                                    pos.expand(1, 1))
     T = cache["k"].shape[1]
     # the slot as a one-element index: the tracer lowers index_copy to
@@ -236,19 +264,26 @@ def attn_decode(cfg, p, x, cache, pos, *, window=0, enc_out=None):
 
 
 def mlp_param_shapes(cfg) -> dict:
-    """Shapes and init kinds of one MLP block's parameters."""
+    """Shapes and init kinds of one MLP block's parameters (the gate
+    ``wg`` in the SwiGLU form only)."""
     d, f = cfg.d_model, cfg.d_ff
-    return {"ln": ((d,), "ones"), "wi": ((d, f), "dense"),
-            "wo": ((f, d), "dense"), "wg": ((d, f), "dense")}
+    p = {"ln": ((d,), "ones"), "wi": ((d, f), "dense"),
+         "wo": ((f, d), "dense")}
+    if cfg.mlp == "swiglu":
+        p["wg"] = ((d, f), "dense")
+    return p
 
 
 def mlp_apply(cfg, p, x):
-    """SwiGLU MLP block (pre-norm residual)."""
+    """SwiGLU or GELU MLP block (pre-norm residual)."""
     h = rmsnorm(x, p["ln"])
     u = matmul(h, p["wi"])
     u = constrain(u, ("act_batch", "seq", "hidden"))
-    gate = matmul(h, p["wg"])
-    u = gate * torch.sigmoid(gate) * u
+    if cfg.mlp == "swiglu":
+        gate = matmul(h, p["wg"])
+        u = gate * torch.sigmoid(gate) * u
+    else:
+        u = gelu(u)
     return x + matmul(u, p["wo"])
 
 

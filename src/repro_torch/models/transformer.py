@@ -21,11 +21,16 @@ enabled, eager) checkpoints each layer body, as the reference's
 ``jax.checkpoint``; the forward values do not change.
 
 Ported block kinds: ``attn``, ``local`` and ``rglru``, with the dense
-MLP, and with the MoE block after attention in a model with experts
-(``mixtral_8x22b``, ``arctic_480b``), and xLSTM's ``mlstm`` and
-``slstm`` (``xlstm_350m``; the sLSTM's time scan runs inside the layer
-scan's body).  Encoder-decoder, modality-frontend and GELU-MLP models
-raise and name their ROADMAP item.
+MLP (SwiGLU or GELU), and with the MoE block after attention in a model
+with experts (``mixtral_8x22b``, ``arctic_480b``), and xLSTM's ``mlstm``
+and ``slstm`` (``xlstm_350m``; the sLSTM's time scan runs inside the
+layer scan's body).  The frontends are the reference's stubs: an
+encoder-decoder model (``whisper_small``) takes precomputed frame
+embeddings, which :func:`encode` runs through its own non-causal layer
+scan (``enc_layers``) before the decoder, whose blocks each add a
+cross-attention to the encoder's output; a vision model
+(``phi3_vision``) takes precomputed patch embeddings, concatenated
+before the token embeddings.
 """
 
 from __future__ import annotations
@@ -60,9 +65,11 @@ def n_scan_blocks(cfg) -> int:
 
 def kernel_sites(cfg) -> dict[str, tuple[int, int]]:
     """Per fused kernel, its call sites under ``use_pallas`` in the scanned
-    period and in the tail: an RG-LRU block calls the scan, full causal
+    period and in the tail: an RG-LRU block calls the scan, full
     attention flash attention, windowed attention none (its einsum
-    path), the xLSTM blocks none."""
+    path), the xLSTM blocks none, cross-attention none.  An
+    encoder-decoder model's encoder layer (one site, non-causal) counts
+    in the scanned period beside the decoder's."""
     def kernel(kind):
         if kind == "rglru":
             return "rg_lru"
@@ -72,16 +79,10 @@ def kernel_sites(cfg) -> dict[str, tuple[int, int]]:
         return "flash_attention" if window == 0 else None
 
     period, tail = block_kinds(cfg)
-    return {k: (sum(kernel(x) == k for x in period),
+    enc = ("attn",) if cfg.is_encoder_decoder else ()
+    return {k: (sum(kernel(x) == k for x in enc + period),
                 sum(kernel(x) == k for x in tail))
             for k in ("flash_attention", "rg_lru")}
-
-
-def _check_ported(cfg) -> None:
-    if cfg.is_encoder_decoder or cfg.frontend or cfg.mlp != "swiglu":
-        raise NotImplementedError(
-            "encoder-decoder, modality-frontend and GELU-MLP models are "
-            "not ported yet (ROADMAP queue 1, item 11)")
 
 
 # ---------------------------------------------------------------------------
@@ -94,11 +95,15 @@ def _is_moe(cfg, kind) -> bool:
     return bool(cfg.num_experts) and kind in ("attn", "local")
 
 
-def _block_shapes(cfg, kind) -> dict:
-    _check_ported(cfg)
+def _block_shapes(cfg, kind, *, cross=False) -> dict:
+    """One block's parameter shapes; ``cross``: a decoder block of an
+    encoder-decoder model, with its cross-attention (its leaves flatten
+    as ``cross``, ``ffn``, ``mix``: sorted keys, as in the reference)."""
     mix = {"rglru": L.rglru_param_shapes, "mlstm": L.mlstm_param_shapes,
            "slstm": L.slstm_param_shapes}.get(kind, L.attn_param_shapes)
     p = {"mix": mix(cfg)}
+    if cross:
+        p["cross"] = L.attn_param_shapes(cfg)
     if cfg.d_ff > 0:
         p["ffn"] = L.moe_param_shapes(cfg) if _is_moe(cfg, kind) else \
             L.mlp_param_shapes(cfg)
@@ -117,18 +122,25 @@ def _param_shapes(cfg) -> dict:
     period_kinds, tail_kinds = block_kinds(cfg)
     n_scan = n_scan_blocks(cfg)
 
-    def stacked(tree):
-        return _map_shapes(lambda shape, kind: ((n_scan,) + shape, kind),
-                           tree)
+    def stacked(tree, n=n_scan):
+        return _map_shapes(lambda shape, kind: ((n,) + shape, kind), tree)
 
-    return {
+    cross = cfg.is_encoder_decoder
+    shapes = {
         "embed": ((v, d), "embed"),
-        "layers": tuple(stacked(_block_shapes(cfg, k))
+        "layers": tuple(stacked(_block_shapes(cfg, k, cross=cross))
                         for k in period_kinds),
-        "tail": tuple(_block_shapes(cfg, k) for k in tail_kinds),
+        "tail": tuple(_block_shapes(cfg, k, cross=cross)
+                      for k in tail_kinds),
         "final_ln": ((d,), "ones"),
         "unembed": ((d, v), "dense"),
     }
+    if cross:
+        # the encoder: attention + MLP blocks, stacked encoder_layers deep
+        shapes["enc_layers"] = stacked(_block_shapes(cfg, "attn"),
+                                       cfg.encoder_layers)
+        shapes["enc_ln"] = ((d,), "ones")
+    return shapes
 
 
 def _is_shape_leaf(x) -> bool:
@@ -294,8 +306,9 @@ def param_logical_axes(cfg, params):
 # ---------------------------------------------------------------------------
 
 
-def apply_block(cfg, kind, p, x, positions):
-    _check_ported(cfg)
+def apply_block(cfg, kind, p, x, positions, *, enc_out=None):
+    """One layer, full sequence; ``enc_out``: the encoder's output, which
+    a decoder block's cross-attention attends to."""
     # an MoE block places its own weights (layers.moe_apply)
     p = {k: v if k == "ffn" and _is_moe(cfg, kind) else gather_for(v, x)
          for k, v in p.items()}
@@ -308,6 +321,8 @@ def apply_block(cfg, kind, p, x, positions):
     else:
         window = cfg.sliding_window if kind == "attn" else cfg.local_window
         x = L.attn_apply(cfg, p["mix"], x, positions, window=window)
+    if "cross" in p and enc_out is not None:
+        x = L.attn_apply(cfg, p["cross"], x, positions, enc_out=enc_out)
     if "ffn" in p:
         x = _ffn(cfg, kind, p["ffn"], x)
     return x
@@ -381,19 +396,42 @@ def scan_layers(body, h, xs, *, with_ys=False, remat=False):
     return h, pytree.unflatten(ys[0], stacked)
 
 
-def _run_layers(cfg, params, h, positions):
+def _run_layers(cfg, params, h, positions, *, enc_out=None):
     period_kinds, tail_kinds = block_kinds(cfg)
 
+    # the body closes over enc_out: a const of the layer scan
     def super_block(h, pslices):
         for kind, p in zip(period_kinds, pslices):
-            h = apply_block(cfg, kind, p, h, positions)
+            h = apply_block(cfg, kind, p, h, positions, enc_out=enc_out)
         return constrain(h, ("act_batch", "seq", "embed"))
 
     if n_scan_blocks(cfg) > 0 and params["layers"]:
         h = scan_layers(super_block, h, params["layers"], remat=cfg.remat)
     for kind, p in zip(tail_kinds, params["tail"]):
-        h = apply_block(cfg, kind, p, h, positions)
+        h = apply_block(cfg, kind, p, h, positions, enc_out=enc_out)
     return h
+
+
+def encode(cfg, params, frames):
+    """The encoder over precomputed frame embeddings (the reference's
+    stub frontend): frames (B, S_enc, D) of any float dtype, cast to the
+    config's; each ``enc_layers`` block non-causal self-attention then
+    the MLP, in its own layer scan; ``enc_ln`` last.
+
+    Returns:
+        (B, S_enc, D) in the config's dtype.
+    """
+    S = frames.shape[1]
+    h = frames.to(cfg.dtype)
+    positions = replicate_like(torch.arange(S, dtype=torch.int32,
+                                            device=frames.device)[None, :], h)
+
+    def enc_block(h, p):
+        h = L.attn_apply(cfg, p["mix"], h, positions, is_causal=False)
+        return L.mlp_apply(cfg, p["ffn"], h)
+
+    h = scan_layers(enc_block, h, params["enc_layers"], remat=cfg.remat)
+    return L.rmsnorm(h, params["enc_ln"])
 
 
 def embed_tokens(cfg, params, tokens):
@@ -402,16 +440,36 @@ def embed_tokens(cfg, params, tokens):
     return h * L.round_to(h.dtype, math.sqrt(cfg.d_model))
 
 
-def forward(cfg, params, tokens):
-    """Logits for a full sequence (train / prefill); tokens: (B, S) int."""
+def forward(cfg, params, tokens, *, patch_embeds=None, frames=None):
+    """Logits for a full sequence (train / prefill).
+
+    Args:
+        cfg: the model configuration.
+        params: the parameter tree.
+        tokens: (B, S) int token ids.
+        patch_embeds: (B, P, D) precomputed patch embeddings of a vision
+            model, placed before the tokens (cast to their dtype).
+        frames: (B, S_enc, D) precomputed frame embeddings of an
+            encoder-decoder model, run through :func:`encode`.
+
+    Returns:
+        (B, P + S, vocab) logits.
+    """
+    enc_out = encode(cfg, params, frames) if frames is not None else None
     h = embed_tokens(cfg, params, tokens)
+    if patch_embeds is not None:
+        h = torch.cat([patch_embeds.to(h.dtype), h], dim=1)
     h = constrain(h, ("act_batch", "seq", "embed"))
     S = h.shape[1]
     positions = replicate_like(torch.arange(S, dtype=torch.int32,
                                             device=tokens.device)[None, :], h)
-    h = _run_layers(cfg, params, h, positions)
+    h = _run_layers(cfg, params, h, positions, enc_out=enc_out)
     h = L.rmsnorm(h, params["final_ln"])
     logits = matmul(h, gather_for(params["unembed"], h))
+    if cfg.logits_vocab_shard:
+        # one mesh axis shards one dim of a tensor: vocab rather than seq
+        # here, as the reference prefers for large vocabularies
+        return constrain(logits, ("act_batch", None, "vocab"))
     return constrain(logits, ("act_batch", "seq", "vocab"))
 
 
@@ -421,7 +479,6 @@ def forward(cfg, params, tokens):
 
 
 def _block_cache(cfg, kind, batch, max_seq, device):
-    _check_ported(cfg)
     if kind == "rglru":
         return L.rglru_init_cache(cfg, batch, device=device)
     if kind == "mlstm":
@@ -466,9 +523,10 @@ def init_cache(cfg, batch, max_seq, device=None):
     }
 
 
-def decode_block(cfg, kind, p, x, cache, pos):
-    """One layer's one-token decode; returns ``(x, new cache)``."""
-    _check_ported(cfg)
+def decode_block(cfg, kind, p, x, cache, pos, *, enc_out=None):
+    """One layer's one-token decode; returns ``(x, new cache)``.  With
+    ``enc_out``, a decoder block's cross-attention attends to it (its
+    keys and values projected anew; it keeps no cache)."""
     if kind == "rglru":
         x, cache = L.rglru_decode(cfg, p["mix"], x, cache, pos)
     elif kind == "mlstm":
@@ -479,12 +537,14 @@ def decode_block(cfg, kind, p, x, cache, pos):
         window = cfg.sliding_window if kind == "attn" else cfg.local_window
         x, cache = L.attn_decode(cfg, p["mix"], x, cache, pos,
                                  window=window)
+    if "cross" in p and enc_out is not None:
+        x, _ = L.attn_decode(cfg, p["cross"], x, None, pos, enc_out=enc_out)
     if "ffn" in p:
         x = _ffn(cfg, kind, p["ffn"], x)
     return x, cache
 
 
-def decode_step(cfg, params, cache, token, pos):
+def decode_step(cfg, params, cache, token, pos, *, enc_out=None):
     """One autoregressive step.
 
     Args:
@@ -494,6 +554,9 @@ def decode_step(cfg, params, cache, token, pos):
         token: (B, 1) int token ids.
         pos: the token's position, a 0-d int32 tensor (a traced input
             under ``torch.export``, never read on the host).
+        enc_out: an encoder-decoder model's (B, S_enc, D) encoder
+            output (:func:`encode`), which every decoder block's
+            cross-attention reads.
 
     Returns:
         ``(logits (B, 1, vocab), new cache)``; ``cache`` is not written.
@@ -506,7 +569,7 @@ def decode_step(cfg, params, cache, token, pos):
         pslices, cslices = xs
         new_c = []
         for kind, p, c in zip(period_kinds, pslices, cslices):
-            h, c2 = decode_block(cfg, kind, p, h, c, pos)
+            h, c2 = decode_block(cfg, kind, p, h, c, pos, enc_out=enc_out)
             new_c.append(c2)
         return h, tuple(new_c)
 
@@ -517,7 +580,7 @@ def decode_step(cfg, params, cache, token, pos):
         new_layer_cache = cache["layers"]
     new_tail = []
     for kind, p, c in zip(tail_kinds, params["tail"], cache["tail"]):
-        h, c2 = decode_block(cfg, kind, p, h, c, pos)
+        h, c2 = decode_block(cfg, kind, p, h, c, pos, enc_out=enc_out)
         new_tail.append(c2)
     h = L.rmsnorm(h, params["final_ln"])
     logits = matmul(h, params["unembed"])

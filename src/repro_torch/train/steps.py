@@ -164,6 +164,22 @@ def value_and_grad(loss_fn, remat: bool = False):
     return run
 
 
+def check_train_supported(cfg) -> None:
+    """Raise for a model the port cannot train yet: an encoder-decoder or
+    modality-frontend model (``whisper_small``, ``phi3_vision``).
+
+    ``make_train_step`` calls it when it builds the step; the training
+    launcher calls it before it joins a group or makes anything.
+
+    Raises:
+        NotImplementedError: for such a model.
+    """
+    if cfg.is_encoder_decoder or cfg.frontend:
+        raise NotImplementedError(
+            f"training {cfg.name} (an encoder-decoder or modality-frontend "
+            f"model) is not ported yet (ROADMAP queue 1, item 11f)")
+
+
 def make_train_step(cfg, opt_cfg: adam.AdamConfig | None = None,
                     accum_steps: int = 1):
     """``train_step(state, batch) -> (state, metrics)``.
@@ -183,8 +199,10 @@ def make_train_step(cfg, opt_cfg: adam.AdamConfig | None = None,
 
     Raises:
         NotImplementedError: for the ``"dots"`` remat policy, which the
-            port does not have.
+            port does not have, and for an encoder-decoder or frontend
+            model (:func:`check_train_supported`).
     """
+    check_train_supported(cfg)
     if cfg.remat and cfg.remat_policy != "full":
         raise NotImplementedError(
             f"remat policy {cfg.remat_policy!r}: the port checkpoints "
@@ -233,29 +251,36 @@ def make_prefill_step(cfg):
         cfg: the model configuration.
 
     Returns:
-        The prefill step; ``batch["tokens"]`` is a ``(B, S)`` int tensor.
-        The result is a fresh tensor, not a view of the (B, S, vocab)
-        logits, so holding it does not hold them (the reference's jitted
-        step returns a fresh buffer too); the tracer lowers the copy as
-        an identity.
+        The prefill step; ``batch["tokens"]`` is a ``(B, S)`` int tensor,
+        with ``batch["frames"]`` (an encoder-decoder model's frame
+        embeddings) or ``batch["patch_embeds"]`` (a vision model's patch
+        embeddings) when the model takes them.  The result is a fresh
+        tensor, not a view of the (B, S, vocab) logits, so holding it
+        does not hold them (the reference's jitted step returns a fresh
+        buffer too); the tracer lowers the copy as an identity.
     """
     def prefill(params, batch):
-        logits = T.forward(cfg, params, batch["tokens"])
+        kwargs = {k: batch[k] for k in ("patch_embeds", "frames")
+                  if k in batch}
+        logits = T.forward(cfg, params, batch["tokens"], **kwargs)
         return logits[:, -1].clone()
     return prefill
 
 
 def make_decode_step(cfg):
-    """``decode(params, cache, token, pos) -> (logits, new cache)``.
+    """``decode(params, cache, token, pos, enc_out=None) -> (logits, new
+    cache)``.
 
     Args:
         cfg: the model configuration.
 
     Returns:
         The decode step: ``token`` is ``(B, 1)`` int, ``pos`` a 0-d int32
-        tensor, the cache as ``transformer.init_cache`` builds it;
-        ``logits`` is ``(B, 1, vocab)``.
+        tensor, the cache as ``transformer.init_cache`` builds it,
+        ``enc_out`` an encoder-decoder model's encoder output
+        (``transformer.encode``); ``logits`` is ``(B, 1, vocab)``.
     """
-    def decode(params, cache, token, pos):
-        return T.decode_step(cfg, params, cache, token, pos)
+    def decode(params, cache, token, pos, enc_out=None):
+        return T.decode_step(cfg, params, cache, token, pos,
+                             enc_out=enc_out)
     return decode

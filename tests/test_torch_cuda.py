@@ -25,6 +25,11 @@ DTensors as on the CPU group, and a small bf16 MoE train step through
 ``plan.apply`` of its (1, 2) plan against one card's.  xLSTM: a
 16-layer f32 model (two sLSTMs) on the card within 1e-4 of the CPU, and
 a bf16 one's captured prefill and decode equal to eager bit for bit.
+Whisper: the kernel non-causal at the encoder's 1500 frames, a small
+f32 ``whisper_small`` (its encoder's non-causal site and its decoder's
+causal one on the kernel) on the card within 1e-4 of the CPU, forward
+and 8 decode steps against the encoder's output, and a bf16 one's
+captured prefill and decode equal to eager bit for bit.
 """
 
 import pytest
@@ -80,6 +85,12 @@ def test_kernel_matches_plain(gen, dtype, S, T, causal):
 def test_every_head_dim_family(gen, hd, dtype, causal):
     assert hd in registry.CUDA_HEAD_DIMS
     assert_fa_close(*qkv(gen, 1, 130, 257, 3, hd, dtype), causal)
+
+
+def test_whisper_encoder_shape_non_causal(gen):
+    """whisper_small's encoder at its 1500 frames, no multiple of the
+    128-row tile: (2, 1500, 12, 64) bf16, non-causal."""
+    assert_fa_close(*qkv(gen, 2, 1500, 1500, 12, 64, torch.bfloat16), False)
 
 
 def test_slice_shape(gen):
@@ -566,6 +577,102 @@ def test_captured_xlstm_prefill_and_decode_equal_eager(gen):
                             params, T.init_cache(cfg, B, max_seq), prompts, G)
     assert dec.captures == 1 and dec.replays == P + G - 1
     assert torch.equal(got.tokens, want.tokens)
+    for a, b in zip(pytree.tree_leaves(got.cache),
+                    pytree.tree_leaves(want.cache)):
+        assert torch.equal(a, b)
+
+
+def whisper_inputs(gen, cfg, B, S, S_enc):
+    return {"frames": torch.randn((B, S_enc, cfg.d_model), generator=gen,
+                                  device="cuda"),
+            "tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                    device="cuda", dtype=torch.int32)}
+
+
+def test_small_whisper_on_the_card_as_on_the_cpu(gen):
+    """The reduced f32 whisper (2 encoder, 4 decoder layers), its sites on
+    the kernel on the card and on the plain version on the CPU: forward
+    logits, the encoder's output, and 8 decode steps' logits and caches
+    against the encoder's output within 1e-4."""
+    import dataclasses
+
+    from repro_torch import pytree
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_decode_step
+    cfg = dataclasses.replace(small_config("whisper_small", "float32"),
+                              num_layers=4)
+    params = T.init_params(cfg, gen)
+    host = pytree.tree_map(lambda x: x.cpu(), params)
+    batch = whisper_inputs(gen, cfg, 2, 48, 150)
+    hbatch = pytree.tree_map(lambda x: x.cpu(), batch)
+    before = fa.launches
+    with kernel_dispatch(KernelDispatch(default_impl="cuda")):
+        got = T.forward(cfg, params, batch["tokens"],
+                        frames=batch["frames"])
+        enc = T.encode(cfg, params, batch["frames"])
+    assert fa.launches - before == cfg.encoder_layers * 2 + cfg.num_layers
+    want = T.forward(cfg, host, hbatch["tokens"], frames=hbatch["frames"])
+    henc = T.encode(cfg, host, hbatch["frames"])
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(enc.cpu(), henc, rtol=1e-4, atol=1e-4)
+    dec = make_decode_step(cfg)
+    cache, hcache = T.init_cache(cfg, 2, 8), T.init_cache(cfg, 2, 8, "cpu")
+    toks = batch["tokens"]
+    for t in range(8):
+        pos = torch.tensor(t, dtype=torch.int32)
+        out, cache = dec(params, cache, toks[:, t:t + 1], pos.cuda(), enc)
+        hout, hcache = dec(host, hcache, toks[:, t:t + 1].cpu(), pos, henc)
+        torch.testing.assert_close(out.cpu(), hout, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(out[:, 0].cpu(), want[:, t], rtol=1e-4,
+                                   atol=1e-4)
+    for a, b in zip(pytree.tree_leaves(cache), pytree.tree_leaves(hcache)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def test_captured_whisper_prefill_and_decode_equal_eager(gen):
+    """The reduced bf16 whisper through its one-device plans: prefill (the
+    encoder's non-causal site and the decoder's causal one on the kernel)
+    replays equal eager exactly, and so does decode against the encoder's
+    output, 8 prompt tokens and 8 greedy tokens."""
+    from repro_torch import pytree
+    from repro_torch.api import Request, Session
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.cost_model import MeshSpec
+    from repro_torch.launch import serve, specs
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_decode_step
+    cfg = small_config("whisper_small", "bfloat16")
+    step, args, _ = specs.step_and_inputs(cfg, ShapeConfig("s", 300, 2,
+                                                           "prefill"))
+    plan = Session(step, args).partition(
+        Request(mesh=MeshSpec(("data", "model"), (1, 1))))
+    assert [(r["site"], r["impl"]) for r in plan.kernel_sites] == \
+        [("flash_attention:0", "cuda"), ("flash_attention:1", "cuda")]
+    params = T.init_params(cfg, gen)
+    captured = plan.apply(step)
+    eager = plan.apply(step, capture=False)
+    for _ in range(3):
+        batch = whisper_inputs(gen, cfg, 2, 150, 150)
+        assert torch.equal(captured(params, batch), eager(params, batch))
+    assert captured.captures == 1 and captured.replays == 3
+    assert captured.graphs[0].launches["flash_attention"] == \
+        cfg.encoder_layers + cfg.num_layers
+    B, P, G, max_seq = 2, 8, 8, 32
+    enc = T.encode(cfg, params, batch["frames"])
+    sess, names = serve.decode_session(cfg, B, max_seq)
+    dplan = sess.partition(serve.decode_request(
+        cfg, names, MeshSpec(("data", "model"), (1, 1))))
+    prompts = batch["tokens"][:, :P]
+    dec = dplan.apply(make_decode_step(cfg))
+    got = serve.serve_loop(dec, params, T.init_cache(cfg, B, max_seq),
+                           prompts, G, enc)
+    want = serve.serve_loop(dplan.apply(make_decode_step(cfg),
+                                        capture=False),
+                            params, T.init_cache(cfg, B, max_seq), prompts,
+                            G, enc)
+    assert dec.captures == 1 and dec.replays == P + G - 1
+    assert torch.equal(got.tokens, want.tokens)
+    assert torch.equal(got.prompt_logits, want.prompt_logits)
     for a, b in zip(pytree.tree_leaves(got.cache),
                     pytree.tree_leaves(want.cache)):
         assert torch.equal(a, b)

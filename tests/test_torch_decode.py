@@ -156,10 +156,19 @@ class TestBlockDecode:
         close(tc["conv"], jc["conv"], BLOCK_TOL)
 
     def test_cross_attention_decode_raises(self):
-        cfg = get_config("qwen2_05b").reduced()
-        with pytest.raises(NotImplementedError, match="item 11"):
-            L.attn_decode(cfg, {}, torch.zeros(1, 1, 64), None,
-                          torch.tensor(0), enc_out=torch.zeros(1, 4, 64))
+        # cross-attention decode is ported (item 11b): it no longer
+        # raises, and matches the reference, handing the cache back
+        jcfg, tcfg = jax_config("qwen2_05b").reduced(), \
+            get_config("qwen2_05b").reduced()
+        jp = JL.init_attn(jcfg, jax.random.PRNGKey(0))
+        x, enc = normal(1, (2, 1, 64)), normal(2, (2, 6, 64))
+        want, jc = JL.attn_decode(jcfg, jp, jnp.asarray(x), None,
+                                  jnp.int32(3), enc_out=jnp.asarray(enc))
+        got, tc = L.attn_decode(tcfg, to_port(jp), torch.from_numpy(x),
+                                None, torch.tensor(3, dtype=torch.int32),
+                                enc_out=torch.from_numpy(enc))
+        assert jc is None and tc is None
+        close(got, want, BLOCK_TOL)
 
 
 # -- the caches -----------------------------------------------------------
@@ -190,11 +199,18 @@ class TestInitCache:
         assert cache["layers"][0]["h"].shape == (1, 1, 96)
 
     def test_unported_kinds_raise(self):
-        # xLSTM's caches are ported (item 11a, tests/test_torch_xlstm.py)
+        # every kind's cache is ported (xLSTM item 11a, whisper item 11b):
+        # whisper's is the decoder's self-attention rings, as the
+        # reference's (no cross-attention cache)
         T.init_cache(get_config("xlstm_350m").reduced(), 1, 8, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 11"):
-            T.init_cache(get_config("whisper_small").reduced(), 1, 8,
-                         device="cpu")
+        want = jtree_flat(JT.init_cache(
+            jax_config("whisper_small").reduced(), 1, 8))
+        got = ttree_flat(T.init_cache(get_config("whisper_small").reduced(),
+                                      1, 8, device="cpu"))
+        assert {p: tuple(x.shape) for p, x in got.items()} == \
+            {p: x.shape for p, x in want.items()}
+        assert {p.rsplit("[", 1)[1] for p in got} == \
+            {"'k']", "'v']", "'slot_pos']"}
 
     def test_no_card_no_cache(self):
         if torch.cuda.is_available():
@@ -352,12 +368,16 @@ class TestSpecs:
 
     def test_what_is_not_ported_raises(self):
         # the train kind is ported (item 4); an encoder-decoder's is not
-        with pytest.raises(NotImplementedError, match="item 11"):
+        # (item 11f); its decode step is (item 11b), with a fifth input,
+        # the encoder's output
+        with pytest.raises(NotImplementedError, match="item 11f"):
             specs.step_and_inputs(get_config("whisper_small").reduced(),
                                   ShapeConfig("s", 64, 4, "train"))
-        with pytest.raises(NotImplementedError, match="item 11"):
-            specs.step_and_inputs(get_config("whisper_small").reduced(),
-                                  ShapeConfig("s", 64, 4, "decode"))
+        _, args, names = specs.step_and_inputs(
+            get_config("whisper_small").reduced(),
+            ShapeConfig("s", 64, 4, "decode"))
+        assert tuple(args[4].shape) == (4, 32, 64)
+        assert names[4] == ("batch", "seq", "embed")
 
     def test_specs_from_rules_match_the_reference(self):
         jcfg, tcfg = jax_config("qwen2_05b").reduced(), \
