@@ -207,7 +207,8 @@ and decode.
    stack, gradient or moment gathered whole; per rank the step ms (two
    ranks time-sharing the card: not a multi-card figure), peak and
    reserved GB;
-7f. xLSTM (after 7e): ``xlstm_350m`` at full width and full depth (24
+7f. xLSTM (run right after 2, while the workers search the first two
+   prefill steps' plans): ``xlstm_350m`` at full width and full depth (24
    layers, 210.2 M parameters, bf16 from the seed): its prefill step's
    2x4 and 1x1 plans searched on ``meta`` tensors in the worker process
    (the sLSTM's time scan traced inside the layer scan's body: trip
@@ -221,7 +222,7 @@ and decode.
    16-layer reduced f32 model (two sLSTMs): its decode against its
    forward (in 5's small check) and its forward on the card against the
    same model on the CPU, within 1e-4;
-7g. the frontend models (after 7f), each at full width and full depth
+7g. the frontend models (after 7e), each at full width and full depth
    with bf16 weights from the seed, one after the other:
    ``whisper_small`` (12 encoder + 12 decoder layers, 0.28 B parameters)
    and ``phi3_vision`` (32 layers, head dim 96, 3.8 B): the prefill
@@ -233,12 +234,34 @@ and decode.
    per request (24: 12 non-causal and 12 causal; 32); every site held at
    its own q, k, v against the plain attention (2e-2, bf16), whisper's
    encoder output within 2e-2 of the largest through the plain sites;
-   then the decode path as in 5 (whisper's against the
-   encoder's output of 1500 frames, which every step's cross-attention
+   then the decode path as in 5, cut to ``DECODE_DEPTH`` (whisper's
+   first 4 decoder layers since PR 29, against the full encoder's
+   output of 1500 frames, which every step's cross-attention
    reads and projects anew: its bound counts those reads and the
-   projections' operations; phi3_vision's text only), its small f32
+   projections' operations; phi3_vision's first 8 layers since PR 29,
+   text only), its small f32
    model's decode against its forward; for whisper, the serving
    launcher's command line once on the card;
+7h. training the xLSTM and the frontend models (after 7g), one after
+   the other, each at full width with bf16 weights from the seed:
+   ``whisper_small`` at full depth, B 4 x (1500 frames + 1500 tokens);
+   ``phi3_vision`` cut to 8 of its 32 layers (its full-depth state, ~46
+   GB, and the captured step's second copy do not fit the card), B 4 x
+   (576 patches + 1472 tokens); ``xlstm_350m`` cut to one period of 8
+   layers (7 mLSTM + 1 sLSTM: the time scan nested in the layer scan's
+   forward and backward bodies), B 4 x 2048, without remat (its small
+   model trains with remat); each train step traced and
+   its 2x4 and 1x1 plans searched in the worker process, phi3_vision's
+   and the xLSTM's full-depth train plans too (reported); then the
+   train path as in 6 (``drive_train``): ``TRAIN_STEPS`` steps through
+   ``plan.apply(step, donate_argnums=0)`` captured and the same steps
+   eagerly from the same state, equal bit for bit, the loss falling,
+   step 1 on the kernel sites against the plain sites within
+   ``TRAIN_REL_TOL``, the attention launches a step equal to the
+   forward sites and remat's recomputation (48, 16, 0) and each step's
+   ms, peak, pool and reserved GB; the small f32 model (whisper and
+   phi3_vision reduced, the xLSTM at 16 layers, remat on) on the card
+   against the same model on the CPU within ``SMALL_TOL``;
 8. time each kernel at its slice shape beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` (a
    yardstick only: the port never calls it), and at ``arctic_480b``'s
@@ -262,7 +285,9 @@ each path: ``launches_train_step``, ``launches_mesh``,
 ``launches_moe_train_mesh`` (per rank, phase 7e),
 ``launches_xlstm`` (phase 7f, 0: a launch fails the phase) and
 ``launches_whisper`` / ``launches_phi3_vision`` (phase 7g, per request),
-with ``whisper_encoder_shape``, ``whisper_decoder_shape`` and
+``launches_whisper_train`` / ``launches_phi3_vision_train`` /
+``launches_xlstm_train`` (phase 7h, per train step), with
+``whisper_encoder_shape``, ``whisper_decoder_shape`` and
 ``phi3_vision_shape`` (the kernel's times there beside its bound, the
 plain version and SDPA, and the sites' largest error); the RG-LRU row
 carries 0 for those launches too.
@@ -323,7 +348,8 @@ DECODE_MAX_SEQ = 256
 # cut in depth: their eager steps are host-bound, about linear in the
 # layers (~2.1-3.8 ms a layer and token on one card, as much as ~80 ms
 # on two ranks sharing it, by host)
-DECODE_DEPTH = {"qwen2_05b": 4, "recurrentgemma_2b": 8, "xlstm_350m": 8}
+DECODE_DEPTH = {"qwen2_05b": 4, "recurrentgemma_2b": 8, "xlstm_350m": 8,
+                "whisper_small": 4, "phi3_vision": 8}
 # small f32 models' decode: tokens (past the hybrid's 16-token window)
 SMALL_DECODE_TOKENS = 40
 # train path: batch x tokens (the prefill path's shape), steps on one
@@ -432,6 +458,19 @@ WHISPER_SHAPE = (4, 3000)
 WHISPER_FRAMES = 1500
 PHI3V = "phi3_vision"
 PHI3V_SHAPE = QWEN_SHAPE
+# the train phase of the xLSTM and the frontend models (7h): model ->
+# (layers run on the card, None: all; B x S positions; the small f32
+# model's layers, None: the reduced config's; remat, None: the
+# config's).  phi3_vision keeps 8 of its 32 layers (~1.36 GB of bf16
+# weights and gradients and f32 moments a layer: 46 GB at full depth,
+# and the captured step holds a second copy of the new state); the
+# xLSTM one period of 8 (7 mLSTM + 1 sLSTM), without remat: its period
+# fits the card (~13 GB a step), and remat's checkpoint would run the
+# sLSTM's 2048-step time loop twice more in each host-bound eager step
+# (~8-10 s against ~4); its small f32 model trains with remat
+FRONTEND_TRAIN = {WHISPER: (None, WHISPER_SHAPE, None, None),
+                  PHI3V: (8, PHI3V_SHAPE, None, None),
+                  XLSTM: (8, XLSTM_SHAPE, XLSTM_SMALL_LAYERS, False)}
 # the router's leaves (its weight and moments), whose gradient is the
 # noisiest: checked after step 1 too, and the planted fault of phase 7e
 # (its gradient scaled by ROUTER_FAULT) must fail the leaf checks
@@ -583,7 +622,8 @@ def lru_inputs(torch, gen, shape, dtype, lo=None, hi=None):
 
 def plan_job(kind: str, name: str, depth: int | None = None,
              shape=None, opt_kw=None, hbm: float | None = None,
-             small_layers: int | None = None) -> dict:
+             small_layers: int | None = None, with_small: bool = True,
+             remat: bool | None = None) -> dict:
     """Host work of one phase, run in the worker process beside the
     card's phases (no card is touched): trace ``name``'s ``kind`` step
     on ``meta`` tensors (``Session``) and search its 2x4 and 1x1 plans.
@@ -604,12 +644,14 @@ def plan_job(kind: str, name: str, depth: int | None = None,
     at ``shape``, AdamW of ``opt_kw``, planned for (1, 2) with a
     ``HardwareSpec`` whose ``hbm_per_chip`` is ``hbm``, each rank's
     share of the card).
-    ``depth`` cuts the layers (``None``: the config's).  A ``"path"``
+    ``depth`` cuts the layers and ``remat`` sets the config's remat
+    (``None``: the config's).  A ``"path"``
     job, a frontend model's ``"prefill"`` job and the ``"train"`` job of
     a model without experts also plan the small f32 model's step for the
     phase's small check (``"small 1x1"``): its prefill at 2 x 64
     positions, or its train step (remat on, ``small_layers`` layers;
-    ``None``: the reduced config's).  Returns the session's figures, each
+    ``None``: the reduced config's), unless ``with_small`` is false (a step
+    whose plans are only reported).  Returns the session's figures, each
     plan's JSON and what was checked on it.
     """
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
@@ -639,6 +681,8 @@ def plan_job(kind: str, name: str, depth: int | None = None,
     cfg = dataclasses.replace(get_config(name), use_pallas=True)
     if depth is not None:
         cfg = dataclasses.replace(cfg, num_layers=depth)
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat=remat)
     mesh8 = MeshSpec(("data", "model"), (2, 4))
     mesh1 = MeshSpec(("data", "model"), (1, 1))
     t0 = time.perf_counter()
@@ -711,7 +755,7 @@ def plan_job(kind: str, name: str, depth: int | None = None,
             specs.batch_specs(small, ShapeConfig("s", 64, 2, "prefill"))[0]))
         out["plans"]["small 1x1"] = ssess.partition(
             Request(mesh=mesh1)).to_json()
-    if kind == "train" and not cfg.num_experts:
+    if kind == "train" and with_small and not cfg.num_experts:
         small = dataclasses.replace(get_config(name).reduced(),
                                     use_pallas=True, remat=True)
         if small_layers is not None:
@@ -2668,8 +2712,42 @@ def train_sites(cfg) -> dict:
             for k, (p, t) in T.kernel_sites(cfg).items()}
 
 
+def train_batch(torch, cfg, B: int, S: int, gen) -> dict:
+    """A train batch of ``B`` x ``S`` positions as ``launch.specs`` lays it
+    out (an encoder-decoder's frames, a vision model's patches, and the
+    tokens), drawn on the card: the targets the tokens shifted by one."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import batch_specs
+    spec, _ = batch_specs(cfg, ShapeConfig("t", S, B, "train"))
+    n = spec["tokens"].shape[1]
+    tokens = torch.randint(0, cfg.vocab_size, (B, n + 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    batch = {"tokens": tokens[:, :-1].contiguous(),
+             "targets": tokens[:, 1:].contiguous()}
+    for k, v in spec.items():
+        if k not in batch:
+            batch[k] = torch.randn(tuple(v.shape), generator=gen,
+                                   device="cuda")
+    return batch
+
+
+def train_trips(cfg, S: int) -> list:
+    """The trip counts of ``cfg``'s train program at ``S`` positions: the
+    layer scans' (an encoder's too) and an sLSTM's time scan inside."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import batch_specs
+    from repro_torch.models import transformer as T
+    n = T.n_scan_blocks(cfg)
+    trips = {1, n} | ({cfg.encoder_layers} if cfg.encoder_layers else set())
+    if "slstm" in T.block_kinds(cfg)[0]:
+        spec, _ = batch_specs(cfg, ShapeConfig("t", S, 1, "train"))
+        trips.add(n * spec["tokens"].shape[1])
+    return sorted(trips)
+
+
 def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
-                small_layers=None, moe: bool = False) -> dict:
+                small_layers=None, moe: bool = False,
+                small_vs_cpu: bool = False) -> dict:
     """Plan and run the train step of ``cfg``; returns its launches.
 
     Args:
@@ -2690,6 +2768,8 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
             recorded, its routed pairs dropped printed per layer, and
             remat's recomputation must select what the forward did;
             captured and eager must agree bit for bit.
+        small_vs_cpu: the small f32 model's step on the card (kernel
+            sites) is also held against the same step on the CPU.
     """
     from repro_torch.configs import get_config
     from repro_torch import pytree
@@ -2712,8 +2792,9 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
         f"trip counts {trips}, {st['colors']} colors, "
         f"{st['conflicts']} conflicts, kernel ops {st['kernel_ops']}, "
         f"phases " + json.dumps(st["phases"]) + " (worker process)")
-    if trips != sorted({1, T.n_scan_blocks(cfg)}):
-        raise AssertionError(f"train program trip counts {trips}")
+    if trips != train_trips(cfg, S):
+        raise AssertionError(f"train program trip counts {trips}, "
+                             f"expected {train_trips(cfg, S)}")
     plan8 = plan_of(job, "2x4")
     log(f"[train partition {name} 2x4] cost={plan8.cost:.6f} "
         f"kernel_sites={len(plan8.kernel_sites)} "
@@ -2743,10 +2824,7 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
             cfg, torch.Generator(device="cuda").manual_seed(seed), opt)
 
     tgen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=tgen,
-                           device="cuda", dtype=torch.int32)
-    batch = {"tokens": tokens[:, :-1].contiguous(),
-             "targets": tokens[:, 1:].contiguous()}
+    batch = train_batch(torch, cfg, B, S, tgen)
     lru = counters["rg_lru"]
 
     def run(fn, state, label, i):
@@ -2816,11 +2894,14 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
     # step 1 with every site on the plain version first (it also warms
     # the eager path up); its new state is dropped before the kernel
     # steps, so that no more than two train states are ever held.  An
-    # MoE model has no site: step 1 forward and backward in f32 instead
+    # MoE model has no site: step 1 forward and backward in f32 instead;
+    # another model without a site has no plain path but the eager one,
+    # whose step 1 stands for it
     state = init_state()
+    prow = None
     if moe:
         prow = f32_step(torch, cfg, state.params, batch, card)
-    else:
+    elif ran:
         prow = run(plain, state, "plain", 1)[1]
         if any(prow["launches"].values()) or prow["bwd"] != want_bwd:
             raise AssertionError("the plain train step launched a kernel")
@@ -2851,6 +2932,8 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
     state, eager_rows = steps(eager, init_state(), "eager")
     eager_mem = {"peak_gb": max(r["peak_gb"] for r in eager_rows[1:]),
                  "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+    if prow is None:
+        prow = eager_rows[0]
     diffs = state_diffs(torch, host, state)
     same = all(c[k] == e[k] for c, e in zip(cap_rows, eager_rows)
                for k in ("loss", "grad_norm")) and not any(diffs.values())
@@ -2884,7 +2967,7 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
         f"and grad norms and the final state ({len(diffs)} leaves) "
         + ("equal bit for bit" if same else "within two eager runs' "
            "spread"))
-    ref = "f32" if moe else "plain"
+    ref = "f32" if moe else "plain" if ran else "eager (no site)"
     for key in ("loss", "grad_norm"):
         rel = abs(cap_rows[0][key] - prow[key]) / abs(prow[key])
         log(f"[train {name}] step 1 {key}: "
@@ -2932,9 +3015,7 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
                              for r in splan.kernel_sites])
     sstate = TS.init_train_state(
         small, torch.Generator(device="cuda").manual_seed(seed + 2), opt)
-    sb = {k: torch.randint(0, small.vocab_size, (2, 64), generator=tgen,
-                           device="cuda", dtype=torch.int32)
-          for k in ("targets", "tokens")}
+    sb = train_batch(torch, small, 2, 64, tgen)
     grads = TS.value_and_grad(TS.make_loss_fn(small), remat=True)
     before = {k: counters[k].launches for k in ran}
     with kernel_dispatch(KernelDispatch(default_impl="cuda")):
@@ -2953,6 +3034,26 @@ def drive_train(torch, cfg, counters, card, seed: int, shape, opt_kw, job,
         f"loss, {len(pytree.tree_leaves(sstate.params))} gradient leaves "
         f"and the updated state, kernel vs plain: max|diff| {diff:.3e} "
         f"(tol {SMALL_TOL}) ok")
+    if small_vs_cpu:
+        # the same step on the CPU (the sites' plain versions there); the
+        # step with eps 1e-3: with 1e-8 the first AdamW step turns a
+        # gradient element near zero into lr * g / |g|, whose sign the
+        # two devices need not agree on
+        estep = TS.make_train_step(small, dataclasses.replace(opt, eps=1e-3))
+        host = pytree.tree_map(lambda x: x.cpu(), (sstate, sb))
+        card = got[:3] + splan.apply(estep, capture=False)(sstate, sb)
+        cpu = grads(host[0].params, host[1]) + \
+            splan.apply(estep, capture=False, device="cpu")(*host)
+        diff = 0.0
+        for a, b in zip(pytree.tree_leaves(card), pytree.tree_leaves(cpu)):
+            torch.testing.assert_close(a.cpu(), b, rtol=SMALL_TOL,
+                                       atol=SMALL_TOL)
+            diff = max(diff, (a.cpu().double() - b.double()).abs().max()
+                       .item())
+        log(f"[small train] {small.name} ({small.num_layers} layers) f32 "
+            f"remat: loss, gradients and the updated state (eps 1e-3) on "
+            f"the card and on the CPU: max|diff| {diff:.3e} (tol "
+            f"{SMALL_TOL}) ok")
     return {"launches_per_step": want_launches, "steps": cap_rows}
 
 
@@ -3656,7 +3757,8 @@ def drive_frontend(torch, name, counters, card, jobs, shape) -> dict:
     del eager, logits, request
     torch.cuda.empty_cache()
 
-    drive_decode(torch, cfg, params, counters, card, jobs["decode"])
+    drive_decode(torch, *cut_depth(cfg, params, DECODE_DEPTH[name]),
+                 counters, card, jobs["decode"])
     del params
     torch.cuda.empty_cache()
     if cfg.is_encoder_decoder:
@@ -3682,6 +3784,51 @@ def drive_frontend(torch, name, counters, card, jobs, shape) -> dict:
             "site_errs": {"causal" if c else "non-causal": max(
                 (e for e, _ in errs), default=None)
                 for c, errs in site_errs.items()}}
+
+
+def drive_frontend_train(torch, name, counters, card, seed: int, job,
+                         full_job=None) -> dict:
+    """Train ``name`` at full width, cut to its ``FRONTEND_TRAIN`` depth,
+    through :func:`drive_train` (the small f32 model held against the
+    CPU too); report the 2x4 plan of its full-depth train step when the
+    card runs a cut one.
+
+    Args:
+        job: the :func:`plan_job` result of the train step run (its 1x1
+            plan runs it).
+        full_job: the same for the full-depth train step (its 2x4 plan
+            is reported), or ``None``.
+
+    Returns:
+        :func:`drive_train`'s result, with the phase's seconds.
+    """
+    from repro_torch.configs import get_config
+    t_start = time.perf_counter()
+    depth, (B, S), small_layers, remat = FRONTEND_TRAIN[name]
+    full = dataclasses.replace(get_config(name), use_pallas=True)
+    if full_job is not None:
+        plan = plan_of(full_job, "2x4")
+        st = full_job["stats"]
+        log(f"[train plan {name} 2x4] full depth, {full.num_layers} "
+            f"layers, B={B} S={S}: {full_job['seconds']:.3f} s to the plans "
+            f"in the worker process (trace {st['phases']['trace']:.3f} s, "
+            f"search {plan.search_seconds:.3f} s), {st['ops']} ops, trip "
+            f"counts {st['trips']}, {st['colors']} colors, "
+            f"{st['conflicts']} conflicts, cost {plan.cost:.6f}, predicted "
+            f"peak {plan.breakdown['peak_bytes'] / 1e9:.3f} GB a chip, "
+            f"rules {json.dumps(plan.logical_rules)}, json round-trip ok")
+        if st["trips"] != train_trips(full, S):
+            raise AssertionError(f"{name} full-depth train trip counts "
+                                 f"{st['trips']}")
+    cfg = full if depth is None else dataclasses.replace(full,
+                                                         num_layers=depth)
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat=remat)
+    out = drive_train(torch, cfg, counters, card, seed, (B, S), TRAIN_OPT,
+                      job, small_layers, small_vs_cpu=True)
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[elapsed] {name} train phase {out['seconds']:.1f} s")
+    return out
 
 
 def time_lru(lru, torch, gen, card, shape, dtype, route) -> dict:
@@ -3736,6 +3883,12 @@ def main(argv=None) -> int:
         2, mp_context=multiprocessing.get_context("spawn"))
     try:
         jobs = {}
+        # the xLSTM phase runs first on the card, while the workers
+        # search the first two prefill steps' plans
+        jobs["prefill", XLSTM] = pool.submit(plan_job, "prefill", XLSTM,
+                                             None, XLSTM_SHAPE)
+        jobs["decode", XLSTM] = pool.submit(plan_job, "decode", XLSTM,
+                                            DECODE_DEPTH[XLSTM])
         for name, shape in (("qwen2_05b", QWEN_SHAPE),
                             ("recurrentgemma_2b", HYBRID_SHAPE)):
             jobs["path", name] = pool.submit(plan_job, "path", name, None,
@@ -3769,14 +3922,19 @@ def main(argv=None) -> int:
             jobs["mesh train", name, depth] = pool.submit(
                 plan_job, "mesh train", name, depth, MOE_MESH_TRAIN_SHAPE,
                 MOE_MESH_TRAIN_OPT, share)
-        jobs["prefill", XLSTM] = pool.submit(plan_job, "prefill", XLSTM,
-                                             None, XLSTM_SHAPE)
-        jobs["decode", XLSTM] = pool.submit(plan_job, "decode", XLSTM,
-                                            DECODE_DEPTH[XLSTM])
         for name, shape in ((WHISPER, WHISPER_SHAPE), (PHI3V, PHI3V_SHAPE)):
-            for kind in ("prefill", "decode"):
-                jobs[kind, name] = pool.submit(plan_job, kind, name, None,
-                                               shape)
+            jobs["prefill", name] = pool.submit(plan_job, "prefill", name,
+                                                None, shape)
+            jobs["decode", name] = pool.submit(plan_job, "decode", name,
+                                               DECODE_DEPTH[name], shape)
+        for name, (depth, shape, small, remat) in FRONTEND_TRAIN.items():
+            jobs["train", name, depth] = pool.submit(
+                plan_job, "train", name, depth, shape, TRAIN_OPT, None, small,
+                True, remat)
+            if depth is not None:
+                jobs["train", name, None] = pool.submit(
+                    plan_job, "train", name, None, shape, TRAIN_OPT, None,
+                    None, False)
         return run_phases(torch, opts, t_start, jobs)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
@@ -3883,6 +4041,14 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
     check_lru(lru, torch, packed[:, :, 0], packed[:, :, 1], "strided",
               "tma")
 
+    # -- 7f: xLSTM on the card, while the workers search the first plans --
+    log(f"[graphs released] before the xLSTM phase: "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
+    xlstm = drive_xlstm(torch, counters, card,
+                        {kind: jobs[kind, XLSTM].result()
+                         for kind in ("prefill", "decode")})
+    torch.cuda.empty_cache()
+
     # -- 3: trace both prefill steps; the mesh phase ------------------------
     n_lru = sum(k == "rglru" for k in hybrid.pattern)
     sessions = {cfg.name: jobs["path", cfg.name].result()
@@ -3985,14 +4151,6 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
             jobs["mesh train", name, depth].result()))
         torch.cuda.empty_cache()
 
-    # -- 7f: xLSTM on the card ---------------------------------------------
-    log(f"[graphs released] before the xLSTM phase: "
-        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
-    xlstm = drive_xlstm(torch, counters, card,
-                        {kind: jobs[kind, XLSTM].result()
-                         for kind in ("prefill", "decode")})
-    torch.cuda.empty_cache()
-
     # -- 7g: the frontend models on the card ---------------------------------
     frontend = {}
     for name, shape in ((WHISPER, WHISPER_SHAPE), (PHI3V, PHI3V_SHAPE)):
@@ -4002,6 +4160,17 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
             torch, name, counters, card,
             {kind: jobs[kind, name].result()
              for kind in ("prefill", "decode")}, shape)
+        torch.cuda.empty_cache()
+
+    # -- 7h: training the xLSTM and the frontend models ---------------------
+    frontend_train = {}
+    for name, (depth, *_) in FRONTEND_TRAIN.items():
+        log(f"[graphs released] before the {name} train phase: "
+            f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
+        frontend_train[name] = drive_frontend_train(
+            torch, name, counters, card, opts.seed,
+            jobs["train", name, depth].result(),
+            None if depth is None else jobs["train", name, None].result())
         torch.cuda.empty_cache()
 
     # -- 8: each kernel's time at its slice shape ----------------------------
@@ -4027,6 +4196,10 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
     fa_row["launches_xlstm"] = xlstm["launches"]["flash_attention"]
     fa_row["launches_whisper"] = frontend[WHISPER]["launches"]
     fa_row["launches_phi3_vision"] = frontend[PHI3V]["launches"]
+    for name, key in ((WHISPER, "whisper"), (PHI3V, "phi3_vision"),
+                      (XLSTM, "xlstm")):
+        fa_row[f"launches_{key}_train"] = frontend_train[name][
+            "launches_per_step"]["flash_attention"]
     # the frontend models' sites: whisper's encoder (4, 1500, 12, 64)
     # non-causal and its decoder causal; phi3_vision's (4, 2048, 32, 96)
     whisper, phi3v = get_config(WHISPER), get_config(PHI3V)
@@ -4092,7 +4265,11 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
         "launches_train_step": hybrid_train["launches_per_step"]["rg_lru"],
         "launches_mesh": [r["launches"]["rg_lru"] for r in mesh[hybrid.name]],
         "launches_xlstm": xlstm["launches"]["rg_lru"],
-        "launches_whisper": 0, "launches_phi3_vision": 0}
+        "launches_whisper": 0, "launches_phi3_vision": 0,
+        **{f"launches_{key}_train": frontend_train[name][
+            "launches_per_step"]["rg_lru"]
+           for name, key in ((WHISPER, "whisper"), (PHI3V, "phi3_vision"),
+                             (XLSTM, "xlstm"))}}
 
     log(f"[routes] rg_lru launches by route on the {hybrid.name} path: "
         + json.dumps(lru_routes))

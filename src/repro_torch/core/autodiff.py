@@ -26,20 +26,33 @@ linearize-then-transpose, prim by prim:
   ``gather`` into ``scatter-add`` into zeros, ``scatter-add`` into its
   cotangent for the operand and a ``gather`` of it for the updates,
   ``select_n`` into a
-  ``select_n`` against zeros, a fused kernel into its backward op
+  ``select_n`` against zeros, ``split`` into ``concatenate`` (zeros for
+  the pieces without a cotangent), ``cumsum`` into a ``cumsum`` the
+  other way, a fused kernel into its backward op
   (``kernel:flash_attention_bwd``, ``kernel:rg_lru_bwd``); fanned-out
   cotangents meet in ``add_any``;
-- the layer scan becomes a forward scan and a backward scan, each one
-  body with trip counts and value links.  The forward body's
+- each scan becomes a forward scan and a backward scan, each one body
+  with trip counts and value links; a scan may follow another (the
+  encoder's, whose result the decoder's body reads) or run inside one's
+  body (the sLSTM's time scan), whose forward and backward then run
+  inside the enclosing forward and backward bodies.  The forward body's
   loop-invariant ops and residuals (rope tables, masks, constants) are
-  hoisted out of it, as the reference's scan partial evaluation does,
-  and its dead ops dropped with their values.  Without remat the
-  forward body also computes the residuals the backward body reads and
-  stacks them as ``ys``; with remat it stacks only the carry, and the
-  backward body recomputes the forward body's ops the transpose needs
-  (invariant ones included), as under ``jax.checkpoint``.  Ops after
-  the scan (a tail of unscanned layers) are differentiated at the top
-  level and not recomputed;
+  hoisted out of it, as the reference's scan partial evaluation does
+  (a nested scan's into the enclosing body, and further if they do not
+  vary there either), and its dead ops dropped with their values.
+  Without remat the forward body also computes the residuals the
+  backward body reads and stacks them as ``ys`` (a nested scan's stacks
+  stacked again); with remat it stacks only the carry, and the backward
+  body recomputes the forward body's ops the transpose needs (invariant
+  ones included, a nested scan with its residuals), as under
+  ``jax.checkpoint``.  The backward scan carries the cotangents of the
+  forward's carries and, as JAX's scan transpose, one accumulator per
+  differentiated constant the body reads (zeros in, the contributions
+  added in the body, the sum out); the stacked ``ys``' cotangents are
+  its ``xs``; the zero tangents JAX instantiates for a carry whose init
+  has none are emitted where the reference's program holds them.  Ops
+  after the scan (a tail of unscanned layers) are differentiated at the
+  top level and not recomputed;
 - residual and linear ops that reach no gradient are dropped inside scan
   bodies and kept at the top level, as the reference's program keeps
   them (its top level is not dead-code eliminated).
@@ -69,8 +82,10 @@ _FLOAT = frozenset({"float16", "bfloat16", "float32", "float64"})
 
 @dataclasses.dataclass
 class ScanRecord:
-    """One layer scan as the tracer instantiated it: its body's ops are
-    ``prog.ops[lo:hi]``, run ``length`` times."""
+    """One scan as the tracer instantiated it: its body's ops are
+    ``prog.ops[lo:hi]`` (its nested scans' among them), run ``length``
+    times each time the scan runs; the scan runs ``trip`` times (the
+    product of the lengths of the scans around it)."""
 
     lo: int
     hi: int
@@ -83,6 +98,13 @@ class ScanRecord:
     carry_outs: list[int]        # body carry-out values
     y_outs: list[int]            # body ys
     results: list[int]           # outer carries out, then stacked ys
+    trip: int = 1
+    # the scan whose body holds this one, and the scans this one's body
+    # holds, in order
+    parent: ScanRecord | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+    children: list[ScanRecord] = dataclasses.field(
+        default_factory=list, repr=False, compare=False)
 
 
 @dataclasses.dataclass(eq=False)
@@ -115,7 +137,7 @@ class Lin:
     params: dict
     args: list
     out: Any = None
-    scan: Any = None             # the forward scan of a "scan" entry
+    scan: Any = None             # a "scan" entry's _Plan (None: dead)
 
 
 def _t(key) -> tuple:
@@ -128,20 +150,90 @@ def _is_t(a) -> bool:
 
 class _Ctx:
     """Where ops are emitted: a trip count and a renaming of primal
-    values (a scan body's forward values -> its backward body's)."""
+    values (a scan body's forward values -> its backward body's), inside
+    the context of the enclosing body (``parent``), whose names and
+    residuals it sees.  In a ``fresh`` context the forward ops emitted
+    again (a recomputation) get values of their own."""
 
-    def __init__(self, trip: int, rename: dict | None = None) -> None:
+    def __init__(self, trip: int, parent: _Ctx | None = None,
+                 fresh: bool = False) -> None:
         self.trip = trip
-        self.rename = rename if rename is not None else {}
+        self.parent = parent
+        self.fresh = fresh
+        self.rename: dict = {}
         self.memo: dict = {}       # R -> vid
         # value -> the maker of its renaming, called at its first use
         self.lazy: dict = {}
 
     def name(self, v: int) -> int:
         """``v`` as this context holds it."""
-        if v not in self.rename and v in self.lazy:
-            self.rename[v] = self.lazy.pop(v)()
-        return self.rename.get(v, v)
+        ctx = self
+        while ctx is not None:
+            if v in ctx.rename:
+                return ctx.rename[v]
+            if v in ctx.lazy:
+                ctx.rename[v] = ctx.lazy.pop(v)()
+                return ctx.rename[v]
+            ctx = ctx.parent
+        return v
+
+    def find(self, r: R) -> int | None:
+        """The value of residual ``r`` here, if it was emitted."""
+        ctx = self
+        while ctx is not None:
+            if r in ctx.memo:
+                return ctx.memo[r]
+            ctx = ctx.parent
+        return None
+
+
+@dataclasses.dataclass(eq=False)
+class _Plan:
+    """One scan's linearization: its body in the order of its JVP, the
+    live part of its tape and the residuals its backward reads."""
+
+    rec: ScanRecord
+    remat: bool
+    units: list                  # body ops and nested scans' plans
+    seq: list                    # units and residual R's, in JVP order
+    tape: list                   # the live linear entries of the body
+    needed: list                 # primal values the live entries need
+    direct: list                 # what the live entries read themselves
+    seen: set                    # keys of ``needed``
+    hoisted: set                 # ids of loop-invariant ops
+    variant: set                 # body values that vary by iteration
+    keep_fwd: set                # ids of the units the forward keeps
+    keep_res: set                # ... those kept with the residuals
+    stack_keys: list             # per-iteration residuals stacked as ys
+    stacks: list                 # one R standing for each stack
+    consts: list                 # the differentiated consts
+    lin: Lin | None = None       # its entry on the enclosing tape
+    # a nested scan's loop-invariant ops, which its enclosing body runs
+    lifted: list = dataclasses.field(default_factory=list)
+
+    def r_variant(self, x) -> bool:
+        if isinstance(x, R):
+            return any(self.r_variant(o) for o in x.operands)
+        return isinstance(x, int) and x in self.variant
+
+
+def _key(x):
+    return ("r", id(x)) if isinstance(x, R) else x
+
+
+def _outs(e: Lin) -> tuple:
+    return e.out if isinstance(e.out, tuple) else (e.out,)
+
+
+def _operands(u) -> list:
+    if isinstance(u, _Plan):
+        return u.rec.carries + u.rec.xs + u.rec.consts + \
+            [r for op in u.lifted for r in op.results]
+    return u.operands
+
+
+def _results(u) -> list:
+    return u.rec.results if isinstance(u, _Plan) else u.results
 
 
 class _VJP:
@@ -152,8 +244,7 @@ class _VJP:
         self._ntmp = 0
         self.new_rs: list[R] = []
         self.active: set[int] = set()
-        self._tapes: dict = {}       # id(scan record) -> live body tape
-        self._body_ops: dict = {}    # id(scan record) -> forward body ops
+        self.ops: list = []          # the forward's ops, as traced
         # ops differentiated as one unit by a custom JVP (JAX's
         # ``custom_jvp``): the last op's result -> the unit's input, and
         # the ids of the inner ops, which get no rule of their own
@@ -236,11 +327,15 @@ class _VJP:
         return ctx.name(x)
 
     def mat(self, ctx: _Ctx, r: R) -> int:
-        if r not in ctx.memo:
+        v = ctx.find(r)
+        if v is None:
+            if r.prim == "stack":
+                raise RuntimeError("a scan's residual stack read before "
+                                   "the scan was emitted")
             ops = [self.val(ctx, o) for o in r.operands]
-            ctx.memo[r] = self.emit(ctx, r.prim, r.params, ops, r.shape,
-                                    r.dtype)
-        return ctx.memo[r]
+            v = ctx.memo[r] = self.emit(ctx, r.prim, r.params, ops,
+                                        r.shape, r.dtype)
+        return v
 
     def zeros(self, ctx: _Ctx, shape, dtype) -> int:
         return self.emit(ctx, "broadcast_in_dim",
@@ -261,7 +356,21 @@ class _VJP:
                 if self.prog.types[r].dtype in _FLOAT:
                     self.active.add(r)
 
-    def scan_activity(self, rec: ScanRecord, body_ops) -> None:
+    def body_items(self, rec: ScanRecord) -> list:
+        """The body's ops and nested scans' records, in order."""
+        by_lo = {c.lo: c for c in rec.children}
+        items, i = [], rec.lo
+        while i < rec.hi:
+            c = by_lo.get(i)
+            if c is not None:
+                items.append(c)
+                i = c.hi
+            else:
+                items.append(self.ops[i])
+                i += 1
+        return items
+
+    def scan_activity(self, rec: ScanRecord) -> None:
         for x, b in zip(rec.xs, rec.body_xs):
             if self.is_active(x):
                 self.active.add(b)
@@ -269,8 +378,11 @@ class _VJP:
             if self.is_active(c):
                 self.active.add(b)
         while True:
-            for op in body_ops:
-                self._op_activity(op)
+            for it in self.body_items(rec):
+                if isinstance(it, ScanRecord):
+                    self.scan_activity(it)
+                else:
+                    self._op_activity(it)
             grew = False
             for b, out in zip(rec.body_carry, rec.carry_outs):
                 if self.is_active(out) and b not in self.active:
@@ -278,10 +390,6 @@ class _VJP:
                     grew = True
             if not grew:
                 break
-        if any(self.is_active(c) for c in rec.consts):
-            raise NotImplementedError(
-                "a gradient through a scan constant (a differentiated "
-                "value the layer body closes over) is not supported")
         outs = rec.carry_outs + rec.y_outs
         for res, out in zip(rec.results, outs):
             if self.is_active(out):
@@ -375,6 +483,12 @@ class _VJP:
             if e.prim == "scan":
                 self.transpose_scan(ctx, e, env)
                 continue
+            if isinstance(e.out, tuple):
+                # a multi-result op: one cotangent (or None) per result
+                cts = [env.pop(o, None) for o in e.out]
+                if any(c is not None for c in cts):
+                    _TRANSPOSE[e.prim](self, ctx, e, cts, env)
+                continue
             ct = env.pop(e.out, None)
             if ct is None:
                 continue
@@ -382,37 +496,55 @@ class _VJP:
 
     # -- scans ----------------------------------------------------------
 
-    def forward_scan(self, rec: ScanRecord, body_ops, remat: bool,
-                     outer_trip: int) -> Lin:
-        """Re-emit a forward scan (hoisted invariants, body, residual
-        ys) and return its tape entry."""
-        body_vals = set(rec.body_carry) | set(rec.body_xs)
-        for op in body_ops:
-            body_vals.update(op.results)
-        variant = set(rec.body_carry) | set(rec.body_xs)
-        hoisted_ids = set()
-        for op in body_ops:
-            if any(v in variant for v in op.operands):
-                variant.update(op.results)
-            else:
-                hoisted_ids.add(id(op))
-        # the body's tape, symbolically, and the body in the order of
-        # its JVP: each op followed by the residuals its rule made; then
-        # what reaches a gradient
-        self.new_rs = []
-        tape: list[Lin] = []
+    def linearize(self, rec: ScanRecord, remat: bool) -> _Plan:
+        """The scan's plan: its body's JVP taken symbolically (a nested
+        scan's in turn, never rematerialized itself), the live part of
+        its tape and the residuals its backward reads.  The body's dead
+        ops leave the program with their values.
+
+        The body's loop-invariant ops and residuals are hoisted out of
+        it, as the reference's scan partial evaluation hoists them: a
+        nested scan's become ops of the enclosing body (its ``lifted``
+        ops), hoisted further if they do not vary there either."""
+        saved, self.new_rs = self.new_rs, []
+        units: list = []
         seq: list = []
-        for op in body_ops:
-            seq.append(op)
-            if self.differentiates(op):
+        tape: list[Lin] = []
+        for it in self.body_items(rec):
+            if isinstance(it, ScanRecord):
+                child = self.linearize(it, False)
+                # its loop invariants run here, before it (their linear
+                # parts stay on its tape)
+                units.extend(child.lifted)
+                seq.extend(child.lifted)
+                units.append(child)
+                seq.append(child)
+                if child.lin is not None:
+                    tape.append(child.lin)
+                continue
+            units.append(it)
+            seq.append(it)
+            if self.differentiates(it):
                 start = len(self.new_rs)
-                tape.extend(self.jvp(op))
+                tape.extend(self.jvp(it))
                 seq.extend(self.new_rs[start:])
+        self.new_rs = saved
+        body_vals = set(rec.body_carry) | set(rec.body_xs)
+        variant = set(body_vals)
+        hoisted: set[int] = set()
+        for u in units:
+            body_vals.update(_results(u))
+            if isinstance(u, _Plan) or \
+                    any(v in variant for v in _operands(u)):
+                variant.update(_results(u))
+            else:
+                hoisted.add(id(u))
+        # what reaches a gradient
         live_keys = {o for o in rec.carry_outs + rec.y_outs
                      if self.is_active(o)}
         live: list[Lin] = []
         for e in reversed(tape):
-            if e.out in live_keys:
+            if any(o in live_keys for o in _outs(e)):
                 live.append(e)
                 live_keys.update(a[1] for a in e.args if _is_t(a))
         live.reverse()
@@ -423,98 +555,201 @@ class _VJP:
             if isinstance(x, Lit) or (not isinstance(x, R) and
                                       x not in body_vals):
                 return
-            if id(x) in seen:
+            if _key(x) in seen:
                 return
-            seen.add(id(x))
+            seen.add(_key(x))
             if isinstance(x, R):
                 for o in x.operands:
                     need(o)
             needed.append(x)
 
+        outside: list[int] = []
         for e in live:
             for a in e.args:
-                if not _is_t(a):
-                    need(a)
+                if _is_t(a):
+                    continue
+                need(a)
+                if isinstance(a, int) and a not in body_vals and \
+                        a not in outside:
+                    outside.append(a)
+            if e.prim == "scan":
+                # what a nested scan's forward computes around it
+                for x in _hoisted_residuals(e.scan):
+                    need(x)
         # what the linear ops read themselves: the residuals proper
         direct: list = []
+        dseen: set = set()
         for e in live:
             for a in e.args:
-                if not _is_t(a) and id(a) in seen and \
-                        all(a is not d for d in direct):
+                if not _is_t(a) and _key(a) in seen and _key(a) not in dseen:
+                    dseen.add(_key(a))
                     direct.append(a)
+        plan = _Plan(rec, remat, units, seq, live, needed, direct, seen,
+                     hoisted, variant, set(), set(), [], [],
+                     [c for c in dict.fromkeys(rec.consts)
+                      if self.is_active(c)])
 
-        def r_variant(x) -> bool:
-            if isinstance(x, R):
-                return any(r_variant(o) for o in x.operands)
-            return isinstance(x, int) and x in variant
-
-        # the forward body keeps what its carries, ys and (without
-        # remat) the residuals read: dead primal ops go, as the
+        # the forward body keeps what its carries, ys and (with the
+        # residuals) the residuals read: dead primal ops go, as the
         # reference's scan partial evaluation drops them
-        def live_body_ops(residuals: bool) -> set[int]:
+        def keep(residuals: bool) -> set[int]:
             vals = set(rec.carry_outs) | set(rec.y_outs)
             if residuals:
                 vals.update(x for x in needed if not isinstance(x, R))
-            ops: set[int] = set()
-            for op in reversed(body_ops):
-                if any(r in vals for r in op.results):
-                    ops.add(id(op))
-                    vals.update(op.operands)
-            return ops
+            kept: set[int] = set()
+            for u in reversed(units):
+                if any(r in vals for r in _results(u)) or (
+                        residuals and isinstance(u, _Plan) and
+                        any(u.lin is e for e in live)):
+                    kept.add(id(u))
+                    vals.update(_operands(u))
+            return kept
 
-        live_ops = live_body_ops(not remat)
-        order = seq
-        seq = [x for x in seq if isinstance(x, R) or id(x) in live_ops]
-        # what neither pass reads (nor remat recomputes) leaves the program
-        kept_ops = live_body_ops(True)
-        for op in body_ops:
-            if id(op) not in kept_ops:
-                for r in op.results:
+        plan.keep_fwd, plan.keep_res = keep(False), keep(True)
+        for u in units:
+            if id(u) not in plan.keep_res and not isinstance(u, _Plan):
+                for r in u.results:
                     del self.prog.types[r]
-        # loop invariants before the scan, the rest in its body, in JVP
-        # order; without remat the residuals the backward reads come
-        # along (invariant ones hoisted), with remat none
-        top = _Ctx(outer_trip)
-        fwd = _Ctx(outer_trip * rec.length)
-        for x in seq:
-            if isinstance(x, R):
-                if not remat and id(x) in seen and not r_variant(x):
-                    fwd.memo[x] = self.mat(top, x)
-            elif id(x) in hoisted_ids:
-                self.prog.add_op(x, outer_trip)
-        for x in seq:
-            if isinstance(x, R):
-                if not remat and id(x) in seen and r_variant(x):
-                    self.mat(fwd, x)
-            elif id(x) not in hoisted_ids:
-                self.prog.add_op(x, fwd.trip)
         # the residuals, stacked as ys: with remat the carry in, else
         # every per-iteration value the linear ops read (the xs are
         # stacked already)
+        xs = set(rec.body_xs)
         if remat:
-            per_iter = list(rec.body_carry)
+            plan.stack_keys = list(rec.body_carry)
         else:
-            per_iter = [fwd.memo[x] if isinstance(x, R) else x
-                        for x in direct if r_variant(x) and
-                        x not in rec.body_xs]
-        stacks = []
-        for v in per_iter:
-            t = self.prog.types[v]
-            st = self.prog.new_value((rec.length,) + t.shape, t.dtype)
-            self.prog.value_links.append((st, v, 1))
-            stacks.append((st, v))
-        self._tapes[id(rec)] = live
-        if not live:
-            return Lin("scan", {"dead": True}, [], scan=rec)
-        return Lin("scan", {"remat": remat, "needed": needed, "order": order,
-                            "fwd_memo": fwd.memo, "stacks": stacks},
-                   [], scan=rec)
+            plan.stack_keys = [x for x in direct if plan.r_variant(x) and
+                               not (isinstance(x, int) and x in xs)]
+        inputs = rec.carries + rec.xs + rec.consts
+        for x in plan.stack_keys:
+            shape, dtype = self.vtype(x)
+            plan.stacks.append(R("stack", {}, list(inputs),
+                                 (rec.length,) + tuple(shape), dtype))
+        if live:
+            # the entry on the enclosing tape: linear in the active
+            # inputs, reading the residuals of the enclosing body
+            reads: list = []
+            if not remat:
+                # invariant residuals (hoisted), then the xs read
+                reads += [x for x in direct if not plan.r_variant(x)]
+                reads += [rec.xs[rec.body_xs.index(x)] for x in direct
+                          if isinstance(x, int) and x in xs]
+            reads += plan.stacks + outside
+            targs = [_t(v) for v in dict.fromkeys(inputs)
+                     if self.is_active(v)]
+            outs = tuple(r for r, o in zip(rec.results,
+                                           rec.carry_outs + rec.y_outs)
+                         if self.is_active(o))
+            plan.lin = Lin("scan", {}, targs + reads, outs, scan=plan)
+        if rec.parent is not None:
+            plan.lifted = [u for u in units if id(u) in hoisted and
+                           id(u) in plan.keep_res]
+        return plan
+
+    def emit_op(self, ctx: _Ctx, op) -> None:
+        """Emit a forward op in ``ctx``, with values of its own there if
+        the context is fresh."""
+        from repro_torch.core.ir import Op
+        if not ctx.fresh:
+            self.prog.add_op(op, ctx.trip)
+            return
+        results = []
+        for r in op.results:
+            t = self.prog.types[r]
+            results.append(self.prog.new_value(t.shape, t.dtype))
+        operands = [ctx.name(v) for v in op.operands]
+        for r, nv in zip(op.results, results):
+            ctx.rename[r] = nv
+        self.prog.add_op(Op(op.prim, op.params, operands, results),
+                         ctx.trip)
+
+    def tangent_zeros(self, ctx: _Ctx, plan: _Plan) -> None:
+        """The zero tangents JAX's scan JVP instantiates for the carries
+        whose init has none but whose body carry has one: dead values,
+        emitted where the reference's program holds them."""
+        for c, b in zip(plan.rec.carries, plan.rec.body_carry):
+            if self.is_active(b) and not self.is_active(c):
+                t = self.prog.types[c]
+                self.zeros(ctx, t.shape, t.dtype)
+
+    def emit_scan(self, plan: _Plan, pctx: _Ctx, with_res: bool,
+                  zeros: bool = False) -> None:
+        """Emit the forward scan in ``pctx``: its loop invariants there,
+        then its body, in JVP order; with ``with_res`` also what its
+        backward reads (under remat the carries stacked, else every
+        per-iteration residual stacked as ys, the nested scans' with
+        theirs); with ``zeros`` first its :meth:`tangent_zeros`."""
+        rec = plan.rec
+        links = self.prog.value_links
+        if zeros:
+            self.tangent_zeros(pctx, plan)
+        body = _Ctx(pctx.trip * rec.length, pctx, pctx.fresh)
+        if pctx.fresh:
+            for outer, inner, off in (
+                    [(c, b, 0) for c, b in zip(rec.carries, rec.body_carry)]
+                    + [(x, b, 1) for x, b in zip(rec.xs, rec.body_xs)]):
+                t = self.prog.types[inner]
+                nb = self.prog.new_value(t.shape, t.dtype)
+                links.append((pctx.name(outer), nb, off))
+                body.rename[inner] = nb
+        res = with_res and not plan.remat
+        keep = plan.keep_res if res else plan.keep_fwd
+        seq = [x for x in plan.seq if isinstance(x, R) or id(x) in keep]
+
+        def wanted(x) -> bool:
+            return res and _key(x) in plan.seen
+
+        # loop invariants before the scan, the rest in its body, in JVP
+        # order; with the residuals the invariant ones come along
+        for x in seq:
+            if isinstance(x, R):
+                if wanted(x) and not plan.r_variant(x):
+                    self.mat(pctx, x)
+            elif isinstance(x, _Plan):
+                if res and x.lin is not None:
+                    for r in _hoisted_residuals(x):
+                        if not plan.r_variant(r):
+                            self.mat(pctx, r)
+            elif id(x) in plan.hoisted and plan.rec.parent is None:
+                self.emit_op(pctx, x)
+        for x in seq:
+            if isinstance(x, R):
+                if wanted(x) and plan.r_variant(x):
+                    self.mat(body, x)
+            elif isinstance(x, _Plan):
+                self.emit_scan(x, body, res and x.lin is not None)
+            elif id(x) not in plan.hoisted:
+                self.emit_op(body, x)
+        if with_res:
+            for x, st_r in zip(plan.stack_keys, plan.stacks):
+                v = body.find(x) if isinstance(x, R) else body.name(x)
+                t = self.prog.types[v]
+                st = self.prog.new_value((rec.length,) + t.shape, t.dtype)
+                links.append((st, v, 1))
+                pctx.memo[st_r] = st
+        if pctx.fresh:
+            n = len(rec.carries)
+            for i, r in enumerate(rec.results):
+                t = self.prog.types[r]
+                nr = self.prog.new_value(t.shape, t.dtype)
+                pctx.rename[r] = nr
+                if i < n:
+                    links.append((body.name(rec.carry_outs[i]), nr, 0))
+                    links.append((body.name(rec.body_carry[i]), nr, 0))
+                else:
+                    links.append((nr, body.name(rec.y_outs[i - n]), 1))
 
     def transpose_scan(self, ctx: _Ctx, e: Lin, env: dict) -> None:
-        rec: ScanRecord = e.scan
-        if e.params.get("dead"):
+        """The backward scan, as JAX's scan transpose: the carries'
+        cotangents (zeros where none reached them) and one accumulator
+        per differentiated const (zeros in, added to in the body) are
+        its carries, the stacked ys' cotangents and the residual stacks
+        its xs; the forward xs' cotangents come out stacked."""
+        plan: _Plan | None = e.scan
+        if plan is None:
             return
-        p = e.params
+        rec = plan.rec
+        types = self.prog.types
+        links = self.prog.value_links
         n_carry = len(rec.carries)
         init = []
         for i in range(n_carry):
@@ -524,60 +759,85 @@ class _VJP:
                 continue
             ct = env.pop(res, None)
             if ct is None:
-                t = self.prog.types[res]
-                ct = self.zeros(ctx, t.shape, t.dtype)
+                ct = self.zeros(ctx, types[res].shape, types[res].dtype)
             init.append(ct)
         y_cts = [env.pop(rec.results[n_carry + j], None)
-                 for j in range(len(rec.y_outs))]
-        if any(c is not None for c in y_cts):
-            raise NotImplementedError(
-                "a gradient through a scan's stacked ys is not supported")
-        body = _Ctx(ctx.trip * rec.length)
-        links = self.prog.value_links
-        bcarry = []
-        for c in init:
-            if c is None:
-                bcarry.append(None)
-                continue
-            t = self.prog.types[c]
+                 if self.is_active(y) else None
+                 for j, y in enumerate(rec.y_outs)]
+        c_init = [self.zeros(ctx, types[c].shape, types[c].dtype)
+                  for c in plan.consts]
+        body = _Ctx(ctx.trip * rec.length, ctx, fresh=True)
+
+        def carried(c):
+            t = types[c]
             b = self.prog.new_value(t.shape, t.dtype)
             links.append((c, b, 0))
-            bcarry.append(b)
+            return b
+
+        bconst = [carried(c) for c in c_init]
+        bcarry = [None if c is None else carried(c) for c in init]
+        bys = []
+        for y, ct in zip(rec.y_outs, y_cts):
+            if ct is None:
+                continue
+            t = types[ct]
+            b = self.prog.new_value(t.shape[1:], t.dtype)
+            links.append((ct, b, 1))
+            bys.append((y, b))
         # stacked inputs of the backward body: residual stacks, and the
-        # forward xs (parameters) it reads, each at its first read
-        for s, v in p["stacks"]:
-            t = self.prog.types[v]
-            b = self.prog.new_value(t.shape, t.dtype)
-            links.append((s, b, 1))
-            body.rename[v] = b
+        # forward xs it reads, each at its first read
+        for key, st_r in zip(plan.stack_keys, plan.stacks):
+            st = self.val(ctx, st_r)
+            shape, dtype = self.vtype(key)
+            b = self.prog.new_value(shape, dtype)
+            links.append((st, b, 1))
+            if isinstance(key, R):
+                body.memo[key] = b
+            else:
+                body.rename[key] = b
+
         def slice_of(x, bx):
-            t = self.prog.types[bx]
+            t = types[bx]
             b = self.prog.new_value(t.shape, t.dtype)
-            links.append((x, b, 1))
+            links.append((ctx.name(x), b, 1))
             return b
 
         for x, bx in zip(rec.xs, rec.body_xs):
             body.lazy[bx] = lambda x=x, bx=bx: slice_of(x, bx)
-        if p["remat"]:
+        if plan.remat:
             # the recomputed forward and every residual the live linear
             # ops read, as the reference's known (recomputed) body
-            self._recompute(body, rec, p)
+            self._recompute(body, plan)
         else:
-            for x, vid in p["fwd_memo"].items():
-                body.memo[x] = body.rename.get(vid, vid)
-        benv: dict = {}
+            # what the linear body computes before any transposition
+            for e in plan.tape:
+                if e.prim == "scan":
+                    self.tangent_zeros(body, e.scan)
+        # a const's accumulator takes each contribution as it comes;
+        # under remat the recomputed body's contributions are summed
+        # first and added to it at the end, as the transpose of the
+        # reference's checkpointed body returns them
+        benv: dict = {} if plan.remat else dict(zip(plan.consts, bconst))
         for out, b in zip(rec.carry_outs, bcarry):
             if b is not None:
-                benv[out] = b
-        self.transpose(body, self._tapes[id(rec)], benv)
+                self.acc(body, benv, out, b)
+        for y, b in bys:
+            self.acc(body, benv, y, b)
+        self.transpose(body, plan.tape, benv)
+        const_out = []
+        for c, b in zip(plan.consts, bconst):
+            ct = benv.pop(c, None)
+            if plan.remat and ct is not None:
+                ct = self.emit(body, "add_any", {}, [b, ct], types[b].shape,
+                               types[b].dtype)
+            const_out.append(b if ct is None else ct)
         carry_out = []
         for i, bc in enumerate(rec.body_carry):
             if bcarry[i] is None:
                 continue
             ct = benv.pop(bc, None)
             if ct is None:
-                t = self.prog.types[bc]
-                ct = self.zeros(body, t.shape, t.dtype)
+                ct = self.zeros(body, types[bc].shape, types[bc].dtype)
             carry_out.append((i, ct))
         ys = []
         for x, bx in zip(rec.xs, rec.body_xs):
@@ -585,28 +845,30 @@ class _VJP:
                 continue
             ct = benv.pop(bx, None)
             if ct is None:
-                t = self.prog.types[bx]
-                ct = self.zeros(body, t.shape, t.dtype)
+                ct = self.zeros(body, types[bx].shape, types[bx].dtype)
             ys.append((x, ct))
+        for c, ct, b in zip(plan.consts, const_out, bconst):
+            res = self.prog.new_value(types[ct].shape, types[ct].dtype)
+            links.append((ct, res, 0))
+            links.append((b, res, 0))
+            self.acc(ctx, env, c, res)
         for i, ct in carry_out:
-            t = self.prog.types[ct]
-            res = self.prog.new_value(t.shape, t.dtype)
+            res = self.prog.new_value(types[ct].shape, types[ct].dtype)
             links.append((ct, res, 0))
             links.append((bcarry[i], res, 0))
-            self.acc(ctx, env, rec.carries[i], res)
+            if self.is_active(rec.carries[i]):
+                self.acc(ctx, env, rec.carries[i], res)
         for x, ct in ys:
-            t = self.prog.types[ct]
+            t = types[ct]
             res = self.prog.new_value((rec.length,) + t.shape, t.dtype)
             links.append((res, ct, 1))
             self.acc(ctx, env, x, res)
 
-    def _recompute(self, body: _Ctx, rec: ScanRecord, p: dict) -> None:
+    def _recompute(self, body: _Ctx, plan: _Plan) -> None:
         """Emit the forward body's ops the backward body reads, and the
-        residuals, in the forward's JVP order (remat)."""
-        from repro_torch.core.ir import Op
-        needed = p["needed"]
-        producer = {r: op for op in self._body_ops[id(rec)]
-                    for r in op.results}
+        residuals, in the forward's JVP order (remat); a nested scan
+        the backward differentiates comes with its residuals."""
+        producer = {r: u for u in plan.units for r in _results(u)}
         want: set[int] = set()
 
         def walk(x):
@@ -615,28 +877,31 @@ class _VJP:
                     walk(o)
             elif isinstance(x, int) and x in producer and x not in want:
                 want.add(x)
-                for o in producer[x].operands:
+                for o in _operands(producer[x]):
                     walk(o)
 
-        for x in needed:
+        for x in plan.needed:
             walk(x)
-        rs = {id(x) for x in needed if isinstance(x, R)}
-        for x in p["order"]:
+        rs = {_key(x) for x in plan.needed if isinstance(x, R)}
+        for x in plan.seq:
             if isinstance(x, R):
-                if id(x) in rs:
+                if _key(x) in rs:
                     self.mat(body, x)
-                continue
-            if not any(r in want for r in x.results):
-                continue
-            operands = [body.name(v) for v in x.operands]
-            results = []
-            for r in x.results:
-                t = self.prog.types[r]
-                nv = self.prog.new_value(t.shape, t.dtype)
-                body.rename[r] = nv
-                results.append(nv)
-            self.prog.add_op(Op(x.prim, x.params, operands, results),
-                             body.trip)
+            elif isinstance(x, _Plan):
+                diff = any(x.lin is e for e in plan.tape)
+                if diff or any(r in want for r in x.rec.results):
+                    self.emit_scan(x, body, diff, zeros=diff)
+            elif any(r in want for r in x.results):
+                self.emit_op(body, x)
+
+
+def _hoisted_residuals(plan: _Plan) -> list:
+    """The loop-invariant residuals a nested scan's forward reads: they
+    are emitted around it."""
+    if plan.remat:
+        return []
+    return [x for x in plan.needed if isinstance(x, R) and
+            x.prim != "stack" and not plan.r_variant(x)]
 
 
 # ---------------------------------------------------------------------------
@@ -975,6 +1240,11 @@ def _rule_scatter_add(vjp, op, ops, act, out, shape, dtype):
                 out)]
 
 
+def _rule_split(vjp, op, ops, act, out, shape, dtype):
+    # linear, one tangent per piece
+    return [Lin("split", dict(op.params), [_t(ops[0])], tuple(op.results))]
+
+
 def _rule_kernel(vjp, op, ops, act, out, shape, dtype):
     from repro_torch.kernels import registry
     spec = registry.spec_for_prim(op.prim)
@@ -1003,6 +1273,7 @@ _RULES = {
     "dot_general": _rule_dot_general, "concatenate": _rule_concatenate,
     "select_n": _rule_select_n, "gather": _rule_gather,
     "top_k": _rule_top_k, "scatter-add": _rule_scatter_add,
+    "cumsum": _rule_linear_unary, "split": _rule_split,
 }
 
 
@@ -1178,6 +1449,31 @@ def _tr_concatenate(vjp, ctx, e, ct, env):
             vjp.acc(ctx, env, a[1], v)
 
 
+def _tr_split(vjp, ctx, e, cts, env):
+    # JAX's: the pieces' cotangents concatenated, zeros instantiated for
+    # those without one
+    key = e.args[0][1]
+    shape, dtype = vjp.ttype(key)
+    parts = []
+    for o, ct in zip(e.out, cts):
+        if ct is None:
+            ct = vjp.zeros(ctx, *vjp.ttype(o))
+        parts.append(ct)
+    vjp.acc(ctx, env, key, vjp.emit(
+        ctx, "concatenate", {"dimension": e.params["axis"]}, parts, shape,
+        dtype))
+
+
+def _tr_cumsum(vjp, ctx, e, ct, env):
+    # JAX's: the cumulative sum the other way
+    key = e.args[0][1]
+    shape, dtype = vjp.ttype(key)
+    vjp.acc(ctx, env, key, vjp.emit(
+        ctx, "cumsum", {"axis": e.params["axis"],
+                        "reverse": not e.params["reverse"]}, [ct], shape,
+        dtype))
+
+
 def _tr_dot_general(vjp, ctx, e, ct, env):
     (lc, rc), (lb, rb) = e.params["dimension_numbers"]
     x, y = e.args
@@ -1318,7 +1614,8 @@ _TRANSPOSE = {
     "broadcast_in_dim": _tr_broadcast_in_dim, "reshape": _tr_reshape,
     "transpose": _tr_transpose, "squeeze": _tr_squeeze, "slice": _tr_slice,
     "pad": _tr_pad,
-    "concatenate": _tr_concatenate, "dot_general": _tr_dot_general,
+    "concatenate": _tr_concatenate, "split": _tr_split,
+    "cumsum": _tr_cumsum, "dot_general": _tr_dot_general,
     "select_n": _tr_select_n, "gather": _tr_gather,
     "scatter-add": _tr_scatter_add,
     "kernel:flash_attention_bwd": _tr_kernel_bwd,
@@ -1337,7 +1634,8 @@ def value_and_grad(prog, scans: list[ScanRecord], loss: int,
 
     Args:
         prog: the program being traced.
-        scans: the forward's layer scans, as the tracer recorded them.
+        scans: the forward's top-level scans, as the tracer recorded
+            them (nested ones in their ``children``).
         loss: the 0-d float value to differentiate.
         wrt: the values to differentiate with respect to (the parameter
             inputs), in output order.
@@ -1349,7 +1647,7 @@ def value_and_grad(prog, scans: list[ScanRecord], loss: int,
     """
     vjp = _VJP(prog, stopped)
     vjp.active = set(wrt)
-    ops = prog.ops
+    ops = vjp.ops = prog.ops
     vjp.find_custom(ops, [loss])
     trips = [prog.trip_counts[i] for i in range(len(ops))]
     by_lo = {s.lo: s for s in scans}
@@ -1365,8 +1663,7 @@ def value_and_grad(prog, scans: list[ScanRecord], loss: int,
             i += 1
     for it in items:
         if isinstance(it, ScanRecord):
-            vjp._body_ops[id(it)] = ops[it.lo:it.hi]
-            vjp.scan_activity(it, ops[it.lo:it.hi])
+            vjp.scan_activity(it)
         else:
             vjp._op_activity(ops[it])
     if not vjp.is_active(loss):
@@ -1377,8 +1674,9 @@ def value_and_grad(prog, scans: list[ScanRecord], loss: int,
     tape: list[Lin] = []
     for it in items:
         if isinstance(it, ScanRecord):
-            tape.append(vjp.forward_scan(it, ops[it.lo:it.hi], remat,
-                                         top.trip))
+            plan = vjp.linearize(it, remat)
+            vjp.emit_scan(plan, top, plan.lin is not None)
+            tape.append(Lin("scan", {}, [], scan=plan if plan.lin else None))
             continue
         op = ops[it]
         prog.add_op(op, trips[it])
@@ -1388,6 +1686,10 @@ def value_and_grad(prog, scans: list[ScanRecord], loss: int,
         tape.extend(vjp.jvp(op))
         for r in vjp.new_rs:
             vjp.mat(top, r)
+    # what the linear program computes before any transposition
+    for e in tape:
+        if e.prim == "scan" and e.scan is not None:
+            vjp.tangent_zeros(top, e.scan)
     env = {loss: vjp.lit(prog.types[loss].dtype)}
     vjp.transpose(top, tape, env)
     grads = []

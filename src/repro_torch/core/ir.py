@@ -273,13 +273,16 @@ class _Extractor:
     def __init__(self) -> None:
         self.prog = Program()
         self.trip = 1
-        # layer scans so far (``autodiff.ScanRecord``) and detached
+        # top-level scans so far (``autodiff.ScanRecord``, nested ones
+        # in their parents' ``children``) and detached
         # values, read when a gradient node is lowered
         self.scans: list = []
         self.stopped: set[int] = set()
         # the node environments of the graphs being walked (a scan body's
         # inside its parent's)
         self._envs: list[dict] = []
+        # per scan body being walked, the scans recorded in it so far
+        self._open: list[list] = []
 
     # -- value plumbing ---------------------------------------------------
 
@@ -1066,7 +1069,7 @@ class _Extractor:
     def _grad(self, node, args):
         from repro_torch.core import autodiff
         loss, wrt, remat = args
-        if self.trip != 1:
+        if self.trip != 1 or self._open:
             raise UnsupportedOpError("a gradient node inside a scan body")
         grads = autodiff.value_and_grad(
             self.prog, self.scans, loss.vid, [w.vid for w in wrt],
@@ -1100,7 +1103,10 @@ class _Extractor:
         outer_trip = self.trip
         self.trip = outer_trip * length
         lo = len(self.prog.ops)
+        # the scans of this body, recorded as they close
+        self._open.append([])
         outs = self.walk(body_gm, body_carry_ids + body_xs_ids + consts)
+        children = self._open.pop()
         hi = len(self.prog.ops)
         self.trip = outer_trip
         carry_outs, y_outs = outs[:len(carries)], outs[len(carries):]
@@ -1117,11 +1123,16 @@ class _Extractor:
             else:
                 self.prog.value_links.append(
                     (vid, y_outs[i - len(carries)], 1))
-        if outer_trip == 1:
-            from repro_torch.core.autodiff import ScanRecord
-            self.scans.append(ScanRecord(
-                lo, hi, length, carries, xss, consts, body_carry_ids,
-                body_xs_ids, carry_outs, y_outs, [r.vid for r in results]))
+        from repro_torch.core.autodiff import ScanRecord
+        rec = ScanRecord(
+            lo, hi, length, carries, xss, consts, body_carry_ids,
+            body_xs_ids, carry_outs, y_outs, [r.vid for r in results],
+            trip=outer_trip, children=children)
+        for c in children:
+            c.parent = rec
+        # a top-level scan in ``scans``, a nested one in its parent's
+        # ``children``
+        (self._open[-1] if self._open else self.scans).append(rec)
         return tuple(results)
 
 

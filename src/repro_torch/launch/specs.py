@@ -116,10 +116,6 @@ def step_and_inputs(cfg: ModelConfig, shape: ShapeConfig):
     Returns:
         ``(fn, args, names)``: ``args`` a tuple of ``meta`` tensor
         trees, ``names`` the same trees with logical dim names.
-
-    Raises:
-        NotImplementedError: the train kind of an encoder-decoder or
-            frontend model (ROADMAP queue 1, item 11f).
     """
     if shape.kind == "train":
         state = train_state_specs(cfg)

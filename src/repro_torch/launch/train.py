@@ -49,10 +49,11 @@ Without ``--device`` it runs on the CUDA card (each rank on card
 ``LOCAL_RANK % device_count``), and raises without one.  MoE configs
 (``mixtral_8x22b``, ``arctic_480b``) train on one device and on meshes
 alike, their expert stacks placed by the rules' ``"experts"`` entry.
-Encoder-decoder and frontend models (``whisper_small``, ``phi3_vision``)
-are refused before the launcher joins a group or makes anything
-(ROADMAP queue 1, item 11f).  Only rank 0 prints.  ``--compress`` is
-parsed and unused, as in the reference.
+Encoder-decoder, frontend and xLSTM models (``whisper_small``,
+``phi3_vision``, ``xlstm_350m``) train on one device; on two or more
+ranks they are refused before the launcher joins a group or makes
+anything (ROADMAP queue 1, items 11g and 11e).  Only rank 0 prints.
+``--compress`` is parsed and unused, as in the reference.
 """
 
 from __future__ import annotations
@@ -381,7 +382,8 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    check_train_supported(cfg)
+    check_train_supported(
+        cfg, max(M.group_size(), int(os.environ.get("WORLD_SIZE", "1"))))
     M.init_from_env()
     supervise(cfg, args)
 

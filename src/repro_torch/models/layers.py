@@ -776,8 +776,11 @@ def slstm_apply(cfg, p, x):
     xn = rmsnorm(x, p["ln"])
     pre = matmul(xn, p["W"]) + p["b"]                        # (B,S,h*4hd)
     z = torch.zeros((B, h_, hd), dtype=torch.float32, device=x.device)
-    carry = (z, z, z, torch.zeros((B, h_, hd), dtype=torch.float32,
-                                  device=x.device))
+    # three carries start from one zeros value, as in the reference; each
+    # is a tensor of its own, or the exported scan body reads one of them
+    # for all three (the tracer lowers the copies as the value itself)
+    carry = (z, z.clone(), z.clone(),
+             torch.zeros((B, h_, hd), dtype=torch.float32, device=x.device))
 
     def step(c, pre_t):
         c, h_new = _slstm_step(cfg, p, c, pre_t)

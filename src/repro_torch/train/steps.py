@@ -13,8 +13,9 @@ Run eagerly, the train step takes its gradients with ``torch.autograd``
 and one ``repro_torch::grad`` node; the tracer (``core.ir``) builds the
 backward program from the forward by the reference's differentiation
 rules (``core.autodiff``), so the planned program has the reference's
-structure: one forward layer scan, one backward layer scan, the loss
-head and its gradient, and the AdamW update per leaf.
+structure: a forward and a backward layer scan (an encoder's beside
+the decoder's, an sLSTM's time scan inside the bodies), the loss head
+and its gradient, and the AdamW update per leaf.
 """
 
 from __future__ import annotations
@@ -118,9 +119,16 @@ def cross_entropy(logits, targets, *, z_loss: float = 1e-4):
 
 def make_loss_fn(cfg):
     """``loss_fn(params, batch) -> (loss, ce)`` over ``batch["tokens"]``
-    and ``batch["targets"]`` (both (B, S) int)."""
+    and ``batch["targets"]`` (both (B, S) int), with ``batch["frames"]``
+    (an encoder-decoder model's frame embeddings) or
+    ``batch["patch_embeds"]`` (a vision model's patch embeddings) when
+    the model takes them; the image positions have no target."""
     def loss_fn(params, batch):
-        logits = T.forward(cfg, params, batch["tokens"])
+        kwargs = {k: batch[k] for k in ("patch_embeds", "frames")
+                  if k in batch}
+        logits = T.forward(cfg, params, batch["tokens"], **kwargs)
+        if "patch_embeds" in batch:
+            logits = logits[:, batch["patch_embeds"].shape[1]:]
         return cross_entropy(logits, batch["targets"])
     return loss_fn
 
@@ -158,26 +166,37 @@ def value_and_grad(loss_fn, remat: bool = False):
         with torch.enable_grad():
             live = [p.detach().requires_grad_() for p in leaves]
             loss, aux = loss_fn(pytree.unflatten(params, live), batch)
-            grads = torch.autograd.grad(loss, live)
+            # a leaf the loss does not reach (an empty layer stack) gets
+            # zeros of its shape, as jax.value_and_grad gives it
+            grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                        materialize_grads=True)
         grads = [placed_like(g, p) for g, p in zip(grads, leaves)]
         return loss.detach(), aux.detach(), pytree.unflatten(params, grads)
     return run
 
 
-def check_train_supported(cfg) -> None:
-    """Raise for a model the port cannot train yet: an encoder-decoder or
-    modality-frontend model (``whisper_small``, ``phi3_vision``).
+def check_train_supported(cfg, ranks: int) -> None:
+    """Raise for a model the port cannot train on ``ranks`` ranks yet:
+    on two or more, an encoder-decoder or modality-frontend model
+    (``whisper_small``, ``phi3_vision``) or an xLSTM model.
 
-    ``make_train_step`` calls it when it builds the step; the training
-    launcher calls it before it joins a group or makes anything.
+    The training launcher calls it before it joins a group or makes
+    anything.
 
     Raises:
-        NotImplementedError: for such a model.
+        NotImplementedError: for such a model on two or more ranks.
     """
+    if ranks < 2:
+        return
     if cfg.is_encoder_decoder or cfg.frontend:
         raise NotImplementedError(
             f"training {cfg.name} (an encoder-decoder or modality-frontend "
-            f"model) is not ported yet (ROADMAP queue 1, item 11f)")
+            f"model) on two or more ranks is not ported yet (ROADMAP "
+            f"queue 1, item 11g)")
+    if any(k in ("mlstm", "slstm") for k in cfg.pattern):
+        raise NotImplementedError(
+            f"training {cfg.name} (an xLSTM model) on two or more ranks "
+            f"is not ported yet (ROADMAP queue 1, item 11e)")
 
 
 def make_train_step(cfg, opt_cfg: adam.AdamConfig | None = None,
@@ -199,10 +218,8 @@ def make_train_step(cfg, opt_cfg: adam.AdamConfig | None = None,
 
     Raises:
         NotImplementedError: for the ``"dots"`` remat policy, which the
-            port does not have, and for an encoder-decoder or frontend
-            model (:func:`check_train_supported`).
+            port does not have.
     """
-    check_train_supported(cfg)
     if cfg.remat and cfg.remat_policy != "full":
         raise NotImplementedError(
             f"remat policy {cfg.remat_policy!r}: the port checkpoints "

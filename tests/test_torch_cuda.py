@@ -29,7 +29,12 @@ Whisper: the kernel non-causal at the encoder's 1500 frames, a small
 f32 ``whisper_small`` (its encoder's non-causal site and its decoder's
 causal one on the kernel) on the card within 1e-4 of the CPU, forward
 and 8 decode steps against the encoder's output, and a bf16 one's
-captured prefill and decode equal to eager bit for bit.
+captured prefill and decode equal to eager bit for bit.  Training the
+xLSTM and the frontend models: a small f32 one's loss, gradients and
+AdamW step with remat on the card within 1e-4 of the CPU's (xLSTM at 16
+layers, its time scans nested in the layer scan; whisper's non-causal
+encoder site on the kernel), and a small bf16 one's captured, donated
+train steps equal to eager ones bit for bit.
 """
 
 import pytest
@@ -1387,3 +1392,84 @@ def test_small_bf16_moe_train_step_on_two_ranks_equals_one_card(gen):
         assert r["rows"][-1][0] < r["rows"][0][0]
         for a, b in zip(r["params"], params):
             assert ((a - b).norm() / b.norm()).item() <= 2e-2
+
+
+# -- training the xLSTM and the frontend models ------------------------------
+
+
+TRAIN_LAYERS = {"xlstm_350m": 16, "whisper_small": 2, "phi3_vision": 2}
+
+
+def frontend_train_batch(gen, cfg, B, S):
+    """A train batch as ``launch.specs`` lays it out: frames or patches
+    beside the tokens."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import batch_specs
+    spec, _ = batch_specs(cfg, ShapeConfig("t", S, B, "train"))
+    return {k: torch.randint(0, cfg.vocab_size, tuple(v.shape),
+                             generator=gen, device="cuda", dtype=torch.int32)
+            if v.dtype == torch.int32 else
+            torch.randn(tuple(v.shape), generator=gen, device="cuda")
+            for k, v in spec.items()}
+
+
+@pytest.mark.parametrize("arch", sorted(TRAIN_LAYERS))
+def test_small_train_step_on_the_card_as_on_the_cpu(gen, arch):
+    """A small f32 model with remat (xLSTM at 16 layers: two sLSTM time
+    scans inside the layer scan; whisper's encoder site non-causal and its
+    decoder's causal on the kernel): loss, every gradient leaf and one
+    AdamW step's state (``eps`` 1e-3) on the card within 1e-4 of the
+    CPU's."""
+    import dataclasses
+
+    from repro_torch import pytree
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train import steps as TS
+    cfg = dataclasses.replace(small_config(arch, "float32"), remat=True,
+                              num_layers=TRAIN_LAYERS[arch])
+    # eps 1e-3: with 1e-8 the first AdamW step turns a gradient element
+    # near zero into lr * g / |g|, whose sign the two devices need not
+    # agree on (tests/test_torch_train.py)
+    opt = AdamConfig(lr=1e-3, eps=1e-3, warmup_steps=1, total_steps=4)
+    state = train_state(cfg, opt)
+    batch = frontend_train_batch(gen, cfg, 2, 48)
+    host = pytree.tree_map(lambda x: x.cpu(), (state, batch))
+    grads = TS.value_and_grad(TS.make_loss_fn(cfg), remat=True)
+    step = TS.make_train_step(cfg, opt)
+    before = fa.launches
+    with kernel_dispatch(KernelDispatch(default_impl="cuda")):
+        got = grads(state.params, batch) + step(state, batch)
+    assert (fa.launches > before) == (arch != "xlstm_350m")
+    want = grads(host[0].params, host[1]) + step(*host)
+    for a, b in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", sorted(TRAIN_LAYERS))
+def test_captured_donated_frontend_and_xlstm_train_steps_equal_eager(
+        gen, arch):
+    """A small bf16 model's train step (remat) through one graph with its
+    state donated: 4 steps' metrics and the final state equal 4 eager
+    steps exactly; the graph records each forward site twice (the
+    forward and remat's recomputation) and no other kernel."""
+    from repro_torch import pytree
+    from repro_torch.models import transformer as T
+    cfg, opt, step, plan = train_setup(arch, "bfloat16",
+                                       num_layers=TRAIN_LAYERS[arch])
+    captured = plan.apply(step, donate_argnums=0)
+    eager = plan.apply(step, capture=False)
+    state, want = train_state(cfg, opt), train_state(cfg, opt)
+    for _ in range(4):
+        batch = frontend_train_batch(gen, cfg, 2, 32)
+        state, metrics = captured(state, batch)
+        want, want_metrics = eager(want, batch)
+        for k in ("loss", "ce", "grad_norm", "step"):
+            assert torch.equal(metrics[k], want_metrics[k]), k
+    assert captured.captures == 1 and captured.replays == 4
+    for a, b in zip(pytree.tree_leaves(state), pytree.tree_leaves(want)):
+        assert torch.equal(a, b)
+    (graph,) = captured.graphs
+    period, tail = T.kernel_sites(cfg)["flash_attention"]
+    assert graph.launches["flash_attention"] == \
+        2 * period * T.n_scan_blocks(cfg) + tail
+    assert not graph.launches["rg_lru"]

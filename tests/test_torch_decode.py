@@ -367,12 +367,14 @@ class TestSpecs:
         assert flatten_logical_axes(tnames) == jflat
 
     def test_what_is_not_ported_raises(self):
-        # the train kind is ported (item 4); an encoder-decoder's is not
-        # (item 11f); its decode step is (item 11b), with a fifth input,
-        # the encoder's output
-        with pytest.raises(NotImplementedError, match="item 11f"):
-            specs.step_and_inputs(get_config("whisper_small").reduced(),
-                                  ShapeConfig("s", 64, 4, "train"))
+        # the train kind is ported (item 4), an encoder-decoder's too
+        # (item 11f), with the frames in half the positions; its decode
+        # step is (item 11b), with a fifth input, the encoder's output
+        _, (_, batch), _ = specs.step_and_inputs(
+            get_config("whisper_small").reduced(),
+            ShapeConfig("s", 64, 4, "train"))
+        assert sorted(batch) == ["frames", "targets", "tokens"]
+        assert tuple(batch["frames"].shape) == (4, 32, 64)
         _, args, names = specs.step_and_inputs(
             get_config("whisper_small").reduced(),
             ShapeConfig("s", 64, 4, "decode"))

@@ -101,14 +101,19 @@ class TestParams:
 
     def test_unported_block_kinds_raise(self):
         # every block kind is ported (xLSTM item 11a; whisper's encoder,
-        # cross-attention and GELU MLP item 11b); what still raises is
-        # training an encoder-decoder or frontend model (item 11f)
-        from repro_torch.train.steps import make_train_step
-        for arch in ("xlstm_350m", "whisper_small", "phi3_vision"):
-            T.param_specs(get_config(arch).reduced())
-        for arch in ("whisper_small", "phi3_vision"):
-            with pytest.raises(NotImplementedError, match="item 11f"):
-                make_train_step(get_config(arch).reduced())
+        # cross-attention and GELU MLP item 11b) and trains on one device
+        # (items 11d, 11f); what still raises is training them on two or
+        # more ranks (items 11e, 11g)
+        from repro_torch.train.steps import (check_train_supported,
+                                             make_train_step)
+        for arch, item in (("xlstm_350m", "11e"), ("whisper_small", "11g"),
+                           ("phi3_vision", "11g")):
+            cfg = get_config(arch).reduced()
+            T.param_specs(cfg)
+            make_train_step(cfg)
+            check_train_supported(cfg, 1)
+            with pytest.raises(NotImplementedError, match=f"item {item}"):
+                check_train_supported(cfg, 2)
 
 
 def _is_names(x):

@@ -161,13 +161,18 @@ class TestModel:
         assert out.count("generated=") == 2
 
     def test_ranks_and_training_are_refused(self, monkeypatch):
+        # training on one device is ported (item 11f); on two or more
+        # ranks the launchers refuse it before they join a group (11g)
         _, tcfg = configs()
-        with pytest.raises(NotImplementedError, match="item 11f"):
-            make_train_step(tcfg)
-        with pytest.raises(NotImplementedError, match="item 11f"):
-            specs.step_and_inputs(tcfg, ShapeConfig("s", 64, 4, "train"))
+        make_train_step(tcfg)
+        _, (_, batch), _ = specs.step_and_inputs(
+            tcfg, ShapeConfig("s", 64, 4, "train"))
+        P = tcfg.num_patches
+        assert tuple(batch["patch_embeds"].shape) == (4, P, tcfg.d_model)
+        assert tuple(batch["tokens"].shape) == (4, 64 - P)
+        assert tuple(batch["targets"].shape) == (4, 64 - P)
         monkeypatch.setenv("WORLD_SIZE", "2")
-        with pytest.raises(NotImplementedError, match="item 11f"):
+        with pytest.raises(NotImplementedError, match="item 11g"):
             launch_train.main(["--arch", ARCH, "--reduced", "--device",
                                "cpu"])
         with pytest.raises(NotImplementedError, match="item 11g"):

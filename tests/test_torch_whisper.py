@@ -284,13 +284,18 @@ class TestModels:
         assert not torch.distributed.is_initialized()
 
     def test_training_is_refused(self, monkeypatch):
+        # training on one device is ported (item 11f); on two or more
+        # ranks the launcher refuses it before it joins a group (11g)
         _, tcfg = configs()
-        with pytest.raises(NotImplementedError, match="item 11f"):
-            make_train_step(tcfg)
-        with pytest.raises(NotImplementedError, match="item 11f"):
-            specs.step_and_inputs(tcfg, ShapeConfig("s", 64, 4, "train"))
+        make_train_step(tcfg)
+        _, (_, batch), (_, names) = specs.step_and_inputs(
+            tcfg, ShapeConfig("s", 64, 4, "train"))
+        assert tuple(batch["frames"].shape) == (4, 32, tcfg.d_model)
+        assert tuple(batch["tokens"].shape) == (4, 32)
+        assert tuple(batch["targets"].shape) == (4, 32)
+        assert names["frames"] == ("batch", "seq", "embed")
         monkeypatch.setenv("WORLD_SIZE", "2")
-        with pytest.raises(NotImplementedError, match="item 11f"):
+        with pytest.raises(NotImplementedError, match="item 11g"):
             launch_train.main(["--arch", ARCH, "--reduced", "--device",
                                "cpu"])
         assert not torch.distributed.is_initialized()
