@@ -25,7 +25,8 @@ frontend models at full width and depth, ``whisper_small`` (its
 encoder's attention on the kernel non-causal, its decoder's causal, the
 decoder's cross-attention on the einsum path) and ``phi3_vision`` (its
 patch embeddings before the tokens, the kernel at head dim 96), prefill
-and decode.
+and decode, their training, and all three on two ranks sharing the
+card.
 
 1. print the card's name and power limit; build both kernels from the
    sources in this checkout, in parallel;
@@ -262,6 +263,32 @@ and decode.
    ms, peak, pool and reserved GB; the small f32 model (whisper and
    phi3_vision reduced, the xLSTM at 16 layers, remat on) on the card
    against the same model on the CPU within ``SMALL_TOL``;
+7i. the xLSTM and the frontend models on two ranks of one gloo group
+   sharing card 0 (after 7h), each at full width cut in depth
+   (``FAMILY_MESH``: ``xlstm_350m`` one period of 8 layers, in f32;
+   ``whisper_small`` 1 encoder + 1 decoder layer; ``phi3_vision`` 1):
+   each cut model's prefill and train steps planned for (1, 2) in the
+   worker process with each rank's share of the card as
+   ``hbm_per_chip``, with the serving launcher's decode plan for two
+   devices (the specs of ``R``, the mLSTM projections, the encoder's
+   weights and ``enc_out`` printed); one card first: the prefill
+   request through the 1x1 plan (eager), one ``MESH_SERVE`` request
+   through ``serve_loop`` (whisper's against its 16 seeded frames),
+   ``FAMILY_MESH_STEPS`` eager train steps from the seeded state on one
+   fixed batch and the same steps regrouped (the floor); then one group
+   of two ranks for all three models: the request through ``plan.apply``
+   of the (1, 2) plan, the served request through ``launch/serve.py``'s
+   route (whisper's encoder output encoded on each rank before
+   placement, replicated), the train steps through ``plan.apply(step,
+   donate_argnums=0)`` of the (1, 2) train plan; per rank the ms per
+   request, per token and per step (two ranks time-sharing the card:
+   not a multi-card figure), collectives by kind and bytes, peak GB,
+   the attention launches and their local shapes, each sLSTM loop's
+   seconds, DTensor ops and collectives (one local region per layer,
+   whatever its length); the gathered logits within 2e-2 of one card's
+   largest, the served prompt logits too with argmax equal but in a
+   printed tie, every loss and grad norm within 2e-2 of one card's,
+   every leaf within its floor + 2e-2, the loss falling;
 8. time each kernel at its slice shape beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` (a
    yardstick only: the port never calls it), and at ``arctic_480b``'s
@@ -286,7 +313,10 @@ each path: ``launches_train_step``, ``launches_mesh``,
 ``launches_xlstm`` (phase 7f, 0: a launch fails the phase) and
 ``launches_whisper`` / ``launches_phi3_vision`` (phase 7g, per request),
 ``launches_whisper_train`` / ``launches_phi3_vision_train`` /
-``launches_xlstm_train`` (phase 7h, per train step), with
+``launches_xlstm_train`` (phase 7h, per train step),
+``launches_whisper_mesh`` / ``launches_phi3_vision_mesh`` /
+``launches_xlstm_mesh`` (phase 7i, per rank, for a request and for a
+train step), with
 ``whisper_encoder_shape``, ``whisper_decoder_shape`` and
 ``phi3_vision_shape`` (the kernel's times there beside its bound, the
 plain version and SDPA, and the sites' largest error); the RG-LRU row
@@ -471,6 +501,28 @@ PHI3V_SHAPE = QWEN_SHAPE
 FRONTEND_TRAIN = {WHISPER: (None, WHISPER_SHAPE, None, None),
                   PHI3V: (8, PHI3V_SHAPE, None, None),
                   XLSTM: (8, XLSTM_SHAPE, XLSTM_SMALL_LAYERS, False)}
+# the family mesh phase (7i): the xLSTM and the frontend models on two
+# ranks sharing card 0, each at full width cut in depth: model ->
+# (layers kept, an encoder-decoder's encoder layers too; the prefill
+# request's B x S positions; the train step's).  The xLSTM keeps one
+# period (7 mLSTM + 1 sLSTM), its request the prefill path's 4 x 2048
+# (the sLSTM's 2048-step time loop per shard); its train step runs at 2 x
+# 256, its eager backward loop being host-bound too; the xLSTM in f32
+# (family_cfg).  whisper keeps 1 encoder and 1 decoder layer, phi3_vision
+# 1: at 4 + 4 and 4 the phase took 154.7 s on an H100 and at 2 + 2 and 2
+# 103.8-110.7 s, the whole script 938.3-1,006.3 s (each rank's eager
+# steps and 31 decode steps host-bound on DTensor's dispatch)
+FAMILY_MESH = {XLSTM: (8, XLSTM_SHAPE, (2, 256)),
+               WHISPER: (1, WHISPER_SHAPE, WHISPER_SHAPE),
+               PHI3V: (1, PHI3V_SHAPE, PHI3V_SHAPE)}
+FAMILY_MESH_STEPS = 3
+FAMILY_MESH_TIMEOUT = 600.0
+# 7e's optimizer rate: a few steps at 1e-3 leave moments too noisy for
+# the leaf checks
+FAMILY_MESH_OPT = dict(TRAIN_OPT, lr=1e-4)
+# whisper's served request attends to 16 frames from the seed, as the
+# serving launcher's
+SERVE_FRAMES = 16
 # the router's leaves (its weight and moments), whose gradient is the
 # noisiest: checked after step 1 too, and the planted fault of phase 7e
 # (its gradient scaled by ROUTER_FAULT) must fail the leaf checks
@@ -2200,6 +2252,12 @@ def drive_moe_train(torch, name, counters, card, seed: int, full_job,
     return out
 
 
+def stacked(path: str) -> bool:
+    """Whether the parameter at ``path`` stacks its layers on its leading
+    dim (the decoder's layer scan's, or an encoder's)."""
+    return "['layers']" in path or "['enc_layers']" in path
+
+
 def plan_splits(plan) -> dict:
     """The parameters a (1, 2) plan shards on its ``model`` axis: each
     leaf's path (as ``pytree.flatten_with_paths`` of the parameters gives
@@ -2213,7 +2271,7 @@ def plan_splits(plan) -> dict:
         on = [k for k, s in enumerate(spec) if s == "model" or (
             isinstance(s, (tuple, list)) and "model" in s)]
         path = path[len("[0][0].params"):]
-        k = on[0] - ("['layers']" in path) if len(on) == 1 else -1
+        k = on[0] - stacked(path) if len(on) == 1 else -1
         if k >= 0:
             out[path] = k
     return out
@@ -2243,7 +2301,7 @@ def split_products(params, splits: dict):
     at = {}
     for x, path in zip(*pytree.flatten_with_paths(params)):
         if path in splits:
-            for w in (x.unbind(0) if "['layers']" in path else (x,)):
+            for w in (x.unbind(0) if stacked(path) else (x,)):
                 at[w.data_ptr()] = splits[path]
     saved = L.matmul, L.einsum, T.matmul
 
@@ -2274,13 +2332,15 @@ def split_products(params, splits: dict):
         L.matmul, L.einsum, T.matmul = saved
 
 
-def regrouped_step(cfg, opt, splits: dict):
+def regrouped_step(cfg, opt, splits: dict, accum_steps: int = 1):
     """``make_train_step``'s step with the products the plan splits
     between the two ranks regrouped as they regroup them
-    (:func:`split_products`): the same math, rounded otherwise; its
-    distance from the plain step's run bounds the two ranks' (7e)."""
+    (:func:`split_products`), in ``accum_steps`` microbatches (a plan
+    that splits the batch between the ranks sums its gradient's halves):
+    the same math, rounded otherwise; its distance from the plain step's
+    run bounds the two ranks' (7e, 7i)."""
     from repro_torch.train import steps as TS
-    step = TS.make_train_step(cfg, opt)
+    step = TS.make_train_step(cfg, opt, accum_steps)
 
     def run(state, batch):
         with split_products(state.params, splits):
@@ -2466,6 +2526,23 @@ def gathered_leaves(torch, out_dir, ranks: int):
     return out
 
 
+def leaf_apart(torch, got: dict, want: dict) -> dict:
+    """Each leaf's |got - want| / |want| (norms, on the card)."""
+    out = {}
+    for p, w in want.items():
+        a = got[p].to("cuda").double()
+        b = w.to("cuda").double()
+        out[p] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+        del a, b
+    return out
+
+
+def beyond(far: dict, floor: dict) -> dict:
+    """The leaves farther than their floor + ``TRAIN_REL_TOL``."""
+    return {p: (far[p], floor[p]) for p in far
+            if far[p] > floor[p] + TRAIN_REL_TOL}
+
+
 def drive_moe_mesh_train(torch, card, seed: int, job) -> dict:
     """The MoE mesh train phase (7e): ``mixtral_8x22b`` at full width cut
     to ``MOE_MESH_TRAIN_DEPTH`` layers trained on two ranks of one gloo
@@ -2561,21 +2638,6 @@ def drive_moe_mesh_train(torch, card, seed: int, job) -> dict:
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         return state, rows, first
 
-    def apart(got: dict, want: dict) -> dict:
-        """Each leaf's |got - want| / |want| (norms, on the card)."""
-        out = {}
-        for p, w in want.items():
-            a = got[p].to("cuda").double()
-            b = w.to("cuda").double()
-            out[p] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
-            del a, b
-        return out
-
-    def beyond(far: dict, floor: dict) -> dict:
-        """The leaves farther than their floor + ``TRAIN_REL_TOL``."""
-        return {p: (far[p], floor[p]) for p in far
-                if far[p] > floor[p] + TRAIN_REL_TOL}
-
     state, one, one_first = run(step, "eager")
     host = {p: x.cpu() for x, p in zip(*pytree.flatten_with_paths(state))}
     del state
@@ -2592,9 +2654,9 @@ def drive_moe_mesh_train(torch, card, seed: int, job) -> dict:
             "floor": "the plan's split products regrouped in halves",
             "fault": f"router gradient x{ROUTER_FAULT}, a planted fault"}[
                 label])
-        floors[label] = (apart({p: x for x, p in zip(
+        floors[label] = (leaf_apart(torch, {p: x for x, p in zip(
             *pytree.flatten_with_paths(state))}, host),
-            apart(first, one_first))
+            leaf_apart(torch, first, one_first))
         del state
         torch.cuda.empty_cache()
     floor, floor1 = floors["floor"]
@@ -2616,10 +2678,10 @@ def drive_moe_mesh_train(torch, card, seed: int, job) -> dict:
         ranks = run_ranks(moe_mesh_train_rank, 2, job["plans"]["1x2"],
                           depth, seed, tmp, timeout=MOE_MESH_TRAIN_TIMEOUT)
         wall = time.perf_counter() - t0
-        far = apart(gathered_leaves(torch, tmp, 2), host)
+        far = leaf_apart(torch, gathered_leaves(torch, tmp, 2), host)
         del host
         torch.cuda.empty_cache()
-    far1 = apart(ranks[0]["first"], one_first)
+    far1 = leaf_apart(torch, ranks[0]["first"], one_first)
     for rank, res in enumerate(ranks):
         rows = res["rows"]
         log(f"[moe mesh train {name} rank {rank}] {card}: state "
@@ -3831,6 +3893,621 @@ def drive_frontend_train(torch, name, counters, card, seed: int, job,
     return out
 
 
+def family_cfg(name: str, depth: int):
+    """``name`` at full width with its kernel sites, cut to ``depth``
+    layers (an encoder-decoder's encoder too)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(name), use_pallas=True,
+                              num_layers=depth)
+    if cfg.encoder_layers:
+        cfg = dataclasses.replace(cfg, encoder_layers=depth)
+    if name == XLSTM:
+        # as in 7h: remat would run the sLSTM's host-bound time loop again
+        # in each backward.  In f32: in bf16 the mLSTM's gate weights'
+        # gradients cancel to rounding noise (their moments 0.1-0.7 apart,
+        # relative, between two regroupings of the same three steps on one
+        # H100), which no leaf check can hold to a floor
+        cfg = dataclasses.replace(cfg, remat=False, param_dtype="float32")
+    return cfg
+
+
+def family_mesh_job(name: str, hbm: float) -> dict:
+    """Host work of phase 7i for one model, in the worker process (no card
+    is touched): trace the cut model's prefill step (``FAMILY_MESH``'s
+    request shape), its train step (its train shape, AdamW of
+    ``FAMILY_MESH_OPT``) and its decode step (the serving launcher's, at
+    ``MESH_SERVE``) on ``meta`` tensors, and search the prefill and train
+    steps' (1, 2) plans with a ``HardwareSpec`` whose ``hbm_per_chip`` is
+    ``hbm`` (each rank's share of the card), the prefill's 1x1 plan and
+    the launcher's decode plan for two devices.  Returns each session's
+    figures and each plan's JSON."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    from repro_torch.api import Request, Session
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.cost_model import HardwareSpec, MeshSpec
+    from repro_torch.core.partitioner import ShardingPlan
+    from repro_torch.launch import serve
+    from repro_torch.launch.specs import batch_specs
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train import steps as TS
+
+    depth, (B, S), (Bt, St) = FAMILY_MESH[name]
+    cfg = family_cfg(name, depth)
+    opt = AdamConfig(**FAMILY_MESH_OPT)
+    mesh2 = MeshSpec(("data", "model"), MESH_SHAPE)
+    hw = dataclasses.replace(HardwareSpec(), hbm_per_chip=hbm)
+    Bd, P, G = MESH_SERVE
+    t0 = time.perf_counter()
+    prefill = Session(TS.make_prefill_step(cfg), (
+        T.param_specs(cfg),
+        batch_specs(cfg, ShapeConfig("p", S, B, "prefill"))[0]))
+    train = Session(TS.make_train_step(cfg, opt), (
+        TS.train_state_specs(cfg, opt),
+        batch_specs(cfg, ShapeConfig("t", St, Bt, "train"))[0]))
+    decode, names = serve.decode_session(cfg, Bd, P + G)
+    plans = {
+        "1x2": prefill.partition(Request(mesh=mesh2, hw=hw)),
+        "1x1": prefill.partition(Request(mesh=MeshSpec(("data", "model"),
+                                                       (1, 1)))),
+        "train 1x2": train.partition(Request(mesh=mesh2, hw=hw)),
+        "decode 1x2": decode.partition(serve.decode_request(cfg, names,
+                                                            mesh2))}
+    out = {"plans": {}, "stats": {}, "hbm": hbm}
+    for label, plan in plans.items():
+        if ShardingPlan.from_json(plan.to_json()).as_dict() != \
+                plan.as_dict():
+            raise AssertionError(f"{name} {label} plan JSON does not "
+                                 f"round-trip")
+        out["plans"][label] = plan.to_json()
+    for label, sess in (("prefill", prefill), ("train", train),
+                        ("decode", decode)):
+        prog = sess.artifacts.prog
+        out["stats"][label] = {
+            "ops": len(prog.ops),
+            "conflicts": len(sess.artifacts.analysis.conflicts),
+            "trips": sorted(set(prog.trip_counts.values()))}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+class ScanProbe:
+    """While open, each per-shard scan (``sharding.scan_per_shard``: the
+    sLSTM's time loop) on this rank is timed on the host clock with the
+    card synchronized, and the DTensor ops and collectives it issues are
+    counted (``launch.mesh.dtensor_ops``, ``collective_tally``; the plain
+    ops of its local loop, which no dispatch mode sees here, are not).
+    ``calls``: (seconds, DTensor ops, collectives) per scan."""
+
+    def __enter__(self):
+        import torch
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        from repro_torch.launch import mesh as M
+        from repro_torch.models import sharding
+        self.calls, self._saved = [], sharding.scan_per_shard
+        saved = self._saved
+
+        def probe(fn, operands, *args, **kwargs):
+            def local(*xs):
+                with _disable_current_modes():
+                    return fn(*xs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with M.dtensor_ops() as ops, M.collective_tally() as tally:
+                out = saved(local, operands, *args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.append((time.perf_counter() - t0,
+                               sum(ops.calls.values()),
+                               sum(tally.calls.values())))
+            return out
+        sharding.scan_per_shard = probe
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import sharding
+        sharding.scan_per_shard = self._saved
+
+
+def family_mesh_rank(rank, jobs, seed: int, out_dir: str) -> dict:
+    """One of the two ranks that share card 0 in phase 7i.  For each cut
+    model (``jobs``: name -> its :func:`family_mesh_job` plans): the
+    prefill request through ``plan.apply`` of the (1, 2) plan, the
+    seeded weights placed leaf by leaf; one ``MESH_SERVE`` request
+    through the serving launcher's route (``serve.serve_replicated``:
+    the weights, the cache, the prompts and whisper's encoder output,
+    encoded on each rank before placement, replicated; the decode plan's
+    rules); then ``FAMILY_MESH_STEPS`` steps through ``plan.apply(step,
+    donate_argnums=0)`` of the (1, 2) train plan from the seeded state
+    on the fixed seeded batch, the final state's blocks saved under
+    ``out_dir/<name>``.  Each timed on the host clock with the card
+    synchronized, under the collective tally and :class:`ScanProbe`.
+    Returns, per model, the gathered logits, tokens and metrics and what
+    the rank counted."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch import pytree
+    from repro_torch.core.partitioner import ShardingPlan
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rg_lru as lru
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import serve
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adam
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train import steps as TS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def local_sites():
+        return [[k, impl, shp, n] for (k, impl, shp, _), n in
+                ops.local_calls.items()]
+
+    def seeded(offset):
+        return torch.Generator(device="cuda").manual_seed(seed + offset)
+
+    out = {}
+    for name, plans in jobs.items():
+        depth, shape, (Bt, St) = FAMILY_MESH[name]
+        cfg = family_cfg(name, depth)
+        res = {}
+        # the prefill request through the (1, 2) plan
+        applied = ShardingPlan.from_json(plans["1x2"]).apply(
+            TS.make_prefill_step(cfg))
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init_params(cfg, seeded(0))
+        place_in_place(applied, params)
+        (request,) = prefill_requests(torch, cfg, seeded(1), shape, 1)
+        fa.launches = lru.launches = 0
+        ops.local_calls.clear()
+        sharding.made_whole.clear()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with M.collective_tally() as tally, ScanProbe() as probe:
+            y = applied(params, request)
+            torch.cuda.synchronize()
+        res["prefill"] = {
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "logits": y.full_tensor().float().cpu(),
+            "launches": fa.launches, "rg_lru": lru.launches,
+            "local_calls": local_sites(),
+            "calls": dict(tally.calls), "bytes": dict(tally.bytes),
+            "scans": probe.calls, "made_whole": dict(sharding.made_whole),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del applied, params, request, y
+        torch.cuda.empty_cache()
+
+        # one request served through the launcher's route
+        dplan = ShardingPlan.from_json(plans["decode 1x2"])
+        mesh = M.build_mesh(dplan.mesh, "cuda")
+        Bd, P, G = MESH_SERVE
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init_params(cfg, seeded(0))
+        prompts = torch.randint(0, cfg.vocab_size, (Bd, P), device="cuda",
+                                generator=seeded(2), dtype=torch.int32)
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            frames = torch.randn((Bd, SERVE_FRAMES, cfg.d_model),
+                                 generator=seeded(3), device="cuda")
+            enc_out = T.encode(cfg, params, frames)
+        fa.launches = 0
+        dist.barrier()
+        t0 = time.perf_counter()
+        with M.collective_tally() as tally:
+            served = serve.serve_replicated(
+                TS.make_decode_step(cfg), params,
+                T.init_cache(cfg, Bd, P + G), prompts, G,
+                dict(dplan.logical_rules), mesh, enc_out)
+        res["serve"] = {
+            "s": time.perf_counter() - t0, "rules": dplan.logical_rules,
+            "tokens": served.tokens.full_tensor().cpu(),
+            "prompt_logits": served.prompt_logits.full_tensor().float().cpu(),
+            "prefill_ms": served.prefill_ms, "step_ms": served.step_ms,
+            "launches": fa.launches, "calls": dict(tally.calls),
+            "bytes": dict(tally.bytes), "steps": P + G - 1,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del params, served, prompts, enc_out
+        torch.cuda.empty_cache()
+
+        # the train steps through the (1, 2) train plan, donated
+        opt = AdamConfig(**FAMILY_MESH_OPT)
+        applied = ShardingPlan.from_json(plans["train 1x2"]).apply(
+            TS.make_train_step(cfg, opt), donate_argnums=0)
+        tmesh = applied.mesh
+        placements = dict(zip(applied.plan.input_paths,
+                              applied.plan.torch_in_placements(tmesh)))
+        torch.cuda.reset_peak_memory_stats()
+        params = T.init_params(cfg, seeded(0))
+        place_in_place(applied, params, "[0][0].params")
+        leaves, paths = pytree.flatten_with_paths(params)
+        moments = {tree: pytree.unflatten(params, [distribute_tensor(
+            torch.zeros(x.shape, dtype=getattr(torch, opt.state_dtype),
+                        device="cuda"), tmesh,
+            placements[f"[0][0].opt.{tree}{p}"], src_data_rank=None)
+            for x, p in zip(leaves, paths)]) for tree in ("m", "v")}
+        count = distribute_tensor(
+            torch.zeros((), dtype=torch.int32, device="cuda"), tmesh,
+            placements["[0][0].opt.step"], src_data_rank=None)
+        state = TS.TrainState(params, adam.AdamState(count, moments["m"],
+                                                     moments["v"]))
+        batch = {k: distribute_tensor(v, tmesh, placements[f"[0][1][{k!r}]"],
+                                      src_data_rank=None)
+                 for k, v in train_batch(torch, cfg, Bt, St,
+                                         seeded(1)).items()}
+        del params, leaves, moments
+        rows = []
+        fa.launches = lru.launches = 0
+        ops.local_calls.clear()
+        for _ in range(FAMILY_MESH_STEPS):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with M.collective_tally() as tally, ScanProbe() as probe:
+                state, m = applied(state, batch)
+                torch.cuda.synchronize()
+            rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                         "loss": m["loss"].full_tensor().item(),
+                         "grad_norm": m["grad_norm"].full_tensor().item(),
+                         "calls": dict(tally.calls),
+                         "bytes": dict(tally.bytes), "scans": probe.calls})
+        res["train"] = {
+            "rows": rows, "launches": fa.launches, "rg_lru": lru.launches,
+            "local_calls": local_sites(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        leaves, paths = pytree.flatten_with_paths(state)
+        os.makedirs(os.path.join(out_dir, name), exist_ok=True)
+        torch.save({"paths": paths,
+                    "placements": [[("shard", p.dim) if type(p).__name__ ==
+                                    "Shard" else ("replicate",)
+                                    if p.is_replicate() else (str(p),)
+                                    for p in x.placements] for x in leaves],
+                    "locals": [x.to_local().cpu() for x in leaves]},
+                   os.path.join(out_dir, name, f"rank{rank}.pt"))
+        del applied, state, batch, leaves
+        torch.cuda.empty_cache()
+        out[name] = res
+    return out
+
+
+def drive_family_mesh(torch, card, seed: int, jobs) -> dict:
+    """Phase 7i: ``xlstm_350m``, ``whisper_small`` and ``phi3_vision``,
+    each at full width cut to its ``FAMILY_MESH`` depth, on two ranks of
+    one gloo group sharing card 0, against one card.
+
+    One card first, per model, eagerly: the prefill request through the
+    1x1 plan; the ``MESH_SERVE`` request through ``serve_loop`` (whisper's
+    against the encoder's output of its 16 seeded frames);
+    ``FAMILY_MESH_STEPS`` train steps from the seeded state on one fixed
+    batch (the final state kept on the host) and the same steps with the
+    products the train plan splits regrouped as the two ranks regroup
+    them (the floor, as 7e measures it), and again in two microbatches
+    when the plan splits the positions, batch or sequence (as 6c
+    measures it): each leaf's floor the farther of the two runs.  Then one group of two ranks
+    (:func:`family_mesh_rank`) runs all three models.  The gathered
+    logits within ``LOGITS_REL_TOL`` of one card's largest; the served
+    prompt logits too, their argmax equal but in a printed tie; every
+    loss and grad norm within ``TRAIN_REL_TOL`` of one card's, every
+    leaf within its floor + ``TRAIN_REL_TOL``, the loss falling; the
+    attention launches those of the sites; each sLSTM time loop one
+    per-shard scan issuing a handful of DTensor ops and collectives (its
+    placement moves), not a number per step.
+
+    Args:
+        card: the card's name and power limit, for the time lines.
+        seed: the seed of the weights, the requests and the batch.
+        jobs: model name -> its :func:`family_mesh_job` result.
+
+    Returns:
+        Kernel name -> model name -> each rank's launches, for a request
+        and for a train step.
+    """
+    import tempfile
+
+    from repro_torch import pytree
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adam import AdamConfig
+    from repro_torch.train import steps as TS
+
+    t_start = time.perf_counter()
+    Bd, P, G = MESH_SERVE
+    opt = AdamConfig(**FAMILY_MESH_OPT)
+
+    def seeded(offset):
+        return torch.Generator(device="cuda").manual_seed(seed + offset)
+
+    one, floors = {}, {}
+    for name, job in jobs.items():
+        depth, shape, (Bt, St) = FAMILY_MESH[name]
+        cfg = family_cfg(name, depth)
+        plan2, tplan = plan_of(job, "1x2"), plan_of(job, "train 1x2")
+        dplan = plan_of(job, "decode 1x2")
+        keys = ("['R']", "['W']", "['wq']", "['wk']", "['wv']", "['wi']",
+                "['wf']")
+
+        def picked(plan, keep):
+            return {p: tuple(s) for p, s in zip(plan.input_paths,
+                                                plan.in_specs) if keep(p)}
+        batch_keys = ("['tokens']", "['frames']", "['patch_embeds']")
+        inputs = picked(plan2, lambda p: p.endswith(batch_keys))
+        weights = picked(plan2, lambda p: "['enc_layers']" in p and
+                         "['mix']" in p or name == XLSTM and
+                         p.endswith(keys))
+        enc = picked(dplan, lambda p: p == "[0][4]")
+        sites = {r["site"]: str(tuple(r["in_specs"][0]))
+                 for r in plan2.kernel_sites if r["sharded"]}
+        st = job["stats"]
+        log(f"[family mesh plan {name} 1x2] {depth} layers"
+            + (f" + {depth} encoder layers" if cfg.encoder_layers else "")
+            + f", prefill B x S {shape}, train {(Bt, St)}, hbm_per_chip "
+            f"{job['hbm'] / 1e9:.3f} GB (each rank's share of the card): "
+            f"{job['seconds']:.3f} s to the plans in the worker process; "
+            f"sessions " + json.dumps(st) + f"; prefill cost "
+            f"{plan2.cost:.6f}, predicted peak "
+            f"{plan2.breakdown['peak_bytes'] / 1e9:.3f} GB, inputs "
+            + json.dumps(inputs) + ", weights " + json.dumps(weights)
+            + ", sharded kernel sites " + json.dumps(sites)
+            + f"; train cost {tplan.cost:.6f}, predicted peak "
+            f"{tplan.breakdown['peak_bytes'] / 1e9:.3f} GB, rules "
+            + json.dumps(tplan.logical_rules) + "; decode rules "
+            + json.dumps(dplan.logical_rules)
+            + (", enc_out " + json.dumps(enc) if enc else ""))
+
+        # one card: the request on the 1x1 plan, eager; the served request
+        params = T.init_params(cfg, seeded(0))
+        (request,) = prefill_requests(torch, cfg, seeded(1), shape, 1)
+        eager = plan_of(job, "1x1").apply(TS.make_prefill_step(cfg),
+                                          capture=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = eager(params, request).float()
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        del eager, request
+        prompts = torch.randint(0, cfg.vocab_size, (Bd, P), device="cuda",
+                                generator=seeded(2), dtype=torch.int32)
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            frames = torch.randn((Bd, SERVE_FRAMES, cfg.d_model),
+                                 generator=seeded(3), device="cuda")
+            enc_out = T.encode(cfg, params, frames)
+        served = serve.serve_loop(TS.make_decode_step(cfg), params,
+                                  T.init_cache(cfg, Bd, P + G), prompts, G,
+                                  enc_out)
+        one[name] = {"logits": logits.cpu(), "prefill_ms": prefill_ms,
+                     "tokens": served.tokens.cpu(),
+                     "prompt_logits": served.prompt_logits.float().cpu(),
+                     "step_ms": served.step_ms}
+        del params, served, prompts, enc_out, logits
+        torch.cuda.empty_cache()
+
+        # one card: the train steps, and the same steps regrouped
+        def run(fn, label):
+            state = TS.init_train_state(cfg, seeded(0), opt)
+            batch = train_batch(torch, cfg, Bt, St, seeded(1))
+            rows = []
+            for _ in range(FAMILY_MESH_STEPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, m = fn(state, batch)
+                end.record()
+                torch.cuda.synchronize()
+                rows.append({"loss": m["loss"].item(),
+                             "grad_norm": m["grad_norm"].item(),
+                             "ms": start.elapsed_time(end)})
+            log(f"[family mesh train {name} one card, {label}] {card}: "
+                f"losses " + json.dumps([round(r["loss"], 6) for r in rows])
+                + ", grad norms "
+                + json.dumps([round(r["grad_norm"], 6) for r in rows])
+                + f", ms {fmt_ms([r['ms'] for r in rows])}")
+            host = {p: x.cpu() for x, p in
+                    zip(*pytree.flatten_with_paths(state))}
+            return host, rows
+
+        one[name]["state"], one[name]["rows"] = run(
+            TS.make_train_step(cfg, opt), "eager")
+        splits = plan_splits(tplan)
+        tokens = tplan.in_specs[tplan.input_paths.index("[0][1]['tokens']")]
+        halves = 2 if any(e is not None for e in tokens) else 1
+        log(f"[family mesh train {name}] products regrouped for the floor: "
+            f"those of {json.dumps(splits)}; the positions split {halves} "
+            f"ways (tokens {tuple(tokens)})")
+        # the floor: each leaf's farther distance of two such runs, the
+        # split products regrouped, then also the positions' gradient sums
+        # in halves (two microbatches), as the ranks sum theirs
+        floor = {}
+        for accum in sorted({1, halves}):
+            regrouped, _ = run(regrouped_step(cfg, opt, splits, accum),
+                               f"the plan's split products regrouped in "
+                               f"halves, {accum} microbatch(es)")
+            for p, d in leaf_apart(torch, regrouped,
+                                   one[name]["state"]).items():
+                floor[p] = max(d, floor.get(p, 0.0))
+            del regrouped
+        floors[name] = floor
+        torch.cuda.empty_cache()
+
+    log(f"[family mesh] before the ranks the parent holds "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="family-mesh-") as tmp:
+        t0 = time.perf_counter()
+        ranks = run_ranks(family_mesh_rank, 2,
+                          {n: j["plans"] for n, j in jobs.items()}, seed,
+                          tmp, timeout=FAMILY_MESH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        for name in jobs:
+            depth, shape, (Bt, St) = FAMILY_MESH[name]
+            cfg = family_cfg(name, depth)
+            check_family_mesh(torch, card, name, cfg, ranks, one[name],
+                              floors[name],
+                              gathered_leaves(torch, os.path.join(tmp, name),
+                                              2))
+            for kernel, key in (("flash_attention", "launches"),
+                                ("rg_lru", "rg_lru")):
+                launches.setdefault(kernel, {})[name] = {
+                    "request": [r[name]["prefill"][key] for r in ranks],
+                    "train_step": [r[name]["train"][key] //
+                                   FAMILY_MESH_STEPS for r in ranks]}
+    log(f"[family mesh] two ranks, three models: {wall:.1f} s wall, the "
+        f"ranks' start included")
+    log(f"[elapsed] family mesh phase {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+def check_family_mesh(torch, card, name, cfg, ranks, one, floor,
+                      far) -> None:
+    """Print and check one model's runs on the two ranks of phase 7i
+    against one card's (:func:`drive_family_mesh`).  ``far``: the
+    ranks' final state made whole, leaf by leaf."""
+    from repro_torch.models import transformer as T
+    Bd, P, G = MESH_SERVE
+    sites = train_sites(cfg)["flash_attention"]
+    scans = []
+    for rank, res in enumerate(r[name] for r in ranks):
+        pf, sv, tr = res["prefill"], res["serve"], res["train"]
+        rows = tr["rows"]
+        log(f"[family mesh {name} rank {rank}] {card}: request "
+            f"{pf['ms']:.1f} ms (one card's eager 1x1 plan "
+            f"{one['prefill_ms']:.1f}; host clock, card synchronized; two "
+            f"ranks time-sharing one H100 over gloo: not a multi-card "
+            f"figure), collectives " + json.dumps(pf["calls"]) + ", bytes "
+            + json.dumps(pf["bytes"]) + f", peak {pf['peak_gb']:.2f} GB, "
+            f"flash_attention launches {pf['launches']}, local sites "
+            + json.dumps(pf["local_calls"]) + ", made whole "
+            + json.dumps(pf["made_whole"]))
+        log(f"[family mesh serve {name} rank {rank}] {card}: rules "
+            f"{json.dumps(sv['rules'])}; {sv['steps']} decode steps: prompt "
+            f"{sv['prefill_ms']:.1f} ms, median "
+            f"{percentile(sv['step_ms'], 0.5):.2f} ms per generated token "
+            f"(CUDA events on the rank; one card's serve_loop "
+            f"{percentile(one['step_ms'], 0.5):.2f}); collectives "
+            + json.dumps(sv["calls"]) + ", bytes " + json.dumps(sv["bytes"])
+            + f"; peak {sv['peak_gb']:.2f} GB; {sv['s']:.1f} s")
+        for i, r in enumerate(rows, 1):
+            log(f"[family mesh train {name} rank {rank}] step {i}: loss "
+                f"{r['loss']:.6f} grad_norm {r['grad_norm']:.6f} "
+                f"{r['ms']:.1f} ms (host clock, card synchronized; two "
+                f"ranks time-sharing one H100: not a multi-card figure); "
+                f"collectives {json.dumps(r['calls'])}, bytes "
+                f"{json.dumps(r['bytes'])}")
+        log(f"[family mesh train {name} rank {rank}] flash_attention "
+            f"launches {tr['launches']} in {len(rows)} steps, local sites "
+            + json.dumps(tr["local_calls"]) + f", peak {tr['peak_gb']:.2f} "
+            f"GB")
+        runs = [("request", pf["scans"])] + [
+            (f"train step {i}", r["scans"]) for i, r in enumerate(rows, 1)]
+        for label, calls in runs:
+            if calls:
+                log(f"[family mesh slstm {name} rank {rank}] {label}: "
+                    + ", ".join(f"{s:.3f} s, {n} DTensor ops, {c} "
+                                f"collectives" for s, n, c in calls)
+                    + " per sLSTM layer (forward)")
+            scans += [(n, c) for _, n, c in calls]
+        n_slstm = sum(k == "slstm" for k in cfg.pattern)
+        if len(pf["scans"]) != n_slstm or any(
+                len(r["scans"]) != n_slstm for r in rows):
+            raise AssertionError(f"{name} rank {rank}: per-shard scans "
+                                 f"{[len(r['scans']) for r in rows]}, "
+                                 f"expected {n_slstm} a run")
+        if pf["launches"] != sites["forward"] or \
+                tr["launches"] != sites["launches"] * len(rows):
+            raise AssertionError(f"{name} rank {rank}: attention launches "
+                                 f"{pf['launches']} / {tr['launches']}, "
+                                 f"expected {sites['forward']} a request "
+                                 f"and {sites['launches']} a step")
+        if sv["launches"] or pf["rg_lru"] or tr["rg_lru"]:
+            raise AssertionError(f"{name} rank {rank}: the decode steps "
+                                 f"launched attention, or a site the "
+                                 f"RG-LRU kernel")
+    # a loop that dispatched per step would count thousands (2048 and 512
+    # steps): the whole loop runs in one local region
+    if any(n > 8 or c > 8 for n, c in scans):
+        raise AssertionError(f"{name}: the sLSTM scans dispatched {scans} "
+                             f"(DTensor ops, collectives): more than the "
+                             f"region's placement moves")
+    res = ranks[0][name]
+    other = ranks[1][name]
+    if not torch.equal(res["prefill"]["logits"], other["prefill"]["logits"]):
+        raise AssertionError(f"{name}: the ranks gathered different logits")
+    got, want = res["prefill"]["logits"], one["logits"]
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"[family mesh {name}] request: 1x2 on two ranks vs 1x1 on one "
+        f"card: max|diff|/max|1x1| = {rel:.3e} (tol {LOGITS_REL_TOL}), "
+        f"argmax agree {(got.argmax(-1) == want.argmax(-1)).sum().item()}"
+        f"/{got.shape[0]}, finite {bool(torch.isfinite(got).all())}")
+    if rel > LOGITS_REL_TOL or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: mesh and one-card logits disagree")
+    sv = res["serve"]
+    got_l, want_l = sv["prompt_logits"], one["prompt_logits"]
+    diff = (got_l - want_l).abs().max().item()
+    rel = diff / want_l.abs().max().item()
+    top2 = want_l.topk(2, -1).values
+    margin = (top2[..., 0] - top2[..., 1]).flatten()
+    flipped = (got_l.argmax(-1) != want_l.argmax(-1)).flatten()
+    ties = {int(b): round(margin[b].item(), 5)
+            for b in flipped.nonzero().flatten()}
+    agree = (sv["tokens"] == one["tokens"]).float().mean().item()
+    log(f"[family mesh serve {name}] {card}: the launcher's route on two "
+        f"ranks vs one card's serve_loop: prompt logits max|diff|/max "
+        f"{rel:.3e} (tol {LOGITS_REL_TOL}), argmax equal in "
+        f"{Bd - len(ties)}/{Bd} rows"
+        + (f" (rows that differ, each with its one-card top-two margin, a "
+           f"tie below 2 x max|diff| = {2 * diff:.5f}: {json.dumps(ties)})"
+           if ties else "")
+        + f", generated tokens equal {agree:.0%}")
+    if rel > LOGITS_REL_TOL or any(m > 2 * diff for m in ties.values()):
+        raise AssertionError(f"{name}: mesh and one-card serve disagree")
+    rows = res["train"]["rows"]
+    for key in ("loss", "grad_norm"):
+        worst = max(abs(r[key] - o[key]) / abs(o[key])
+                    for r, o in zip(rows, one["rows"]))
+        log(f"[family mesh train {name}] {key} per step on two ranks "
+            + json.dumps([round(r[key], 6) for r in rows])
+            + f" vs one card's, worst rel {worst:.3e} (tol {TRAIN_REL_TOL})")
+        if worst > TRAIN_REL_TOL or any(
+                r[key] != q[key] for r, q in
+                zip(rows, other["train"]["rows"])):
+            raise AssertionError(f"{name}: two ranks' {key} disagree with "
+                                 f"one card's or with each other")
+    apart = leaf_apart(torch, far, one["state"])
+    for label, keep in (("parameters", lambda p: p.startswith(".params")),
+                        ("optimizer state",
+                         lambda p: not p.startswith(".params"))):
+        top = sorted((p for p in apart if keep(p)), key=apart.get,
+                     reverse=True)[:3]
+        log(f"[family mesh train {name}] final {label} on two ranks vs one "
+            f"card: worst |a-b|/|b| "
+            + ", ".join(f"{p} {apart[p]:.3e} (floor {floor[p]:.3e})"
+                        for p in top)
+            + f"; tol floor + {TRAIN_REL_TOL}")
+    worse = beyond(apart, floor)
+    if worse:
+        raise AssertionError(f"{name}: leaves beyond the regrouping floor: "
+                             f"{worse}")
+    if not all(math.isfinite(r["loss"]) for r in rows) or \
+            rows[-1]["loss"] >= rows[0]["loss"]:
+        raise AssertionError(f"{name}: losses {[r['loss'] for r in rows]} "
+                             f"not finite or not falling")
+    per_step = {k: sum(r["bytes"].get(k, 0) for r in rows[1:]) /
+                (len(rows) - 1) for k in rows[-1]["bytes"]}
+    log(f"[family mesh time] {card}: {name} request "
+        f"{res['prefill']['ms']:.1f} ms a rank, train steps 2-{len(rows)} "
+        f"median {percentile([r['ms'] for r in rows[1:]], 0.5):.1f} ms a "
+        f"rank (one card eager "
+        f"{percentile([o['ms'] for o in one['rows'][1:]], 0.5):.1f}), "
+        f"collectives per step {sum(per_step.values()) / 1e9:.4f} GB; "
+        f"{T.n_scan_blocks(cfg)} scanned blocks")
+
+
 def time_lru(lru, torch, gen, card, shape, dtype, route) -> dict:
     """Times one RG-LRU route at ``shape`` beside its bound; logs a
     ``[time]`` line and returns ms, bound and the plain inputs."""
@@ -3935,6 +4612,9 @@ def main(argv=None) -> int:
                 jobs["train", name, None] = pool.submit(
                     plan_job, "train", name, None, shape, TRAIN_OPT, None,
                     None, False)
+        for name in FAMILY_MESH:
+            jobs["family mesh", name] = pool.submit(family_mesh_job, name,
+                                                    share)
         return run_phases(torch, opts, t_start, jobs)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
@@ -4173,6 +4853,14 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
             None if depth is None else jobs["train", name, None].result())
         torch.cuda.empty_cache()
 
+    # -- 7i: the xLSTM and the frontend models on two ranks sharing it -----
+    log(f"[graphs released] before the family mesh phase: "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
+    family_mesh = drive_family_mesh(
+        torch, card, opts.seed,
+        {name: jobs["family mesh", name].result() for name in FAMILY_MESH})
+    torch.cuda.empty_cache()
+
     # -- 8: each kernel's time at its slice shape ----------------------------
     log(f"[elapsed] {time.perf_counter() - t_start:.1f} s before the "
         f"kernel times")
@@ -4200,6 +4888,7 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
                       (XLSTM, "xlstm")):
         fa_row[f"launches_{key}_train"] = frontend_train[name][
             "launches_per_step"]["flash_attention"]
+        fa_row[f"launches_{key}_mesh"] = family_mesh["flash_attention"][name]
     # the frontend models' sites: whisper's encoder (4, 1500, 12, 64)
     # non-causal and its decoder causal; phi3_vision's (4, 2048, 32, 96)
     whisper, phi3v = get_config(WHISPER), get_config(PHI3V)
@@ -4268,6 +4957,9 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
         "launches_whisper": 0, "launches_phi3_vision": 0,
         **{f"launches_{key}_train": frontend_train[name][
             "launches_per_step"]["rg_lru"]
+           for name, key in ((WHISPER, "whisper"), (PHI3V, "phi3_vision"),
+                             (XLSTM, "xlstm"))},
+        **{f"launches_{key}_mesh": family_mesh["rg_lru"][name]
            for name, key in ((WHISPER, "whisper"), (PHI3V, "phi3_vision"),
                              (XLSTM, "xlstm"))}}
 

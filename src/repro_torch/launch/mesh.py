@@ -505,6 +505,38 @@ def collective_tally():
     return CollectiveTally()
 
 
+def dtensor_ops():
+    """A dispatch mode that counts the ATen ops dispatched on DTensors
+    under it, by op name: each costs DTensor's sharding propagation on
+    the host.  Ops on plain tensors (those ``local_map`` runs on each
+    rank's blocks, the local ops DTensor issues) are not counted::
+
+        with dtensor_ops() as ops:
+            applied(params, batch)
+        sum(ops.calls.values())
+
+    Returns:
+        The mode (a context manager), with a ``calls`` counter.
+    """
+    import collections
+
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class DTensorOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                self.calls[str(func.overloadpacket)] += 1
+                return NotImplemented
+            return func(*args, **(kwargs or {}))
+
+    return DTensorOps()
+
+
 def gathered_shapes(shape) -> list:
     """The shapes an all-gather whose raw result is ``shape`` may hand
     back.  ``collective_tally`` sees the functional all-gather's raw

@@ -24,9 +24,9 @@ them unplaced.  Only rank 0 prints.
 An encoder-decoder model (``whisper_small``) encodes the request's
 frame embeddings once (``transformer.encode``; 16 frames drawn from the
 seed, as the reference's launcher draws them) and hands the encoder's
-output to every decode step.  Encoder-decoder and frontend models serve
-on one device only: on two or more ranks they are refused before
-anything is made (ROADMAP queue 1, item 11g).
+output to every decode step.  On a mesh each rank encodes them before
+anything is placed, as the reference's launcher encodes outside its
+mesh context, and the encoder's output is replicated beside the cache.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_05b \\
         --reduced --batch 4 --prompt-len 16 --gen 16 --plan toast \\
@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 import time
 
 import torch
@@ -204,12 +203,12 @@ def serve_loop(decode, params, cache, prompts, gen: int,
 
 
 def serve_replicated(decode, params, cache, prompts, gen: int, rules,
-                     mesh) -> ServeResult:
+                     mesh, enc_out=None) -> ServeResult:
     """The launcher's route on a mesh: :func:`serve_loop` on the
-    parameters, the cache and the prompts replicated on ``mesh``, as the
-    reference's jit receives them unplaced, under ``rules`` (the decode
-    plan's logical rules, whose ``constrain`` hooks place the
-    activations).
+    parameters, the cache, the prompts and an encoder-decoder model's
+    ``enc_out`` replicated on ``mesh``, as the reference's jit receives
+    them unplaced, under ``rules`` (the decode plan's logical rules,
+    whose ``constrain`` hooks place the activations).
 
     The replicas are the tensors themselves, not copies: nothing is
     donated or written in place, and a full-width MoE model held twice
@@ -219,12 +218,12 @@ def serve_replicated(decode, params, cache, prompts, gen: int, rules,
         The :class:`ServeResult` (its tensors DTensors).
     """
     from torch.distributed.tensor import DTensor, Replicate
-    params, cache, prompts = pytree.tree_map(
+    params, cache, prompts, enc_out = pytree.tree_map(
         lambda x: DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
                                      run_check=False),
-        (params, cache, prompts))
+        (params, cache, prompts, enc_out))
     with M.mesh_context(mesh), sharding.logical_rules(rules or None):
-        return serve_loop(decode, params, cache, prompts, gen)
+        return serve_loop(decode, params, cache, prompts, gen, enc_out)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -264,12 +263,6 @@ def serve(args, cfg=None) -> ServeResult:
         cfg = get_config(args.arch)
         if args.reduced:
             cfg = cfg.reduced()
-    ranks = max(M.group_size(), int(os.environ.get("WORLD_SIZE", "1")))
-    if (cfg.is_encoder_decoder or cfg.frontend) and ranks > 1:
-        raise NotImplementedError(
-            f"serving {cfg.name} (an encoder-decoder or modality-frontend "
-            f"model) on two or more ranks is not ported yet (ROADMAP "
-            f"queue 1, item 11g)")
     n_dev = M.init_from_env()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=dev)
@@ -297,7 +290,8 @@ def serve(args, cfg=None) -> ServeResult:
                      f"search={plan.search_seconds:.1f}s")
             dec = plan.apply(dec, device=dev)
     if mesh is not None:
-        res = serve_replicated(dec, params, cache, prompts, G, rules, mesh)
+        res = serve_replicated(dec, params, cache, prompts, G, rules, mesh,
+                               enc_out)
     else:
         res = serve_loop(dec, params, cache, prompts, G, enc_out)
     tokens = res.tokens.full_tensor() if mesh is not None else res.tokens

@@ -46,13 +46,14 @@ Example (CPU, reduced config; two ranks)::
         --plan toast --device cpu
 
 Without ``--device`` it runs on the CUDA card (each rank on card
-``LOCAL_RANK % device_count``), and raises without one.  MoE configs
-(``mixtral_8x22b``, ``arctic_480b``) train on one device and on meshes
-alike, their expert stacks placed by the rules' ``"experts"`` entry.
-Encoder-decoder, frontend and xLSTM models (``whisper_small``,
-``phi3_vision``, ``xlstm_350m``) train on one device; on two or more
-ranks they are refused before the launcher joins a group or makes
-anything (ROADMAP queue 1, items 11g and 11e).  Only rank 0 prints.
+``LOCAL_RANK % device_count``), and raises without one.  Every model
+family trains on one device and on meshes alike: the MoE configs
+(``mixtral_8x22b``, ``arctic_480b``) with their expert stacks placed by
+the rules' ``"experts"`` entry; the encoder-decoder and frontend models
+(``whisper_small``, ``phi3_vision``) with the batch's ``frames`` and
+``patch_embeds`` placed by the rules as the tokens are; ``xlstm_350m``
+with each sLSTM's time loop run per shard
+(``sharding.scan_per_shard``).  Only rank 0 prints.
 ``--compress`` is parsed and unused, as in the reference.
 """
 
@@ -76,8 +77,7 @@ from repro_torch.data.pipeline import DataConfig, Pipeline
 from repro_torch.device import resolve_device
 from repro_torch.jit import jit
 from repro_torch.launch import mesh as M
-from repro_torch.train.steps import (check_train_supported,
-                                     init_train_state, make_train_step,
+from repro_torch.train.steps import (init_train_state, make_train_step,
                                      train_state_specs)
 
 
@@ -382,8 +382,6 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    check_train_supported(
-        cfg, max(M.group_size(), int(os.environ.get("WORLD_SIZE", "1"))))
     M.init_from_env()
     supervise(cfg, args)
 

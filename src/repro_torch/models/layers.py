@@ -670,15 +670,20 @@ def mlstm_apply(cfg, p, x):
     """
     B, S, _ = x.shape
     h, hd = cfg.num_heads, cfg.resolved_head_dim
-    xn = rmsnorm(x, p["ln"])
+    # every query meets every key: on a mesh the block runs on the whole
+    # sequence (sharding.whole_along), as GSPMD runs it, its input moved
+    # once for its five projections (sharding.matmul_input)
+    xn = sharding.whole_along(rmsnorm(x, p["ln"]), 1, "mLSTM sequence")
+    xn = sharding.matmul_input(xn, p["wq"])
     q = split_dim(matmul(xn, p["wq"]), -1, (h, hd))
     k = split_dim(matmul(xn, p["wk"]), -1, (h, hd)) / round_to(
         x.dtype, math.sqrt(hd))
     v = split_dim(matmul(xn, p["wv"]), -1, (h, hd))
-    ig = matmul(xn, p["wi"]).to(torch.float32)               # (B,S,h)
+    # a pending sum reduced at (B, S, h), before it broadcasts over keys
+    ig = sharding.reduced(matmul(xn, p["wi"])).to(torch.float32)
     fg = matmul(xn, p["wf"]).to(torch.float32)
     logf = -softplus(-fg)                                    # log σ(f)
-    F = torch.cumsum(logf, dim=1)
+    F = sharding.cumsum(logf, 1)
     # logD[b,h,i,j] = F_i - F_j + ig_j   (j <= i)
     logD = (F.permute(0, 2, 1)[:, :, :, None] -
             F.permute(0, 2, 1)[:, :, None, :] +
@@ -747,8 +752,9 @@ def slstm_param_shapes(cfg) -> dict:
 
 def _slstm_step(cfg, p, carry, pre_x):
     """One sLSTM step. carry: (c, n, hst, m), each (B,h,hd) float32;
-    pre_x: (B, 4*h*hd), the input's gate pre-activations."""
-    h_, hd = cfg.num_heads, cfg.resolved_head_dim
+    pre_x: (B, 4*h*hd), the input's gate pre-activations; ``h`` is
+    ``R``'s (a rank's heads in the per-shard loop)."""
+    h_, hd = p["R"].shape[0], cfg.resolved_head_dim
     c, n, hst, m = carry
     rec = einsum("bij,ijk->bik", hst.to(p["R"].dtype), p["R"])
     pre = pre_x.reshape(*pre_x.shape[:-1], h_, 4 * hd) + rec
@@ -765,31 +771,48 @@ def _slstm_step(cfg, p, carry, pre_x):
     return (c_new, n_new, h_new, m_new), h_new
 
 
-def slstm_apply(cfg, p, x):
-    """sLSTM block (pre-norm residual), full sequence: the gates' input
-    products for every step at once, then the recurrence scanned over
-    time (``transformer.scan_layers``: one ``scan`` under
-    ``torch.export``, a loop eagerly)."""
+def _slstm_scan(cfg, pre, R):
+    """The sLSTM's recurrence over time: pre (B, S, h*4hd) the gates'
+    input products, R (h, hd, 4hd) -> hs (B, S, h*hd) float32."""
     from repro_torch.models.transformer import scan_layers
-    B, S, _ = x.shape
-    h_, hd = cfg.num_heads, cfg.resolved_head_dim
-    xn = rmsnorm(x, p["ln"])
-    pre = matmul(xn, p["W"]) + p["b"]                        # (B,S,h*4hd)
-    z = torch.zeros((B, h_, hd), dtype=torch.float32, device=x.device)
+    B, S, _ = pre.shape
+    h_, hd = R.shape[0], cfg.resolved_head_dim
+    z = torch.zeros((B, h_, hd), dtype=torch.float32, device=pre.device)
     # three carries start from one zeros value, as in the reference; each
     # is a tensor of its own, or the exported scan body reads one of them
     # for all three (the tracer lowers the copies as the value itself)
     carry = (z, z.clone(), z.clone(),
-             torch.zeros((B, h_, hd), dtype=torch.float32, device=x.device))
+             torch.zeros((B, h_, hd), dtype=torch.float32,
+                         device=pre.device))
 
     def step(c, pre_t):
-        c, h_new = _slstm_step(cfg, p, c, pre_t)
+        c, h_new = _slstm_step(cfg, {"R": R}, c, pre_t)
         # a scan's output may not alias another: ys get their own copy
         return c, h_new.clone()
 
     _, hs = scan_layers(step, carry, pre.permute(1, 0, 2), with_ys=True)
-    out = hs.permute(1, 0, 2, 3).reshape(B, S, h_ * hd).to(x.dtype)
-    return x + matmul(out, p["wo"])
+    return hs.permute(1, 0, 2, 3).reshape(B, S, h_ * hd)
+
+
+def slstm_apply(cfg, p, x):
+    """sLSTM block (pre-norm residual), full sequence: the gates' input
+    products for every step at once, then the recurrence scanned over
+    time (``transformer.scan_layers``: one ``scan`` under
+    ``torch.export``, a loop eagerly).
+
+    On DTensors the whole loop runs per shard
+    (``sharding.scan_per_shard``): the batch and the heads stay as the
+    plan put them (``R`` with its head shard, gathered where ``pre``'s
+    batch lies), and the time dim and ``R``'s ``hd`` and gate dims are
+    made whole once, before the loop.
+    """
+    xn = rmsnorm(x, p["ln"])
+    pre = matmul(xn, p["W"]) + p["b"]                        # (B,S,h*4hd)
+    # "H": the heads, whole head blocks of pre's h*4hd and of hs's h*hd
+    out = sharding.scan_per_shard(
+        lambda pre_, r: _slstm_scan(cfg, pre_, r), [pre, p["R"]],
+        ["bsH", "Hjk"], "bsH", whole="sjk", movable=(1,))
+    return x + matmul(out.to(x.dtype), p["wo"])
 
 
 def slstm_init_cache(cfg, batch, device=None):

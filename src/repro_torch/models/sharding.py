@@ -196,6 +196,33 @@ def placed_like(t, ref):
     return t.redistribute(ref.device_mesh, ref.placements)
 
 
+def cat_like(tensors, dim: int, ref):
+    """``torch.cat(tensors, dim)`` placed as ``ref`` (one of them) is.
+
+    DTensor concatenates along a sharded dim by making it whole on every
+    input, and leaves the result whole: a vision model's patch
+    embeddings placed before its sequence-sharded tokens would then run
+    every layer on the whole residual stream.  The result takes
+    ``ref``'s placements back (a slice of the whole, no collective) when
+    each mesh dim that shards ``dim`` divides its size, as GSPMD keeps
+    the plan's sharding of the concatenated dim.  Plain tensors take
+    ``torch.cat`` itself, so traced programs do not change.
+    """
+    import torch
+    out = torch.cat(tensors, dim=dim)
+    if not is_dtensor(out) or not is_dtensor(ref):
+        return out
+    dim %= out.ndim
+    mesh = ref.device_mesh
+    ways = 1
+    for i, p in enumerate(ref.placements):
+        if p.is_shard() and p.dim == dim:
+            ways *= mesh.size(i)
+    if ways == 1 or out.shape[dim] % ways:
+        return out
+    return placed_like(out, ref)
+
+
 def reduced_onto(t, ref):
     """``t`` with each pending sum reduced once onto ``ref``'s placement
     on that mesh dim: a reduce-scatter onto a shard, an all-reduce onto
@@ -334,6 +361,28 @@ def replicate_like(t, ref):
                               run_check=False)
 
 
+def whole_along(t, dim: int, why: str):
+    """``t`` with dim ``dim`` made whole on every mesh dim that shards it,
+    its other placements kept; counted in :data:`made_whole` under
+    ``why``.  For a block that mixes every position of ``dim`` (the
+    mLSTM's quadratic form over the sequence): GSPMD runs it on the
+    whole dim, and DTensor, left to itself, moves each of the block's
+    products between shards.  A plain tensor passes as it is, so traced
+    programs do not change.
+    """
+    if not is_dtensor(t):
+        return t
+    dim %= t.ndim
+    on = [i for i, p in enumerate(t.placements)
+          if p.is_shard() and p.dim == dim]
+    if not on:
+        return t
+    from torch.distributed.tensor import Replicate
+    made_whole[why] += 1
+    return t.redistribute(t.device_mesh, [
+        Replicate() if i in on else p for i, p in enumerate(t.placements)])
+
+
 def split_dim(t, dim: int, sizes: tuple[int, ...]):
     """``t`` with dim ``dim`` split into ``sizes`` (one reshape).
 
@@ -464,14 +513,7 @@ def matmul(x, w):
     if not is_dtensor(x) or x.ndim != 3:
         return x @ w
     import torch
-    sharded = [i for i, p in enumerate(w.placements)
-               if not p.is_replicate()] if is_dtensor(w) else []
-
-    def stays(i):
-        p, q = x.placements[i], w.placements[i]
-        return not p.is_shard() or p.dim % 3 == 2 or (
-            p.dim % 3 == 1 and q.is_shard() and q.dim == 0)
-    if sharded and all(stays(i) for i in sharded):
+    if _stationary(x, w):
         # the weight stays where it lies (a decode plan's 2-D sharded
         # weights; a train plan's weights sharded on their rows against
         # a sharded sequence) and x moves to it: a shard of its rows
@@ -492,6 +534,40 @@ def matmul(x, w):
         return out
     per_shard["matmul"] += 1
     return torch.bmm(x, w.expand(x.shape[0], *w.shape))
+
+
+def _stationary(x, w) -> bool:
+    """Whether :func:`matmul` keeps ``w`` where it lies and moves ``x``
+    to it: ``w`` is sharded only on mesh dims where ``x`` is not
+    sharded, is sharded on its features, or is sharded on its sequence
+    against ``w``'s rows."""
+    if not is_dtensor(w):
+        return False
+    sharded = [i for i, p in enumerate(w.placements) if not p.is_replicate()]
+
+    def stays(i):
+        p, q = x.placements[i], w.placements[i]
+        return not p.is_shard() or p.dim % 3 == 2 or (
+            p.dim % 3 == 1 and q.is_shard() and q.dim == 0)
+    return bool(sharded) and all(stays(i) for i in sharded)
+
+
+def matmul_input(x, w):
+    """``x`` placed as :func:`matmul` places it for ``x @ w`` when ``w``
+    stays where it lies, else ``x`` itself.
+
+    An activation that several products take (the mLSTM's normed input,
+    taken by its five projections) is then moved once, and its
+    gradients, summed where they arrive, move back once; each product
+    moving it again would move it, and its gradient, once a product.
+    Plain tensors pass as they are, so traced programs do not change.
+    """
+    if not is_dtensor(x) or x.ndim != 3 or not _stationary(x, w):
+        return x
+    (_, pl), _ = _local_placements(x.device_mesh, [w, x], ["df", "bsd"],
+                                   ["bsf"], movable=(1,))
+    return x if tuple(x.placements) == pl else \
+        x.redistribute(x.device_mesh, pl)
 
 
 _LETTERS = "abcdefghijklm"
@@ -709,6 +785,77 @@ def einsum(equation: str, *operands):
     per_shard["einsum"] += 1
     return _run_local(lambda *xs: torch.einsum(equation, *xs),
                       ref.device_mesh, operands, in_pl, out_pl)
+
+
+def scan_per_shard(fn, operands, specs, out: str, whole: str,
+                   movable=()):
+    """``fn(*operands)`` for a recurrence scanned over one dim of its
+    operands (the sLSTM's time loop), on DTensors per shard.
+
+    Run step by step on DTensors, each step's ops would be dispatched
+    through DTensor (tens per step, thousands per layer) and any step
+    whose placements disagree would move data.  Here the whole loop runs
+    once, on each rank's blocks under one ``local_map``: each mesh dim
+    keeps the letter :func:`_local_placements` keeps (a letter every
+    operand shares a shard of, the others replicated; an operand of
+    ``movable`` is moved to it), and the letters of ``whole`` (the
+    scanned dim, a dim the step contracts or splits) are made whole
+    once, before the loop, each counted in :data:`made_whole`.  Every
+    rank then issues the same DTensor ops and collectives, whatever the
+    length of the scanned dim.  Gradients flow as through
+    :func:`_run_local`.  Plain tensors take ``fn`` itself, so traced
+    programs do not change.
+
+    Args:
+        fn: the loop on plain tensors, one output.
+        operands: its tensors.
+        specs: a letter per dim of each operand.
+        out: the output's letters.
+        whole: letters never sharded in the loop.
+        movable: indices of operands that may be moved to the kept
+            letter (the weights, as :func:`gather_for` moves them).
+    """
+    ref = next((x for x in operands if is_dtensor(x)), None)
+    if ref is None:
+        return fn(*operands)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.placement_types import _StridedShard
+    mesh = ref.device_mesh
+    in_pl, out_pl = _local_placements(mesh, operands, specs, [out],
+                                      whole=whole, movable=movable)
+    for x, spec, pl in zip(operands, specs, in_pl):
+        if not is_dtensor(x):
+            continue
+        for p, q in zip(x.placements, pl):
+            if (p.is_shard() or isinstance(p, _StridedShard)) and \
+                    isinstance(q, Replicate):
+                made_whole[f"scan operand dim {spec[p.dim % len(spec)]!r} "
+                           f"of {spec}"] += 1
+    per_shard["scan"] += 1
+    return _run_local(fn, mesh, operands, in_pl, out_pl)
+
+
+def cumsum(x, dim: int):
+    """``torch.cumsum(x, dim)``, on a DTensor per shard.
+
+    torch 2.11's DTensor has no sharding strategy for ``aten.flip``,
+    which ``cumsum``'s backward issues (the mLSTM's log-forget-gate
+    prefix sum, in a train step).  On a DTensor the sum runs on each
+    rank's block under ``local_map``, ``dim`` made whole (as DTensor's
+    own rule makes it) and every other shard kept, so its backward
+    flips local tensors.  Counted in :data:`per_shard`.  A plain tensor
+    takes ``torch.cumsum`` itself, so traced programs do not change.
+    """
+    import torch
+    if not is_dtensor(x):
+        return torch.cumsum(x, dim=dim)
+    dim %= x.ndim
+    spec = _LETTERS[:x.ndim]
+    in_pl, out_pl = _local_placements(x.device_mesh, [x], [spec], [spec],
+                                      whole=spec[dim])
+    per_shard["cumsum"] += 1
+    return _run_local(lambda t: torch.cumsum(t, dim=dim), x.device_mesh,
+                      [x], in_pl, out_pl)
 
 
 def top_k(op, x, k: int):

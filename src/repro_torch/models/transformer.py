@@ -43,9 +43,9 @@ import torch
 from repro_torch import pytree
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import (constrain, embedding, gather_for,
-                                        get_kernel_dispatch, get_rules,
-                                        kernel_dispatch, layer,
+from repro_torch.models.sharding import (cat_like, constrain, embedding,
+                                        gather_for, get_kernel_dispatch,
+                                        get_rules, kernel_dispatch, layer,
                                         logical_rules, matmul,
                                         replicate_like)
 
@@ -345,7 +345,11 @@ def scan_layers(body, h, xs, *, with_ys=False, remat=False):
     recomputes the body.  The recomputations run under the site keys
     that follow the whole forward's (the tail layers' included), as the
     traced train program holds the recomputed body in the backward
-    scan, after every forward site (``core.autodiff``).
+    scan, after every forward site (``core.autodiff``).  On a mesh (a
+    dispatch carrying one) they run under the forward's own site keys
+    instead: a recomputed site must see the blocks its forward saw
+    (``torch.utils.checkpoint`` holds the recomputed tensors to the
+    forward's shapes), and another site's specs may split it otherwise.
     """
     step = body if with_ys else (lambda c, x: (body(c, x), ()))
     if torch.compiler.is_exporting():
@@ -372,7 +376,7 @@ def scan_layers(body, h, xs, *, with_ys=False, remat=False):
                 if disp is not None:
                     if marks[-1] is None:
                         marks[-1] = disp.mark()
-                    disp.rewind(marks[-1])
+                    disp.rewind(marks[-1] if disp.mesh is None else marks[0])
                 return step(c, x)
 
         def run(c, x):
@@ -458,7 +462,7 @@ def forward(cfg, params, tokens, *, patch_embeds=None, frames=None):
     enc_out = encode(cfg, params, frames) if frames is not None else None
     h = embed_tokens(cfg, params, tokens)
     if patch_embeds is not None:
-        h = torch.cat([patch_embeds.to(h.dtype), h], dim=1)
+        h = cat_like([patch_embeds.to(h.dtype), h], 1, h)
     h = constrain(h, ("act_batch", "seq", "embed"))
     S = h.shape[1]
     positions = replicate_like(torch.arange(S, dtype=torch.int32,

@@ -175,30 +175,6 @@ def value_and_grad(loss_fn, remat: bool = False):
     return run
 
 
-def check_train_supported(cfg, ranks: int) -> None:
-    """Raise for a model the port cannot train on ``ranks`` ranks yet:
-    on two or more, an encoder-decoder or modality-frontend model
-    (``whisper_small``, ``phi3_vision``) or an xLSTM model.
-
-    The training launcher calls it before it joins a group or makes
-    anything.
-
-    Raises:
-        NotImplementedError: for such a model on two or more ranks.
-    """
-    if ranks < 2:
-        return
-    if cfg.is_encoder_decoder or cfg.frontend:
-        raise NotImplementedError(
-            f"training {cfg.name} (an encoder-decoder or modality-frontend "
-            f"model) on two or more ranks is not ported yet (ROADMAP "
-            f"queue 1, item 11g)")
-    if any(k in ("mlstm", "slstm") for k in cfg.pattern):
-        raise NotImplementedError(
-            f"training {cfg.name} (an xLSTM model) on two or more ranks "
-            f"is not ported yet (ROADMAP queue 1, item 11e)")
-
-
 def make_train_step(cfg, opt_cfg: adam.AdamConfig | None = None,
                     accum_steps: int = 1):
     """``train_step(state, batch) -> (state, metrics)``.

@@ -1473,3 +1473,109 @@ def test_captured_donated_frontend_and_xlstm_train_steps_equal_eager(
     assert graph.launches["flash_attention"] == \
         2 * period * T.n_scan_blocks(cfg) + tail
     assert not graph.launches["rg_lru"]
+
+
+# --- the xLSTM and the frontend models on two ranks sharing the card -------
+
+
+def family_mesh_rank(rank, arch, num_layers, plans):
+    """A small f32 model on card 0 through each (1, 2) plan (``plans``:
+    kind -> JSON): the prefill's gathered logits, one train step's loss,
+    grad norm and new state gathered to the host, the attention
+    launches and the per-shard sLSTM loops (``sharding.per_shard``)."""
+    import dataclasses
+
+    from repro_torch import pytree
+    from repro_torch.core.partitioner import ShardingPlan
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as TS
+    cfg = dataclasses.replace(small_config(arch, "float32"), remat=True,
+                              num_layers=num_layers)
+    opt = moe_train_opt()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_params(cfg, g)
+    batch = frontend_train_batch(g, cfg, 2, 32)
+    sharding.per_shard.clear()
+    fa.launches = 0
+    prefill = ShardingPlan.from_json(plans["prefill"]).apply(
+        TS.make_prefill_step(cfg))
+    logits = prefill(params, {k: v for k, v in batch.items()
+                              if k != "targets"}).full_tensor().cpu()
+    state = TS.init_train_state(cfg, torch.Generator(
+        device="cuda").manual_seed(1), opt)
+    train = ShardingPlan.from_json(plans["train"]).apply(
+        TS.make_train_step(cfg, opt))
+    new, metrics = train(state, batch)
+    return {"logits": logits, "launches": fa.launches,
+            "scans": sharding.per_shard["scan"],
+            "metrics": {k: metrics[k].full_tensor().item()
+                        for k in ("loss", "grad_norm")},
+            "state": [x.full_tensor().cpu()
+                      for x in pytree.tree_leaves(new)]}
+
+
+@pytest.mark.parametrize("arch,num_layers", [("xlstm_350m", 8),
+                                             ("whisper_small", 2)])
+def test_small_family_on_two_ranks_equals_one_card(gen, arch, num_layers):
+    """Two ranks share the card on (1, 2) plans of a small f32 model with
+    remat: the xLSTM at 8 layers (its sLSTM's time loop one per-shard
+    scan, its mLSTMs' prefix sums per shard: torch 2.11's DTensor has no
+    rule for the ``flip`` their backward issues), whisper with the
+    attention sites its plans put on the kernel (its encoder's
+    non-causal, its decoder's causal) launching it on each rank.  The gathered prefill logits, the train step's loss, grad
+    norm and every leaf of the new state within 1e-4 of one card's."""
+    import dataclasses
+
+    from repro_torch import pytree
+    from repro_torch.api import Request, Session
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.cost_model import MeshSpec
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as TS
+    cfg = dataclasses.replace(small_config(arch, "float32"), remat=True,
+                              num_layers=num_layers)
+    opt = moe_train_opt()
+    mesh = MeshSpec(("data", "model"), (1, 2))
+    plans, cuda = {}, {}
+    # the sites of one layer body, whose keys remat's recomputation
+    # reuses on a mesh
+    body = [f"flash_attention:{i}"
+            for i in range(sum(T.kernel_sites(cfg)["flash_attention"]))]
+    for kind, step, state in (
+            ("prefill", TS.make_prefill_step(cfg), T.param_specs(cfg)),
+            ("train", TS.make_train_step(cfg, opt),
+             TS.train_state_specs(cfg, opt))):
+        bspec, _ = specs.batch_specs(cfg, ShapeConfig("t", 32, 2, kind))
+        plan = Session(step, (state, bspec)).partition(Request(mesh=mesh))
+        plans[kind] = plan.to_json()
+        cuda[kind] = sum(r["impl"] == "cuda" for r in plan.kernel_sites
+                         if r["site"] in body)
+    fa.build()                                  # the ranks load it
+    ranks = run_ranks(family_mesh_rank, 2, arch, num_layers, plans,
+                      timeout=300)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_params(cfg, g)
+    batch = frontend_train_batch(g, cfg, 2, 32)
+    with kernel_dispatch(KernelDispatch(default_impl="cuda")):
+        logits = TS.make_prefill_step(cfg)(params, {
+            k: v for k, v in batch.items() if k != "targets"}).cpu()
+        new, metrics = TS.make_train_step(cfg, opt)(train_state(cfg, opt),
+                                                    batch)
+    for r in ranks:
+        torch.testing.assert_close(r["logits"], logits, rtol=1e-4,
+                                   atol=1e-4)
+        for k in ("loss", "grad_norm"):
+            assert abs(r["metrics"][k] - metrics[k].item()) <= \
+                1e-4 * max(1.0, abs(metrics[k].item())), k
+        for a, b in zip(r["state"], pytree.tree_leaves(new)):
+            torch.testing.assert_close(a, b.cpu(), rtol=1e-4, atol=1e-4)
+        # each layer's sites the plans put on the kernel: the prefill's
+        # once, the train step's and remat's recomputation of them
+        assert r["launches"] == T.n_scan_blocks(cfg) * (
+            cuda["prefill"] + 2 * cuda["train"])
+        assert (r["launches"] > 0) == (arch == "whisper_small")
+        assert r["scans"] == (2 * (num_layers // 8) + num_layers // 8
+                              if arch == "xlstm_350m" else 0)

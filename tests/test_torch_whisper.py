@@ -276,16 +276,18 @@ class TestModels:
         assert "[toast] cost=" in out and "ms/token" in out
         assert out.count("generated=") == 2
 
-    def test_two_or_more_ranks_are_refused(self, monkeypatch):
-        # before anything is made: no group is joined
-        monkeypatch.setenv("WORLD_SIZE", "2")
-        with pytest.raises(NotImplementedError, match="item 11g"):
-            serve.main(["--arch", ARCH, "--reduced", "--device", "cpu"])
-        assert not torch.distributed.is_initialized()
+    def test_two_or_more_ranks_are_refused(self, tmp_path):
+        # no longer refused (item 11g): the serving launcher runs on two
+        # ranks, each encoding the frames before placement, the encoder's
+        # output replicated; its tokens equal one process's
+        from test_torch_xlstm_mesh_train import \
+            check_entry_points_on_two_ranks
+        check_entry_points_on_two_ranks(ARCH, tmp_path, training=False)
 
-    def test_training_is_refused(self, monkeypatch):
-        # training on one device is ported (item 11f); on two or more
-        # ranks the launcher refuses it before it joins a group (11g)
+    def test_training_is_refused(self, tmp_path):
+        # training is ported on one device (item 11f) and on meshes (item
+        # 11g): the launcher trains on two ranks, the frames placed by the
+        # rules as the tokens are, its loss within 1e-4 of one process's
         _, tcfg = configs()
         make_train_step(tcfg)
         _, (_, batch), (_, names) = specs.step_and_inputs(
@@ -294,11 +296,9 @@ class TestModels:
         assert tuple(batch["tokens"].shape) == (4, 32)
         assert tuple(batch["targets"].shape) == (4, 32)
         assert names["frames"] == ("batch", "seq", "embed")
-        monkeypatch.setenv("WORLD_SIZE", "2")
-        with pytest.raises(NotImplementedError, match="item 11g"):
-            launch_train.main(["--arch", ARCH, "--reduced", "--device",
-                               "cpu"])
-        assert not torch.distributed.is_initialized()
+        from test_torch_xlstm_mesh_train import \
+            check_entry_points_on_two_ranks
+        check_entry_points_on_two_ranks(ARCH, tmp_path, serving=False)
 
 
 # -- parameters, caches, specs ---------------------------------------------

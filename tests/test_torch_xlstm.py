@@ -334,18 +334,17 @@ class TestParams:
     @pytest.mark.parametrize("arch", ["whisper_small", "phi3_vision"])
     def test_other_families_still_raise(self, arch):
         # whisper and phi3_vision serve (items 11b, 11c) and train on one
-        # device (item 11f: their own test files); what still raises is
-        # their training on two or more ranks (item 11g)
+        # device (item 11f) and on meshes (item 11g: their own test
+        # files); nothing raises for two or more ranks any more
         jcfg, cfg = jax_config(arch).reduced(), get_config(arch).reduced()
         assert {p: tuple(x.shape) for p, x in
                 ttree_flat(T.param_specs(cfg)).items()} == \
             {p: x.shape for p, x in jtree_flat(JT.param_specs(jcfg)).items()}
         specs.step_and_inputs(cfg, ShapeConfig("s", 64, 4, "prefill"))
         specs.step_and_inputs(cfg, ShapeConfig("s", 64, 4, "train"))
-        from repro_torch.train.steps import check_train_supported
-        check_train_supported(cfg, 1)
-        with pytest.raises(NotImplementedError, match="item 11g"):
-            check_train_supported(cfg, 2)
+        from repro_torch.train import steps
+        steps.make_train_step(cfg)
+        assert not hasattr(steps, "check_train_supported")
 
 
 # -- the tracer -------------------------------------------------------------
