@@ -26,7 +26,8 @@ encoder's attention on the kernel non-causal, its decoder's causal, the
 decoder's cross-attention on the einsum path) and ``phi3_vision`` (its
 patch embeddings before the tokens, the kernel at head dim 96), prefill
 and decode, their training, and all three on two ranks sharing the
-card.
+card; and the search around the core: the portfolio search, the mesh
+co-search and the plan store, a stored plan served on the card.
 
 1. print the card's name and power limit; build both kernels from the
    sources in this checkout, in parallel;
@@ -289,6 +290,23 @@ card.
    largest, the served prompt logits too with argmax equal but in a
    printed tie, every loss and grad norm within 2e-2 of one card's,
    every leaf within its floor + 2e-2, the loss falling;
+7j. the plan store (after 7i): two jobs, one after the other, each in a
+   worker process of its own started beside the pool, trace the
+   full-width ``qwen2_05b`` prefill step at the path shape on ``meta``
+   tensors in a ``Session`` over one fresh store directory; the first
+   co-searches every mesh of an 8-card node in one or two pods with the
+   portfolio the reference's zoo driver uses (greedy, a beam of width 4,
+   two MCTS seeds, two threads, early stopping) and partitions the 1x1
+   request with it, each plan written to the store (a line per
+   candidate: mesh, status, cost, feasibility, search seconds; the best
+   mesh and the best multi-pod one); the second must find the same
+   fingerprint, and every plan the first searched as a store hit
+   (``cached``, no cost model built), equal to the one written; then
+   the card applies the 1x1 plan the second read back (every site on
+   ``"cuda"``), captured, to the first request of step 4 with the
+   seed's weights: 24 attention launches, and last-token logits equal
+   to step 4's captured plan's bit for bit; the seconds the card
+   waited on the jobs and the phase's seconds are printed;
 8. time each kernel at its slice shape beside its bound, its plain
    version and, for attention, ``scaled_dot_product_attention`` (a
    yardstick only: the port never calls it), and at ``arctic_480b``'s
@@ -316,7 +334,8 @@ each path: ``launches_train_step``, ``launches_mesh``,
 ``launches_xlstm_train`` (phase 7h, per train step),
 ``launches_whisper_mesh`` / ``launches_phi3_vision_mesh`` /
 ``launches_xlstm_mesh`` (phase 7i, per rank, for a request and for a
-train step), with
+train step), ``launches_store`` (phase 7j, the request through the plan
+read back from the plan store), with
 ``whisper_encoder_shape``, ``whisper_decoder_shape`` and
 ``phi3_vision_shape`` (the kernel's times there beside its bound, the
 plain version and SDPA, and the sites' largest error); the RG-LRU row
@@ -523,6 +542,11 @@ FAMILY_MESH_OPT = dict(TRAIN_OPT, lr=1e-4)
 # whisper's served request attends to 16 frames from the seed, as the
 # serving launcher's
 SERVE_FRAMES = 16
+# the plan store phase (7j): the qwen2_05b prefill step at the path shape,
+# co-searched over every mesh of an 8-card node and of two 4-card pods
+STORE_MODEL = "qwen2_05b"
+STORE_DEVICES = 8
+STORE_PODS = (1, 2)
 # the router's leaves (its weight and moments), whose gradient is the
 # noisiest: checked after step 1 too, and the planted fault of phase 7e
 # (its gradient scaled by ROUTER_FAULT) must fail the leaf checks
@@ -675,7 +699,8 @@ def lru_inputs(torch, gen, shape, dtype, lo=None, hi=None):
 def plan_job(kind: str, name: str, depth: int | None = None,
              shape=None, opt_kw=None, hbm: float | None = None,
              small_layers: int | None = None, with_small: bool = True,
-             remat: bool | None = None) -> dict:
+             remat: bool | None = None, store_dir: str | None = None,
+             written: dict | None = None) -> dict:
     """Host work of one phase, run in the worker process beside the
     card's phases (no card is touched): trace ``name``'s ``kind`` step
     on ``meta`` tensors (``Session``) and search its 2x4 and 1x1 plans.
@@ -695,7 +720,9 @@ def plan_job(kind: str, name: str, depth: int | None = None,
     ``toast_decode_rules`` searches) or ``"mesh train"`` (the train step
     at ``shape``, AdamW of ``opt_kw``, planned for (1, 2) with a
     ``HardwareSpec`` whose ``hbm_per_chip`` is ``hbm``, each rank's
-    share of the card).
+    share of the card) or ``"store"`` (the prefill step at ``shape``
+    in a ``Session`` over the plan store at ``store_dir``: see
+    :func:`store_job`; ``written`` is the first store job's result).
     ``depth`` cuts the layers and ``remat`` sets the config's remat
     (``None``: the config's).  A ``"path"``
     job, a frontend model's ``"prefill"`` job and the ``"train"`` job of
@@ -735,6 +762,8 @@ def plan_job(kind: str, name: str, depth: int | None = None,
         cfg = dataclasses.replace(cfg, num_layers=depth)
     if remat is not None:
         cfg = dataclasses.replace(cfg, remat=remat)
+    if kind == "store":
+        return store_job(cfg, shape, store_dir, written)
     mesh8 = MeshSpec(("data", "model"), (2, 4))
     mesh1 = MeshSpec(("data", "model"), (1, 1))
     t0 = time.perf_counter()
@@ -824,6 +853,237 @@ def plan_job(kind: str, name: str, depth: int | None = None,
         out["plans"]["decode 1x2"] = dsess.partition(serve.decode_request(
             cfg, names, MeshSpec(("data", "model"), MESH_SHAPE))).to_json()
     return out
+
+
+def store_portfolio():
+    """The portfolio the reference's zoo driver searches with
+    (``zoo_portfolio``): greedy and a beam of width 4 first, then two
+    MCTS seeds of 4 rounds, on two threads, the queued members cancelled
+    once two finish without improving the best feasible cost."""
+    from repro_torch.core.mcts import MCTSConfig
+    from repro_torch.core.portfolio import PortfolioConfig, PortfolioMember
+    from repro_torch.core.search import BeamConfig
+    members = (
+        PortfolioMember("greedy", config=BeamConfig(patience=1)),
+        PortfolioMember("beam", config=BeamConfig(width=4, patience=1)),
+        *(PortfolioMember("mcts", seed=s, config=MCTSConfig(
+            seed=s, rounds=4, trajectories_per_round=16)) for s in range(2)))
+    return PortfolioConfig(members=members, max_workers=2, patience=2)
+
+
+def mesh_label(mesh: dict) -> str:
+    """``"2x4"``, or ``"2x2x2 dcn pod"`` for a mesh that crosses pods."""
+    label = "x".join(str(n) for n in mesh["sizes"])
+    return label + (" dcn " + ",".join(mesh["dcn_axes"])
+                    if mesh["dcn_axes"] else "")
+
+
+def without_provenance(plan) -> dict:
+    """A plan's ``as_dict`` but its search seconds (0 on a store hit)."""
+    d = plan.as_dict()
+    d.pop("search_seconds")
+    return d
+
+
+def store_job(cfg, shape, store_dir: str, written: dict | None) -> dict:
+    """The plan store's host work (phase 7j), in a worker process.
+
+    Traces ``cfg``'s prefill step at ``shape`` on ``meta`` tensors in a
+    ``Session`` over the plan store at ``store_dir``.  The first job
+    (``written`` None) co-searches every mesh of ``STORE_DEVICES`` cards
+    in one or two pods with :func:`store_portfolio` and partitions the
+    1x1 request with it, each plan written to the store.  The second
+    (``written``: the first's result), in another process, must find the
+    first's fingerprint and every plan it searched in the store: each
+    ``partition`` a hit (``cached``, the store's hits up by one, no cost
+    model built), each plan equal to the first job's but its search
+    seconds.  Returns the fingerprint, the co-search's rows and each
+    plan's JSON by :func:`mesh_label` (the 1x1 plan under ``"1x1"``).
+    """
+    import torch
+    from repro_torch.api import Request, Session
+    from repro_torch.ckpt.plan_store import PlanStore
+    from repro_torch.core.cost_model import MeshSpec
+    from repro_torch.core.partitioner import ShardingPlan
+    from repro_torch.models import transformer as T
+    from repro_torch.train import steps as TS
+
+    t0 = time.perf_counter()
+    store = PlanStore(store_dir)
+    tokens = torch.empty(shape, dtype=torch.int32, device="meta")
+    sess = Session(TS.make_prefill_step(cfg), (T.param_specs(cfg),
+                                               {"tokens": tokens}),
+                   plan_store=store)
+    out = {"pid": os.getpid(), "fingerprint": sess.fingerprint,
+           "ops": len(sess.artifacts.prog.ops),
+           "trace_seconds": time.perf_counter() - t0}
+    req = Request(mesh=MeshSpec(("data", "model"), (1, 1)),
+                  backend="portfolio", search_config=store_portfolio())
+    if written is None:
+        co = sess.co_search(req, STORE_DEVICES, pods=STORE_PODS)
+        plans = {mesh_label(m.as_dict()): p for m, p in co.plans.items()}
+        plans["1x1"] = sess.partition(req)
+        if any(p.cached for p in plans.values()):
+            raise AssertionError("a fresh plan store held a plan")
+        mp = co.best_multi_pod()
+        out.update(
+            rows=co.rows, co_seconds=co.seconds,
+            best_mesh=None if co.best_mesh is None
+            else mesh_label(co.best_mesh.as_dict()),
+            best_multi_pod=None if mp is None
+            else [mesh_label(mp[0].as_dict()), mp[1].cost],
+            winners={k: p.eval_stats["portfolio"]["winner"]
+                     for k, p in plans.items()},
+            early_stopped={k: p.eval_stats["portfolio"]["early_stopped"]
+                           for k, p in plans.items()},
+            plans={k: p.to_json() for k, p in plans.items()},
+            entries=len(store), stats=store.stats.as_dict())
+    else:
+        if out["pid"] == written["pid"]:
+            raise AssertionError("the store's read job ran in the process "
+                                 "that wrote it")
+        if out["fingerprint"] != written["fingerprint"]:
+            raise AssertionError(
+                f"the fingerprint differs across processes: "
+                f"{out['fingerprint']} != {written['fingerprint']}")
+        plans = {}
+        for label, js in written["plans"].items():
+            want = ShardingPlan.from_json(js)
+            hits = store.stats.hits
+            got = sess.partition(dataclasses.replace(req, mesh=want.mesh))
+            if not got.cached or store.stats.hits != hits + 1:
+                raise AssertionError(f"{label}: no store hit (cached "
+                                     f"{got.cached}, {store.stats})")
+            if without_provenance(got) != without_provenance(want):
+                raise AssertionError(f"{label}: the stored plan differs "
+                                     f"from the one written")
+            plans[label] = got.to_json()
+        if sess._cost_models or store.stats.misses or store.stats.puts:
+            raise AssertionError(f"the read job evaluated: "
+                                 f"{len(sess._cost_models)} cost models, "
+                                 f"{store.stats}")
+        out.update(plans={"1x1": plans["1x1"]}, hits=sorted(plans),
+                   stats=store.stats.as_dict())
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def store_jobs(pool, store_dir: str) -> tuple[dict, dict]:
+    """The two store jobs (:func:`store_job`), one after the other, in
+    ``pool`` (one process a job): the write job's result and the read
+    job's."""
+    written = pool.submit(plan_job, "store", STORE_MODEL, None, QWEN_SHAPE,
+                          store_dir=store_dir).result()
+    read = pool.submit(plan_job, "store", STORE_MODEL, None, QWEN_SHAPE,
+                       store_dir=store_dir, written=written).result()
+    return written, read
+
+
+def drive_store(torch, counters, card, jobs, want_logits) -> dict:
+    """Phase 7j: report the co-search and the store's hits of the two
+    store jobs (:func:`store_jobs`), then answer one request of the
+    prefill path
+    through the 1x1 plan the second read from the store, captured,
+    with the seed's weights: 24 attention launches, its last-token
+    logits equal to phase 4's (``want_logits``, its captured 1x1 plan on
+    the same first request) bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.partitioner import ShardingPlan
+    from repro_torch.kernels.ops import launch_counts
+    from repro_torch.models import transformer as T
+    from repro_torch.train.steps import make_prefill_step
+
+    t0 = time.perf_counter()
+    written, read = jobs.result()
+    wait = time.perf_counter() - t0
+    name = STORE_MODEL
+    for row in written["rows"]:
+        line = (f"[co-search {name}] {mesh_label(row['mesh'])}: "
+                f"{row['status']}, peak bound "
+                f"{row['peak_lower_bound_gb']:.3f} GiB")
+        if row["status"] == "ok":
+            label = mesh_label(row["mesh"])
+            line += (f", cost {row['cost']:.6f}, feasible "
+                     f"{row['feasible']}, peak {row['peak_gb']:.3f} GiB, "
+                     f"search {row['search_s']:.3f} s, winner "
+                     f"{written['winners'][label]}, early stopped "
+                     f"{written['early_stopped'][label]}")
+        elif row["status"] == "error":
+            line += f", {row['error']}"
+        log(line)
+    multi = written["best_multi_pod"]
+    log(f"[co-search {name}] {STORE_DEVICES} cards, pods {STORE_PODS}: "
+        f"best mesh {written['best_mesh']}, best multi-pod "
+        + ("none" if multi is None else f"{multi[0]} (cost {multi[1]:.6f})")
+        + f"; 1x1 winner "
+        f"{written['winners']['1x1']}; the write job (pid "
+        f"{written['pid']}): trace {written['trace_seconds']:.1f} s, "
+        f"{written['ops']} ops, co-search {written['co_seconds']:.1f} s, "
+        f"{written['seconds']:.1f} s in all, {written['entries']} store "
+        f"entries, {json.dumps(written['stats'])} (worker process)")
+    log(f"[plan store {name}] the read job (pid {read['pid']}, a fresh "
+        f"process): fingerprint {read['fingerprint'][:16]} equal to the "
+        f"write job's; {len(read['hits'])} hits {read['hits']}, "
+        f"{json.dumps(read['stats'])}, no cost model built, each plan "
+        f"equal to the one written; {read['seconds']:.1f} s")
+    log(f"[plan store {name}] the card waited {wait:.3f} s on the worker")
+
+    plan = ShardingPlan.from_json(read["plans"]["1x1"])
+    chose = {r["site"]: r["impl"] for r in plan.kernel_sites}
+    if not chose or set(chose.values()) != {"cuda"} or \
+            any(not s.startswith("flash_attention:") for s in chose):
+        raise AssertionError(f"the stored 1x1 plan's sites chose {chose}")
+    cfg = dataclasses.replace(get_config(name), use_pallas=True)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    (request,) = prefill_requests(
+        torch, cfg, torch.Generator(device="cuda").manual_seed(1),
+        QWEN_SHAPE, 1)
+    applied = plan.apply(make_prefill_step(cfg))
+    for mod in counters.values():
+        mod.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    logits = applied(params, request)
+    end.record()
+    torch.cuda.synchronize()
+    (graph,) = applied.graphs
+    counts = launch_counts()
+    # the request: its one replay, as many launches as the capture recorded
+    per_request = {k: applied.replays * graph.launches[k] for k in counters}
+    want = {k: cfg.num_layers if k == "flash_attention" else 0
+            for k in counters}
+    if per_request != want or applied.replays != 1 or any(
+            counts[k] != graph.warmup_launches[k] + graph.launches[k]
+            for k in counters):
+        raise AssertionError(
+            f"the stored plan's request launched {per_request} "
+            f"({applied.replays} replays), expected {want}; counters "
+            f"{counts}, warm-up {graph.warmup_launches}")
+    got = logits.float().cpu()
+    if got.shape != (QWEN_SHAPE[0], cfg.vocab_size) or \
+            not torch.isfinite(got).all():
+        raise AssertionError("the stored plan's logits are not finite or "
+                             "misshapen")
+    if not torch.equal(got, want_logits):
+        raise AssertionError(
+            f"the stored plan's logits differ from phase 4's, max|diff| "
+            f"{(got - want_logits).abs().max().item():.3e}")
+    log(f"[plan store {name}] the stored 1x1 plan (sites "
+        f"{json.dumps(chose)}) captured in {graph.seconds:.3f} s, one "
+        f"request of {QWEN_SHAPE[0]} x {QWEN_SHAPE[1]} in "
+        f"{start.elapsed_time(end):.3f} ms with the capture: "
+        f"flash_attention launches {per_request['flash_attention']} = 1 "
+        f"replay x {graph.launches['flash_attention']} recorded (the "
+        f"capture's warm-up {graph.warmup_launches['flash_attention']}); "
+        f"next tokens {got.argmax(-1).tolist()}; last-token logits equal "
+        f"phase 4's captured 1x1 plan's bit for bit")
+    applied.release()
+    del applied, params, logits
+    seconds = time.perf_counter() - t0
+    log(f"[elapsed] plan store phase {seconds:.1f} s on the card's "
+        f"timeline ({card})")
+    return {"launches": per_request, "wait": wait, "seconds": seconds}
 
 
 def plan_of(job: dict, label: str):
@@ -4530,6 +4790,9 @@ def time_lru(lru, torch, gen, card, shape, dtype, route) -> dict:
 
 
 def main(argv=None) -> int:
+    import shutil
+    import tempfile
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the train path's weights and batch")
@@ -4558,8 +4821,16 @@ def main(argv=None) -> int:
     # plans, which one worker took ~80 s to trace and search on a slow host
     pool = concurrent.futures.ProcessPoolExecutor(
         2, mp_context=multiprocessing.get_context("spawn"))
+    # the plan store phase's two jobs (7j), each in a process of its own,
+    # the second started once the first has returned, beside the pool
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_plans_")
+    store_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"),
+        max_tasks_per_child=1)
+    store_chain = concurrent.futures.ThreadPoolExecutor(1)
     try:
-        jobs = {}
+        jobs = {"store": store_chain.submit(store_jobs, store_pool,
+                                            store_dir)}
         # the xLSTM phase runs first on the card, while the workers
         # search the first two prefill steps' plans
         jobs["prefill", XLSTM] = pool.submit(plan_job, "prefill", XLSTM,
@@ -4618,6 +4889,9 @@ def main(argv=None) -> int:
         return run_phases(torch, opts, t_start, jobs)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+        store_pool.shutdown(wait=True, cancel_futures=True)
+        store_chain.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(store_dir, ignore_errors=True)
 
 
 def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
@@ -4747,6 +5021,9 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
         torch, qwen, sessions[qwen.name], QWEN_SHAPE, counters,
         "flash_attention", qwen.num_layers, card)
     check_mesh(torch, qwen.name, mesh[qwen.name], logits)
+    # the first request's logits, which the plan read back from the
+    # store in phase 7j must give again
+    store_want = logits[0].cpu()
     del logits
     torch.cuda.empty_cache()
     drive_decode(torch, *cut_depth(qwen, params, DECODE_DEPTH[qwen.name]),
@@ -4861,6 +5138,12 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
         {name: jobs["family mesh", name].result() for name in FAMILY_MESH})
     torch.cuda.empty_cache()
 
+    # -- 7j: the prefill path's 1x1 plan read back from the plan store ------
+    log(f"[graphs released] before the plan store phase: "
+        f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved")
+    store = drive_store(torch, counters, card, jobs["store"], store_want)
+    torch.cuda.empty_cache()
+
     # -- 8: each kernel's time at its slice shape ----------------------------
     log(f"[elapsed] {time.perf_counter() - t_start:.1f} s before the "
         f"kernel times")
@@ -4889,6 +5172,7 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
         fa_row[f"launches_{key}_train"] = frontend_train[name][
             "launches_per_step"]["flash_attention"]
         fa_row[f"launches_{key}_mesh"] = family_mesh["flash_attention"][name]
+    fa_row["launches_store"] = store["launches"]["flash_attention"]
     # the frontend models' sites: whisper's encoder (4, 1500, 12, 64)
     # non-causal and its decoder causal; phi3_vision's (4, 2048, 32, 96)
     whisper, phi3v = get_config(WHISPER), get_config(PHI3V)
@@ -4961,7 +5245,8 @@ def run_phases(torch, opts, t_start: float, jobs: dict) -> int:
                              (XLSTM, "xlstm"))},
         **{f"launches_{key}_mesh": family_mesh["rg_lru"][name]
            for name, key in ((WHISPER, "whisper"), (PHI3V, "phi3_vision"),
-                             (XLSTM, "xlstm"))}}
+                             (XLSTM, "xlstm"))},
+        "launches_store": store["launches"]["rg_lru"]}
 
     log(f"[routes] rg_lru launches by route on the {hybrid.name} path: "
         + json.dumps(lru_routes))

@@ -20,7 +20,14 @@ set::
 - :class:`Request` is a frozen description of one partitioning problem:
   mesh, hardware, backend + config, ``min_dims`` pruning, logical dim
   names, and user constraints, which seed the search root and prune the
-  action space so every backend inherits them.
+  action space so every backend (mcts, beam, greedy, portfolio, custom)
+  inherits them.  Requests hash into the plan store's key (constraints
+  included), so identical requests on an unchanged program are file
+  reads: ``Session(fn, args, plan_store=dir)`` or
+  ``partition(request, plan_store=dir)`` (``repro_torch.ckpt.plan_store``).
+- :meth:`Session.co_search` chooses the mesh factorization of a device
+  budget together with the plan (``repro_torch.core.mesh_search``), all
+  candidates over the session's one analysis.
 - ``plan.apply(fn)`` binds a plan to ``fn``.  For a one-device plan on
   the card it captures each argument signature's step as a CUDA graph
   and replays it, as the reference jits the step per signature;
@@ -33,9 +40,10 @@ set::
 
 :meth:`Session.plan_for_state` materializes a plan for a given sharding
 state without a search, and ``core.partitioner.auto_partition`` is the
-one-shot wrapper over ``Session`` and ``Request``.  Not ported yet: the
-plan store, mesh co-search, the static verifier and learned guidance
-(ROADMAP queue 1, items 13-16).
+one-shot wrapper over ``Session`` and ``Request``.  Not ported yet:
+measured execution, the static verifier (``Session.verify``), learned
+guidance (``Request.guidance``) and the zoo drivers (ROADMAP queue 1,
+items 14-18).
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from repro_torch.core.cost_model import (CostModel, HardwareSpec, MeshSpec,
                                          ShardingState)
 from repro_torch.core.evaluator import IncrementalEvaluator
 from repro_torch.core.ir import program_fingerprint
+from repro_torch.core.mesh_search import MeshCandidate, candidate_meshes
 from repro_torch.core.partitioner import (ShardingPlan, ToastArtifacts,  # noqa: F401
                                           _constraint_specs, _logical_rules,
                                           _state_specs, analyze,
@@ -60,8 +69,8 @@ from repro_torch.core.partitioner import (ShardingPlan, ToastArtifacts,  # noqa:
 from repro_torch.core.search import SearchBackend, get_backend
 
 __all__ = [
-    "Constraint", "ConstraintError", "Forbid", "MeshSpec", "Pin",
-    "Replicate", "Request", "Session", "ShardingPlan",
+    "Constraint", "ConstraintError", "CoSearchResult", "Forbid",
+    "MeshSpec", "Pin", "Replicate", "Request", "Session", "ShardingPlan",
 ]
 
 
@@ -69,14 +78,21 @@ __all__ = [
 class Request:
     """A declarative description of one partitioning problem.
 
+    Frozen and value-like: the request's canonical parameters —
+    ``min_dims``, ``logical_axes`` and the ``constraints`` — key the
+    persistent plan store.  The search *backend* is deliberately not
+    part of the key: reusing a plan another backend found is the point
+    of the store.
+
     Attributes:
         mesh: logical device mesh to shard over.
         hw: hardware roofline constants (per-card FLOP/s, HBM, link
             bandwidth, memory budget); H100 data-sheet defaults.
         backend: search strategy — "mcts" (default), "beam", "greedy",
-            or a ``SearchBackend`` instance.
+            "portfolio", or a ``SearchBackend`` instance.
         search_config: backend-specific config (``MCTSConfig``,
-            ``BeamConfig``, ...); ``None`` means backend defaults.
+            ``BeamConfig``, ``PortfolioConfig``, ...); ``None`` means
+            backend defaults.
         min_dims: action-space pruning threshold — colors occurring on
             fewer dims are not sharded directly (paper uses 10).
         logical_axes: per-input logical dim names — a pytree mirroring
@@ -111,6 +127,68 @@ class Request:
             return None
         return flatten_logical_axes(self.logical_axes)
 
+    def store_params(self) -> dict:
+        """The request parameters that key the plan store.
+
+        Everything that changes the search *outcome* beyond the
+        program x mesh x hardware triple: ``min_dims``, the canonical
+        ``logical_axes``, and the canonical ``constraints``.  See
+        ``repro_torch.ckpt.plan_store.canonical_request_params``.
+
+        Returns:
+            A params dict for ``PlanStore.get`` / ``PlanStore.put``.
+        """
+        return {"min_dims": self.min_dims,
+                "logical_axes": self.flat_logical_axes(),
+                "constraints": self.constraints}
+
+
+@dataclasses.dataclass
+class CoSearchResult:
+    """Outcome of one mesh-shape co-search (:meth:`Session.co_search`).
+
+    Attributes:
+        devices: the device budget the candidates factorize.
+        best_mesh: mesh of the jointly best ``(mesh, plan)`` pair, or
+            ``None`` when no candidate searched successfully.
+        best_plan: the winning plan (``None`` alongside ``best_mesh``).
+        rows: one JSON-friendly record per candidate — mesh, status
+            ("ok" / "pruned" / "error"), cost, feasibility, peak bound,
+            search seconds, cache provenance.
+        plans: searched plans keyed by candidate ``MeshSpec``.
+        candidates: the enumerated (and possibly pruned)
+            ``MeshCandidate`` list, enumeration order.
+        seconds: total co-search wall time.
+    """
+
+    devices: int
+    best_mesh: MeshSpec | None
+    best_plan: ShardingPlan | None
+    rows: list[dict]
+    plans: dict[MeshSpec, ShardingPlan]
+    candidates: list[MeshCandidate]
+    seconds: float
+
+    def best_multi_pod(self) -> tuple[MeshSpec, ShardingPlan] | None:
+        """The best searched candidate whose mesh crosses DCN.
+
+        Returns:
+            The ``(mesh, plan)`` pair with the lowest (feasible-first)
+            cost among candidates with a non-empty ``dcn_axes``, or
+            ``None`` when no multi-pod candidate was searched.
+        """
+        best: tuple | None = None
+        for row in self.rows:
+            if row.get("status") != "ok" or not row["mesh"]["dcn_axes"]:
+                continue
+            mesh = MeshSpec(tuple(row["mesh"]["axes"]),
+                            tuple(row["mesh"]["sizes"]),
+                            tuple(row["mesh"]["dcn_axes"]))
+            key = (not row["feasible"], row["cost"])
+            if best is None or key < best[0]:
+                best = (key, mesh, self.plans[mesh])
+        return None if best is None else (best[1], best[2])
+
 
 class Session:
     """One traced-and-analyzed function, ready for staged partitioning.
@@ -118,12 +196,13 @@ class Session:
     Construction runs the expensive, mesh-independent half of the
     pipeline exactly once: export ``fn`` to the flat tensor IR, run the
     NDA, and build the conflict analysis.  Every :meth:`partition` call
-    then only pays for the search.
+    then only pays for the search (or, with a plan store, a file read).
     """
 
     def __init__(self, fn: Callable, args: tuple = (), *,
                  kwargs: dict | None = None,
-                 artifacts: ToastArtifacts | None = None) -> None:
+                 artifacts: ToastArtifacts | None = None,
+                 plan_store=None) -> None:
         """Trace and analyze ``fn`` once.
 
         Args:
@@ -135,6 +214,9 @@ class Session:
             artifacts: pre-computed
                 :func:`repro_torch.core.partitioner.analyze` artifacts
                 to adopt instead of re-analyzing.
+            plan_store: default ``repro_torch.ckpt.plan_store.PlanStore``
+                (or directory path) consulted by every :meth:`partition`
+                call; per-call override available.
         """
         self.fn = fn
         self.args = args
@@ -142,6 +224,7 @@ class Session:
         t0 = time.perf_counter()
         self.artifacts = artifacts or analyze(fn, args, kwargs)
         self.analysis_seconds = time.perf_counter() - t0
+        self.plan_store = plan_store
         self._fingerprint: str | None = None
         self._cost_models: dict[tuple[MeshSpec, HardwareSpec],
                                 CostModel] = {}
@@ -200,14 +283,18 @@ class Session:
                                    request.flat_logical_axes(),
                                    request.mesh)
 
-    def partition(self, request: Request) -> ShardingPlan:
+    def partition(self, request: Request, *, plan_store=None
+                  ) -> ShardingPlan:
         """Solve one partitioning request against this session's program.
 
         Args:
             request: the partitioning problem to solve.
+            plan_store: per-call plan store override (a ``PlanStore`` or
+                directory path); defaults to the session's.
 
         Returns:
-            A :class:`ShardingPlan` satisfying ``request.constraints``.
+            A :class:`ShardingPlan` satisfying ``request.constraints``;
+            ``plan.cached`` is True when it came from the plan store.
 
         Raises:
             ConstraintError: when the constraints are unsatisfiable or
@@ -222,6 +309,21 @@ class Session:
                 f"logical_axes names {len(flat_names)} inputs but the "
                 f"program has {len(art.prog.inputs)}")
         cs = self.compile_constraints(request)
+
+        store = plan_store if plan_store is not None else self.plan_store
+        store_params = None
+        if store is not None:
+            if not hasattr(store, "get"):
+                from repro_torch.ckpt.plan_store import PlanStore
+                store = PlanStore(store)
+            store_params = request.store_params()
+            hit = store.get(self.fingerprint, request.mesh, request.hw,
+                            store_params)
+            if hit is not None:
+                if request.constraints:
+                    hit.check(request.constraints)
+                return hit
+
         cm = self._cost_model(request.mesh, request.hw)
         actions = self._actions(request.mesh, request.min_dims)
         root = ShardingState()
@@ -233,16 +335,129 @@ class Session:
         result = engine.search(evaluator, actions, request.search_config,
                                root=root)
         elapsed = time.perf_counter() - t0
+
+        eval_stats = evaluator.stats.as_dict()
+        if getattr(result, "members", None) is not None:
+            eval_stats["portfolio"] = {
+                "winner": result.winner,
+                "early_stopped": result.early_stopped,
+                "members": [m.as_dict() for m in result.members],
+            }
         plan = self._build_plan(
             request, result.best_state, cm,
             cost=result.best_cost,
             breakdown=evaluator.evaluate(result.best_state).as_dict(),
             backend=engine.name, search_seconds=elapsed,
-            evaluations=result.evaluations,
-            eval_stats=evaluator.stats.as_dict())
+            evaluations=result.evaluations, eval_stats=eval_stats)
         if request.constraints:
             plan.check(request.constraints)
+        if store is not None:
+            store.put(plan, request.hw, store_params)
         return plan
+
+    def co_search(self, request_template: Request, devices: int, *,
+                  pods: tuple[int, ...] = (1, 2),
+                  max_ici_axes: int = 3,
+                  plan_store=None, verbose: bool = False
+                  ) -> CoSearchResult:
+        """Jointly choose the mesh factorization *and* the plan.
+
+        Enumerates every candidate mesh for the device budget
+        (``repro_torch.core.mesh_search``: divisor factorizations,
+        deduped up to axis renaming, pruned by the replicated-state
+        memory lower bound), searches a plan per surviving candidate
+        with this session's single program analysis — cost models for
+        new meshes are ``CostModel.with_mesh`` clones sharing every
+        static table — and returns the jointly best ``(mesh, plan)``
+        pair.  Costs are comparable across meshes because the paper
+        cost normalizes by the mesh-independent unsharded baseline.
+
+        Args:
+            request_template: request whose ``mesh`` field is replaced
+                by each candidate (backend, hardware, constraints and
+                ``min_dims`` apply to every per-mesh search).
+                Constraints naming axes absent from a candidate mesh
+                fail that candidate only (row status "error").
+            devices: total device budget ``N`` to factorize.
+            pods: pod counts to consider; non-divisors of ``N`` are
+                skipped, ``1`` is the single-pod mesh, counts > 1 add a
+                ``pod`` axis crossing DCN.
+            max_ici_axes: most ICI axes per candidate (≤ 3).
+            plan_store: per-call plan store override (every per-mesh
+                search keys separately — mesh, including ``dcn_axes``,
+                is part of the plan key).
+            verbose: print one line per candidate as searches finish.
+
+        Returns:
+            A :class:`CoSearchResult`; ``best_mesh``/``best_plan`` are
+            ``None`` only when every candidate was pruned or errored.
+        """
+        t0 = time.perf_counter()
+        hw = request_template.hw
+        prog = self.artifacts.prog
+        dim_sizes = {d for t in prog.types.values() for d in t.shape}
+        raw = candidate_meshes(devices, pods=pods,
+                               max_ici_axes=max_ici_axes)
+        if not raw:
+            raise ValueError(
+                f"no candidate meshes for devices={devices} with "
+                f"pods={tuple(pods)} (no pod count divides the budget)")
+        # the unsharded peak is mesh-independent: any candidate's model
+        # (or a fresh one) supplies it for the pruning bound
+        base_peak = self._cost_model(raw[0].mesh, hw)._base_peak
+        cands = candidate_meshes(
+            devices, pods=pods, max_ici_axes=max_ici_axes,
+            dim_sizes=dim_sizes, base_peak=base_peak,
+            memory_budget=hw.hbm_per_chip)
+
+        rows: list[dict] = []
+        plans: dict[MeshSpec, ShardingPlan] = {}
+        best: tuple | None = None
+        for cand in cands:
+            row = {"mesh": cand.mesh.as_dict(),
+                   "mesh_str": cand.mesh_str,
+                   "devices": cand.mesh.num_devices,
+                   "multi_pod": bool(cand.mesh.dcn_axes),
+                   "peak_lower_bound_gb":
+                       round(cand.peak_lower_bound / 2**30, 6),
+                   "pruned": cand.pruned}
+            if cand.pruned:
+                row["status"] = "pruned"
+                rows.append(row)
+                continue
+            request = dataclasses.replace(request_template,
+                                          mesh=cand.mesh)
+            try:
+                plan = self.partition(request, plan_store=plan_store)
+            except Exception as e:                  # noqa: BLE001
+                row.update(status="error", error=repr(e))
+                rows.append(row)
+                continue
+            feasible = bool(plan.breakdown["peak_bytes"]
+                            <= hw.hbm_per_chip)
+            row.update(
+                status="ok", cost=round(plan.cost, 6), feasible=feasible,
+                runtime_est=plan.breakdown["runtime"],
+                peak_gb=round(plan.breakdown["peak_bytes"] / 2**30, 6),
+                search_s=round(plan.search_seconds, 3),
+                cached=plan.cached, backend=plan.backend)
+            rows.append(row)
+            plans[cand.mesh] = plan
+            key = (not feasible, plan.cost)
+            if best is None or key < best[0]:
+                best = (key, cand.mesh, plan)
+            if verbose:
+                print(f"[co-search {cand.mesh_str:>10}"
+                      f"{' dcn' if cand.mesh.dcn_axes else '    '}] "
+                      f"cost={plan.cost:.4f} "
+                      f"feasible={'Y' if feasible else 'N'} "
+                      f"{plan.search_seconds:6.2f}s", flush=True)
+        return CoSearchResult(
+            devices=devices,
+            best_mesh=None if best is None else best[1],
+            best_plan=None if best is None else best[2],
+            rows=rows, plans=plans, candidates=cands,
+            seconds=time.perf_counter() - t0)
 
     def plan_for_state(self, request: Request, state: ShardingState, *,
                        label: str = "manual") -> ShardingPlan:

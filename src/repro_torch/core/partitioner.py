@@ -126,8 +126,8 @@ class ShardingPlan:
         backend: name of the search backend that produced the plan.
         eval_stats: evaluator work counters.
         fingerprint: deterministic program fingerprint.
-        cached: True when the plan came from a plan store (always False
-            until the plan store is ported).
+        cached: True when the plan came from a plan store
+            (``repro_torch.ckpt.plan_store``).
         out_specs: one ``PartitionSpec`` per flattened program output.
         logical_axes: the flattened per-input logical dim names the plan
             was searched with (``None`` when the request declared none).
@@ -809,11 +809,19 @@ def auto_partition(fn: Callable, args: tuple, mesh: MeshSpec, *,
         hw: hardware constants (``None``: the H100 defaults).
         mcts: an ``MCTSConfig`` used when the backend is MCTS and no
             ``search_config`` is given.
-        backend: "mcts" (default), "beam", "greedy", or a
+        backend: "mcts" (default), "beam", "greedy", "portfolio", or a
             ``SearchBackend``.
-        search_config: the backend's config.
-        portfolio: the portfolio runner; not ported (raises).
-        plan_store: a plan store; not ported (raises).
+        search_config: the backend's config (``BeamConfig``,
+            ``PortfolioConfig``, ...).
+        portfolio: convenience switch for the portfolio runner: a
+            ``repro_torch.core.portfolio.PortfolioConfig`` (or ``True``
+            for the default portfolio) instead of setting ``backend``
+            and ``search_config`` separately.
+        plan_store: a ``repro_torch.ckpt.plan_store.PlanStore`` (or a
+            directory path for one).  A plan cached under this
+            program's fingerprint x ``mesh`` x ``hw`` x request key is
+            returned without searching, and fresh plans are stored on
+            the way out.
         min_dims: action-space pruning threshold (``None``: the
             default).
         logical_axes: per-input logical dim names; enables
@@ -822,25 +830,17 @@ def auto_partition(fn: Callable, args: tuple, mesh: MeshSpec, *,
         artifacts: analysis artifacts to reuse (:func:`analyze`).
 
     Returns:
-        The :class:`ShardingPlan`.
-
-    Raises:
-        NotImplementedError: for ``portfolio`` or ``plan_store``: the
-            portfolio runner and the plan store are ROADMAP queue 1,
-            item 13.
+        The :class:`ShardingPlan`; ``plan.cached`` is True when it came
+        from the plan store.
     """
     from repro_torch.api import Request, Session
     from repro_torch.core.actions import DEFAULT_MIN_DIMS
     from repro_torch.core.cost_model import HardwareSpec
     from repro_torch.core.search import get_backend
     if portfolio is not None and portfolio is not False:
-        raise NotImplementedError(
-            "auto_partition(portfolio=...): the portfolio runner is not "
-            "ported yet (ROADMAP queue 1, item 13: core/portfolio.py)")
-    if plan_store is not None:
-        raise NotImplementedError(
-            "auto_partition(plan_store=...): the plan store is not ported "
-            "yet (ROADMAP queue 1, item 13: ckpt/plan_store.py)")
+        backend = "portfolio"
+        if search_config is None and not isinstance(portfolio, bool):
+            search_config = portfolio
     if search_config is None and mcts is not None:
         engine = get_backend(backend)
         if engine.name == "mcts":
@@ -852,5 +852,5 @@ def auto_partition(fn: Callable, args: tuple, mesh: MeshSpec, *,
                       else min_dims,
                       logical_axes=logical_axes,
                       constraints=tuple(constraints))
-    return Session(fn, args, kwargs=kwargs,
-                   artifacts=artifacts).partition(request)
+    return Session(fn, args, kwargs=kwargs, artifacts=artifacts,
+                   plan_store=plan_store).partition(request)

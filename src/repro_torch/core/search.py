@@ -17,8 +17,8 @@ Built-in backends:
 - ``"beam"``   — deterministic beam search over the action DAG; a strong,
   cheap baseline and a regression anchor for MCTS.
 - ``"greedy"`` — beam with width 1 (steepest-descent hill climb).
-- ``"portfolio"`` — registered, but raises until ``core/portfolio.py``
-  is ported (ROADMAP queue 1, item 13).
+- ``"portfolio"`` — a concurrent portfolio of the above over several
+  seeds/budgets with early stopping (``repro_torch.core.portfolio``).
 
 Select with ``auto_partition(..., backend="beam")`` or register custom
 backends via ``register_backend``.
@@ -223,9 +223,8 @@ def _make_mcts() -> SearchBackend:
 
 
 def _make_portfolio() -> SearchBackend:
-    raise NotImplementedError(
-        "the portfolio backend is not ported yet (ROADMAP queue 1, "
-        "item 13: core/portfolio.py); use 'mcts', 'beam' or 'greedy'")
+    from repro_torch.core.portfolio import PortfolioBackend   # lazy: cycle
+    return PortfolioBackend()
 
 
 register_backend("mcts", _make_mcts)

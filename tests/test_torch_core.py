@@ -247,9 +247,28 @@ class TestCopiesDiffer:
         assert (hw.flops_per_chip, hw.hbm_bw, hw.ici_bw, hw.hbm_per_chip) \
             == (989e12, 3.35e12, 450e9, 80e9)
 
-    def test_portfolio_waits_for_its_port(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_search.get_backend("portfolio")
+    def test_portfolio_backend_searches(self):
+        """The ``"portfolio"`` backend runs and gives the reference's best
+        plan (``tests/test_torch_portfolio.py`` holds the rest)."""
+        from repro.core import portfolio as j_pf
+        from repro_torch.core import portfolio as t_pf
+        p = _Pair(jax_program("mlp"))
+        got = {}
+        for name, pf, search, mcts, ev, cm, actions in (
+                ("jax", j_pf, j_search, j_mcts, j_eval, p.jcm, p.ja),
+                ("torch", t_pf, t_search, t_mcts, t_eval, p.tcm, p.ta)):
+            cfg = pf.PortfolioConfig(members=(
+                pf.PortfolioMember("greedy", config=search.BeamConfig()),
+                pf.PortfolioMember("mcts", seed=7, config=mcts.MCTSConfig(
+                    seed=7, rounds=2, trajectories_per_round=8))),
+                max_workers=1)
+            backend = search.get_backend("portfolio")
+            assert backend.name == "portfolio"
+            res = backend.search(ev.IncrementalEvaluator(cm), actions, cfg)
+            got[name] = (state_key(res.best_state), res.best_cost,
+                         res.evaluations, res.winner)
+        assert got["torch"] == got["jax"]
+        assert got["torch"][1] < 1.0
 
     def test_constraints_compile_identically(self):
         from repro.core import constraints as j_constraints

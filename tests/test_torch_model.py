@@ -99,7 +99,7 @@ class TestParams:
         np.testing.assert_array_equal(got.float().numpy(),
                                       np.asarray(x, np.float32))
 
-    def test_unported_block_kinds_raise(self):
+    def test_every_block_kind_builds_its_train_step(self):
         # every block kind is ported (xLSTM item 11a; whisper's encoder,
         # cross-attention and GELU MLP item 11b), trains on one device
         # (items 11d, 11f) and on meshes (items 11e, 11g): the train step

@@ -160,7 +160,7 @@ class TestModel:
         assert "[toast] cost=" in out and "ms/token" in out
         assert out.count("generated=") == 2
 
-    def test_ranks_and_training_are_refused(self, tmp_path):
+    def test_serves_and_trains_on_two_ranks(self, tmp_path):
         # no longer refused: training is ported on one device (item 11f),
         # and both launchers run on two ranks (item 11g), the served
         # tokens equal one process's, the loss within 1e-4

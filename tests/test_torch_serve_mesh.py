@@ -191,9 +191,56 @@ def test_auto_partition_equals_session_partition(backend):
     assert got.cost == want.cost and got.backend == want.backend
 
 
+def cheap_portfolio(pkg):
+    """Greedy and a narrow beam, one thread: the same result every run."""
+    from repro.core import portfolio as jp
+    from repro.core import search as js
+    from repro_torch.core import portfolio as tp
+    from repro_torch.core import search as ts
+    pf, search = (jp, js) if pkg == "jax" else (tp, ts)
+    return pf.PortfolioConfig(members=(
+        pf.PortfolioMember("greedy", config=search.BeamConfig(patience=1)),
+        pf.PortfolioMember("beam", config=search.BeamConfig(width=2,
+                                                            patience=1))),
+        max_workers=1)
+
+
 @pytest.mark.parametrize("kwarg", ["portfolio", "plan_store"])
-def test_auto_partition_refuses_what_is_not_ported(kwarg):
+def test_auto_partition_takes_a_portfolio_and_a_plan_store(kwarg, tmp_path):
+    """``auto_partition(portfolio=...)`` and ``(plan_store=dir)`` give the
+    reference's plans; a second call with the store is a hit."""
+    from repro.core.partitioner import analyze as jax_analyze
+    from repro.core.partitioner import auto_partition as jax_auto_partition
+    from repro_torch.core.partitioner import analyze
     cfg = dataclasses.replace(get_config("qwen2_05b").reduced())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        auto_partition(make_prefill_step(cfg), prefill_args(cfg, "torch"),
-                       MeshSpec(AXES, (1, 2)), **{kwarg: True})
+    jcfg = jax_config("qwen2_05b").reduced()
+    plans = {}
+    for pkg, fn, args, Mesh, Hw, auto, trace in (
+            ("torch", make_prefill_step(cfg), prefill_args(cfg, "torch"),
+             MeshSpec, HardwareSpec, auto_partition, analyze),
+            ("jax", jax_prefill(jcfg), prefill_args(jcfg, "jax"), JMeshSpec,
+             JHardwareSpec, jax_auto_partition, jax_analyze)):
+        # one trace for both calls: the second finds the first's entry
+        kw = dict(hw=Hw(**HW), backend="greedy", artifacts=trace(fn, args))
+        if kwarg == "portfolio":
+            kw.update(portfolio=True, search_config=cheap_portfolio(pkg))
+        else:
+            kw.update(plan_store=str(tmp_path / pkg))
+        plans[pkg] = auto(fn, args, Mesh(AXES, (1, 2)), **kw)
+        if kwarg == "plan_store":
+            assert not plans[pkg].cached
+            again = auto(fn, args, Mesh(AXES, (1, 2)), **kw)
+            assert again.cached and again.state == plans[pkg].state
+    got, want = plans["torch"], plans["jax"]
+    assert [tuple(s) for s in got.in_specs] == \
+        [tuple(s) for s in want.in_specs]
+    assert [tuple(s) for s in got.out_specs] == \
+        [tuple(s) for s in want.out_specs]
+    assert abs(got.cost - want.cost) <= COST_REL_TOL * want.cost
+    assert got.backend == want.backend == (
+        "portfolio" if kwarg == "portfolio" else "greedy")
+    if kwarg == "portfolio":
+        mine, ref = (p.eval_stats["portfolio"] for p in (got, want))
+        assert mine["winner"] == ref["winner"]
+        assert [m["status"] for m in mine["members"]] == \
+            [m["status"] for m in ref["members"]] == ["done", "done"]

@@ -276,7 +276,7 @@ class TestModels:
         assert "[toast] cost=" in out and "ms/token" in out
         assert out.count("generated=") == 2
 
-    def test_two_or_more_ranks_are_refused(self, tmp_path):
+    def test_serves_on_two_ranks(self, tmp_path):
         # no longer refused (item 11g): the serving launcher runs on two
         # ranks, each encoding the frames before placement, the encoder's
         # output replicated; its tokens equal one process's
@@ -284,7 +284,7 @@ class TestModels:
             check_entry_points_on_two_ranks
         check_entry_points_on_two_ranks(ARCH, tmp_path, training=False)
 
-    def test_training_is_refused(self, tmp_path):
+    def test_trains_on_two_ranks(self, tmp_path):
         # training is ported on one device (item 11f) and on meshes (item
         # 11g): the launcher trains on two ranks, the frames placed by the
         # rules as the tokens are, its loss within 1e-4 of one process's

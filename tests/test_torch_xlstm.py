@@ -332,7 +332,7 @@ class TestParams:
         assert not [op for op in prog.ops if op.prim.startswith("kernel:")]
 
     @pytest.mark.parametrize("arch", ["whisper_small", "phi3_vision"])
-    def test_other_families_still_raise(self, arch):
+    def test_other_families_build_their_steps(self, arch):
         # whisper and phi3_vision serve (items 11b, 11c) and train on one
         # device (item 11f) and on meshes (item 11g: their own test
         # files); nothing raises for two or more ranks any more

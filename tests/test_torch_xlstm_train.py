@@ -449,7 +449,7 @@ def test_the_launcher_matches_the_reference_from_one_checkpoint(tmp_path):
                                    err_msg=entry["path"])
 
 
-def test_two_ranks_are_refused_before_a_group_is_joined(tmp_path):
+def test_the_launcher_trains_on_two_ranks(tmp_path):
     # no longer refused (item 11e): the launcher trains the stock reduced
     # model on two ranks, its loss within 1e-4 of one process's (the
     # sLSTM's per-shard loop: tests/test_torch_xlstm_mesh_train.py)
